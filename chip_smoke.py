@@ -6,8 +6,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. The card (nvidia-smi name and power limit), torch and CUDA versions.
 2. Build the CUDA kernels from gvcnn_tf_tpu_torch/csrc with nvcc.
-3. The stem kernel against its plain PyTorch version, at the serving
-   shapes and one H % 4 == 2 shape; kernel and plain times.
+3. The stem kernel against its plain PyTorch version, without and with
+   its epilogue (scale in [0.5, 2], mixed-sign shift, ReLU), at the serving
+   shapes, one H % 4 == 2 shape and one width that is not a multiple of 8;
+   kernel, plain and cuDNN times; the whole `Stem` module (conv + BN + ReLU
+   in the kernel) against the plain conv -> BatchNorm -> ReLU sequence.
 4. The grouping-head kernel against its plain version, both weight modes,
    M in {1, 8, 16}, V in {1, 8, 12}, scores on the j/M edges, empty groups;
    kernel and plain times.
@@ -21,7 +24,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 TF32 is turned off for the whole run (`torch.backends.cudnn.allow_tf32`,
 `torch.backends.cuda.matmul.allow_tf32`), so fp32 comparisons on the card
 are full fp32.  Times are CUDA-event medians of 30 runs after 5 warm-up
-runs (kernels) or host-clock medians of 20 requests (serving).
+runs (kernels; `ms`), torch.profiler kernel durations (`device_ms`), or
+host-clock medians of 20 requests (serving).  `bound_ms` is the larger of
+the bytes the function must move (inputs read once, outputs written once)
+over 3.35 TB/s and its operations over the peak rate for their type (bf16
+tensor cores 989 TFLOP/s; fp32 67 TFLOP/s), from this run's shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or outside a
@@ -33,7 +40,6 @@ from __future__ import annotations
 import io
 import json
 import statistics
-import subprocess
 import sys
 import time
 import urllib.request
@@ -41,11 +47,16 @@ import urllib.request
 import numpy as np
 import torch
 
-WARMUP, RUNS, REQUESTS = 5, 30, 20
+REQUESTS = 20
 # (N, H, W, 3): the B=8 and B=1 serving shapes (N = B x 12 views), then
-# one with H % 4 == 2.  The first is the one timed.
-STEM_SHAPES = [(96, 224, 224, 3), (12, 224, 224, 3), (2, 30, 30, 3)]
+# one with H % 4 == 2 and one whose rows are not 16-byte aligned
+# (W % 8 != 0: the kernel's 2-byte copy path).  The first is the one timed.
+STEM_SHAPES = [(96, 224, 224, 3), (12, 224, 224, 3), (2, 30, 30, 3),
+               (3, 8, 130, 3)]
 STEM_TOL = dict(rtol=1e-2, atol=1e-2)      # bf16 out: one rounding apart
+FORWARDS = 4                               # B=1, 8, 11: 1 + 1 + 2 chunks
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS, FP32_FLOPS = 989e12, 67e12     # dense peaks, the same sheet
 # Slice on the card (bf16 through ~60 conv layers) vs the CPU in fp32.
 # Predicted from a bf16-vs-fp32 run on the CPU at 112x112: logits drift
 # ~0.6% of max|logit|, scores ~3e-4.  The bounds leave 5x / 15x room.
@@ -57,28 +68,18 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, runs=RUNS, warmup=WARMUP):
-    """Median device time of fn() in ms, CUDA events around each run."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_card():
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip()
+    from gvcnn_tf_tpu_torch.tools.measure import card_line
+
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {torch.cuda.get_device_name(0)}, "
@@ -98,29 +99,107 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
+def _bf16_ulp(t):
+    """Spacing of bf16 numbers at |t| (t float32)."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _check_stem_epilogue(got, want, conv, scale):
+    """The kernel rounds relu(acc * scale + shift) once; the plain version
+    rounds the conv, then the result.  They may differ by |scale| x one bf16
+    ulp of the conv output, plus one ulp of the result, plus |scale| x 1e-5
+    for fp32 sums taken in another order."""
+    tol = scale.abs() * (_bf16_ulp(conv) + 1e-5) + _bf16_ulp(want)
+    excess = ((got.float() - want).abs() - tol).max().item()
+    if excess > 0:
+        raise AssertionError(f"stem epilogue off by {excess:.3g} past its "
+                             "bound")
+
+
 def phase_stem(dev):
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import Stem
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
     from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv, stem_conv_plain
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_us
 
     rs = np.random.RandomState(0)
     w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(np.float32))
     w = w.to(dev, torch.bfloat16)
+    scale = torch.from_numpy(rs.uniform(0.5, 2.0, 64).astype(np.float32))
+    shift = torch.from_numpy(rs.uniform(-1.0, 1.0, 64).astype(np.float32))
+    scale, shift = scale.to(dev), shift.to(dev)
     max_err, timed = 0.0, None
     for shape in STEM_SHAPES:
         x = torch.from_numpy(rs.uniform(-1, 1, shape).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
         with torch.inference_mode():
             got = stem_conv(x, w)
+            fused = stem_conv(x, w, scale, shift, relu=True)
             torch.cuda.synchronize()
             want = stem_conv_plain(x, w)
             torch.testing.assert_close(got.float(), want.float(), **STEM_TOL)
+            want_fused = stem_conv_plain(x, w, scale, shift, relu=True)
+            _check_stem_epilogue(fused, want_fused.float(), want.float(),
+                                 scale)
             err = (got.float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: stem_conv(x, w))
-            plain_ms = cuda_ms(lambda: stem_conv_plain(x, w))
-        max_err = max(max_err, err)
-        log(f"stem {shape}: max|err| {err:.3g}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
-        timed = timed or (ms, plain_ms)
-    return {"max_abs_err": max_err, "ms": timed[0], "plain_ms": timed[1]}
+            efused = (fused.float() - want_fused.float()).abs().max().item()
+        max_err = max(max_err, err, efused)
+        log(f"stem {shape}: max|err| {err:.3g} (epilogue {efused:.3g})")
+        if timed is not None:
+            continue
+        n, h, wd, _ = shape
+        ph, pw = same_pads(h, 7, 2), same_pads(wd, 7, 2)
+        with torch.inference_mode():
+            xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+            timed = dict(
+                ms=cuda_ms(lambda: stem_conv(x, w)),
+                epilogue_ms=cuda_ms(
+                    lambda: stem_conv(x, w, scale, shift, relu=True)),
+                plain_ms=cuda_ms(lambda: stem_conv_plain(x, w)),
+                library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2)),
+                device_ms=kernel_us(lambda: stem_conv(x, w),
+                                    "stem_conv")[0] / 1e3)
+        out_bytes = got.numel() * 2
+        timed["bound_ms"], timed["bound_by"] = bound(
+            x.numel() * 2 + w.numel() * 2 + out_bytes,
+            2 * got.numel() * 147, BF16_FLOPS)
+        log(f"stem {shape}: kernel {timed['ms']:.4f} ms (with epilogue "
+            f"{timed['epilogue_ms']:.4f}, device {timed['device_ms']:.4f}), "
+            f"plain {timed['plain_ms']:.4f} ms, cuDNN conv on pre-padded "
+            f"input {timed['library_ms']:.4f} ms, bound "
+            f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+
+        # The whole Conv2d_1a_7x7 layer: conv + BN + ReLU in the kernel, vs
+        # the plain conv, then BatchNorm and ReLU as two more passes.
+        stem = Stem().eval()
+        with torch.no_grad():
+            stem.conv.weight.copy_(w.float().cpu())
+            stem.BatchNorm.bias.copy_(torch.from_numpy(
+                rs.randn(64).astype(np.float32)))
+            stem.BatchNorm.running_mean.copy_(torch.from_numpy(
+                rs.randn(64).astype(np.float32)))
+            stem.BatchNorm.running_var.copy_(torch.from_numpy(
+                rs.uniform(0.25, 4.0, 64).astype(np.float32)))
+        stem.conv.to(torch.bfloat16)
+        stem.to(dev)
+
+        def plain_layer():
+            y = stem_conv_plain(x, stem.conv.weight).permute(0, 3, 1, 2)
+            return F.relu(stem.BatchNorm(y))
+
+        with torch.inference_mode():
+            layer = stem(x)
+            ref = plain_layer()
+            torch.testing.assert_close(layer.float(), ref.float(),
+                                       rtol=2e-2, atol=5e-2)
+            timed["layer_ms"] = cuda_ms(lambda: stem(x))
+            timed["plain_layer_ms"] = cuda_ms(plain_layer)
+        log(f"Stem module {shape}: {timed['layer_ms']:.4f} ms; plain conv "
+            f"-> BatchNorm -> ReLU {timed['plain_layer_ms']:.4f} ms")
+    return dict(max_abs_err=max_err, **timed)
 
 
 def _clear_scores(rs, b, v, m):
@@ -140,6 +219,7 @@ def phase_grouping(dev):
         group_and_fuse,
         group_and_fuse_plain,
     )
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_us
 
     rs = np.random.RandomState(1)
     cases = [(8, 12, 1024, 8, mode, False) for mode in ("mean", "ceil_sum")]
@@ -166,14 +246,25 @@ def phase_grouping(dev):
         raise AssertionError("no case had an empty group")
     log(f"grouping: {len(cases)} cases match, max|err| {max_err:.3g}")
 
-    s = torch.from_numpy(_clear_scores(rs, 8, 12, 8)).to(dev)
-    d = torch.from_numpy(rs.randn(8, 12, 1024).astype(np.float32)).to(dev)
+    b, v, c, m = 8, 12, 1024, 8
+    s = torch.from_numpy(_clear_scores(rs, b, v, m)).to(dev)
+    d = torch.from_numpy(rs.randn(b, v, c).astype(np.float32)).to(dev)
     with torch.inference_mode():
-        ms = cuda_ms(lambda: group_and_fuse(s, d, 8))
-        plain_ms = cuda_ms(lambda: group_and_fuse_plain(s, d, 8))
-    log(f"grouping (8, 12, 1024, M=8): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        ms = cuda_ms(lambda: group_and_fuse(s, d, m))
+        device_ms = kernel_us(lambda: group_and_fuse(s, d, m),
+                              "group_and_fuse")[0] / 1e3
+        plain_ms = cuda_ms(lambda: group_and_fuse_plain(s, d, m))
+    # Reads scores and descriptors, writes fused, weights and scheme; per
+    # channel V compares and maxima and M multiply-adds in fp32.
+    bound_ms, bound_by = bound(
+        4 * (b * v + b * v * c + b * c + b * m + b * m * v),
+        b * c * (2 * v + 2 * m), FP32_FLOPS)
+    log(f"grouping ({b}, {v}, {c}, M={m}): kernel {ms:.4f} ms (device "
+        f"{device_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+        f"ms ({bound_by})")
+    return dict(max_abs_err=max_err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def _post(url, views):
@@ -228,11 +319,12 @@ def phase_slice(card):
             _check_results(_post(url, views), n, d.num_views)
         launches = {"stem": stem_conv.launches,
                     "grouping": group_and_fuse.launches}
-        log(f"launches over the B=1, 8, 11 requests: {launches}")
+        log(f"launches over the B=1, 8, 11 requests: {launches} in "
+            f"{FORWARDS} forwards")
         # 1 + 1 + 2 chunks (11 = 8 + 3 padded to 8), one launch each.
-        if launches != {"stem": 4, "grouping": 4}:
-            raise AssertionError(f"expected 4 launches of each kernel, got "
-                                 f"{launches}")
+        if launches != {"stem": FORWARDS, "grouping": FORWARDS}:
+            raise AssertionError(f"expected {FORWARDS} launches of each "
+                                 f"kernel, got {launches}")
 
         views2 = fl(2)
         logits, scores = engine.logits_and_scores(views2)
@@ -301,11 +393,14 @@ def main():
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_stem.py:93",
-             launches=launches["stem"], **stem),
+             launches=launches["stem"],
+             launches_per_forward=launches["stem"] / FORWARDS, **stem),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_grouping.py:80",
-             launches=launches["grouping"], **grouping),
+             launches=launches["grouping"],
+             launches_per_forward=launches["grouping"] / FORWARDS,
+             **grouping),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,14 +68,39 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._affine = None           # (key, (scale, shift)); scale_shift
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _check_eval(self):
         if self.training:
             raise NotImplementedError(
                 "BatchNorm training mode is not ported yet (ROADMAP §1 "
                 "item 6); call .eval() on the model")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_eval()
         return F.batch_norm(x, self.running_mean, self.running_var,
                             None, self.bias, False, 0.0, self.eps)
+
+    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 (scale, shift) with BN(y) == y * scale + shift:
+        scale = 1 / sqrt(var + eps), shift = bias - mean * scale.
+
+        With grad mode off they are kept until a parameter or statistic
+        changes (storage or version counter), so serving computes them
+        once."""
+        self._check_eval()
+        tensors = (self.bias, self.running_mean, self.running_var)
+        if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+            return self._scale_shift()
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._affine is None or self._affine[0] != key:
+            self._affine = (key, self._scale_shift())
+        return self._affine[1]
+
+    def _scale_shift(self):
+        scale = torch.rsqrt(self.running_var + self.eps)
+        return scale, torch.addcmul(self.bias, self.running_mean, scale,
+                                    value=-1.0)
 
 
 class ConvBNReLU(nn.Module):
@@ -97,7 +122,10 @@ class Stem(nn.Module):
     """Conv2d_1a_7x7 through the stem kernel (counterpart of `PallasStem`,
     the same parameters as a `ConvBNReLU(3, 64, 7x7, stride 2)`).
 
-    NHWC (N, H, W, 3) in, NCHW out.  On the card the kernel takes bf16."""
+    NHWC (N, H, W, 3) in, NCHW out.  The BatchNorm and the ReLU run as the
+    kernel's epilogue (`BatchNorm.scale_shift`), so on the card the conv
+    output is written once, in bf16; on the CPU the plain version applies
+    the same affine in fp32 after the conv."""
 
     def __init__(self, features: int = 64):
         super().__init__()
@@ -105,8 +133,10 @@ class Stem(nn.Module):
         self.BatchNorm = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = stem_conv(x, self.conv.weight.to(x.dtype)).permute(0, 3, 1, 2)
-        return F.relu(self.BatchNorm(y))
+        scale, shift = self.BatchNorm.scale_shift()
+        y = stem_conv(x, self.conv.weight.to(x.dtype), scale, shift,
+                      relu=True)
+        return y.permute(0, 3, 1, 2)
 
 
 class InceptionBlock(nn.Module):

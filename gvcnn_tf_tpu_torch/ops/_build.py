@@ -33,8 +33,10 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points; the last argument is the cudaStream_t.
 _SIGNATURES = {
-    # x, w(147,64), out, n, h, w, ho, wo, pad_top, pad_left, stream
-    "stem_conv7x7s2_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w(176,64), scale, shift, out, n, h, w, ho, wo, pad_top, pad_left,
+    # relu, stream
+    "stem_conv7x7s2_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
     # scores, descs, fused, weights, scheme, b, v, c, m, ceil_sum, stream
     "group_and_fuse_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

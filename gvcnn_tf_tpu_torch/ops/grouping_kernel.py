@@ -6,6 +6,7 @@ _pallas_forward`.  The kernel is `csrc/grouping.cu` (its source note says
 what bounds it on the H100 and what the design does about it); the plain
 version is `ops/grouping.py::group_and_fuse`.
 
+The kernel's grid is (B, ceil(C / 128)) blocks, one channel a thread.
 `group_and_fuse` runs the plain version for CPU tensors only.  For CUDA
 tensors it launches the kernel or raises: it never falls back.  The kernel
 is forward-only; the backward pass comes with training, so a CUDA call that
@@ -64,21 +65,24 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
         return group_and_fuse_plain(scores, descs, num_group, weight_mode)
     if scores.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {scores.device}")
+    if scores.device.index != torch.cuda.current_device():
+        with torch.cuda.device(scores.device):
+            return group_and_fuse(scores, descs, num_group, weight_mode)
     _check_cuda_args(scores, descs, num_group, weight_mode)
     b, v, c = descs.shape
-    kw = dict(dtype=torch.float32, device=descs.device)
-    fused = torch.empty((b, c), **kw)
-    weights = torch.empty((b, num_group), **kw)
-    scheme = torch.empty((b, num_group, v), **kw)
+    m = num_group
+    # One allocation holds the three contiguous outputs back to back.
+    out = torch.empty(b * (c + m + m * v), dtype=torch.float32,
+                      device=descs.device)
+    fused = out.as_strided((b, c), (c, 1))
+    weights = out.as_strided((b, m), (m, 1), b * c)
+    scheme = out.as_strided((b, m, v), (m * v, v, 1), b * (c + m))
     if b == 0:
         return fused, weights, scheme
-    lib = _build.library()
-    with torch.cuda.device(descs.device):
-        stream = torch.cuda.current_stream(descs.device).cuda_stream
-        code = lib.group_and_fuse_f32(
-            scores.data_ptr(), descs.data_ptr(), fused.data_ptr(),
-            weights.data_ptr(), scheme.data_ptr(), b, v, c, num_group,
-            _MODES[weight_mode], stream)
+    code = _build.library().group_and_fuse_f32(
+        scores.data_ptr(), descs.data_ptr(), fused.data_ptr(),
+        weights.data_ptr(), scheme.data_ptr(), b, v, c, m,
+        _MODES[weight_mode], torch.cuda.current_stream().cuda_stream)
     _build.check(code, KERNEL_NAME)
     group_and_fuse.launches += 1
     return fused, weights, scheme

@@ -3,11 +3,18 @@ as a hand-written CUDA kernel, with its plain PyTorch version.
 
 Replaces the TPU kernel `gvcnn_tf_tpu/ops/pallas_stem.py::_stem_fwd`.  The
 kernel is `csrc/stem_conv.cu` (its source note says what bounds it on the
-H100 and what the design does about it): bf16 NHWC in, fp32 accumulation,
-bf16 NHWC out.  Both functions take the input NHWC (N, H, W, 3) and the
-weight in the port's OIHW layout (64, 3, 7, 7), and return NHWC
-(N, ceil(H/2), ceil(W/2), 64); a `.permute(0, 3, 1, 2)` of the result is a
-channels-last NCHW tensor, with no copy.
+H100 and what the design does about it): an implicit GEMM on the tensor
+cores, bf16 NHWC in, fp32 accumulation, bf16 NHWC out.  Both functions take
+the input NHWC (N, H, W, 3) and the weight in the port's OIHW layout
+(64, 3, 7, 7), and return NHWC (N, ceil(H/2), ceil(W/2), 64); a
+`.permute(0, 3, 1, 2)` of the result is a channels-last NCHW tensor, with
+no copy.
+
+Optional epilogue: a per-channel fp32 `scale` and `shift` and a `relu`
+flag, out = relu(conv * scale + shift).  With scale = 1 / sqrt(var + eps)
+and shift = bias - mean * scale it is eval-mode BatchNorm and its ReLU
+(`BatchNorm.scale_shift`); the kernel applies it to the fp32 accumulator
+and rounds once.
 
 `stem_conv` runs the plain version for a CPU tensor only.  For a CUDA tensor
 it launches the kernel or raises: it never falls back.  The backward pass
@@ -17,6 +24,8 @@ gradient raises too.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -25,18 +34,53 @@ from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 KERNEL_NAME = "stem_conv7x7s2_bf16"
 _KSIZE, _STRIDE, _CIN, _COUT = 7, 2, 3, 64
+# The kernel's K layout: row kh * 24 + 3 * kw + c; rows kh * 24 + 21..23 and
+# 168..175 are zero, so K = 176 is 11 tensor-core k-steps of 16.
+K_ROW, K_PADDED = 24, 176
+# Widest output row the kernel's shared memory holds (csrc/stem_conv.cu:
+# two 7-row input buffers beside 80,384 fixed bytes, 227 KB a block).
+MAX_OUT_WIDTH = 900
 
 
-def stem_conv_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """`F.conv2d` on explicitly TF-'SAME'-padded input, in x's dtype."""
+def pack_stem_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(64, 3, 7, 7) OIHW -> (176, 64), the kernel's B operand: row
+    kh * 24 + 3 * kw + c holds weight[:, c, kh, kw]; the 3 rows after each
+    kernel row's 21 taps and the last 8 rows are zeros."""
+    taps = weight.permute(2, 3, 1, 0).reshape(_KSIZE, _KSIZE * _CIN, _COUT)
+    packed = weight.new_zeros((K_PADDED, _COUT))
+    packed[:_KSIZE * K_ROW].view(_KSIZE, K_ROW, _COUT)[:, :_KSIZE * _CIN] = taps
+    return packed
+
+
+def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
+    """pack_stem_weight(weight), kept on the weight while its storage and
+    version counter stay the same and grad mode is off, so a serving
+    forward pays no packing launches."""
+    if torch.is_grad_enabled() or weight.is_inference():
+        return pack_stem_weight(weight)
+    key = (weight.data_ptr(), weight._version)
+    hit = getattr(weight, "_stem_packed", None)
+    if hit is None or hit[0] != key:
+        hit = weight._stem_packed = (key, pack_stem_weight(weight))
+    return hit[1]
+
+
+def stem_conv_plain(x: torch.Tensor, weight: torch.Tensor,
+                    scale: Optional[torch.Tensor] = None,
+                    shift: Optional[torch.Tensor] = None,
+                    relu: bool = False) -> torch.Tensor:
+    """`F.conv2d` on explicitly TF-'SAME'-padded input, in x's dtype; then,
+    if given, the affine in fp32 and the ReLU, returned in x's dtype."""
     ph = same_pads(x.shape[1], _KSIZE, _STRIDE)
     pw = same_pads(x.shape[2], _KSIZE, _STRIDE)
     xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(xn, weight.to(x.dtype), stride=_STRIDE)
-    return y.permute(0, 2, 3, 1)
+    y = F.conv2d(xn, weight.to(x.dtype), stride=_STRIDE).permute(0, 2, 3, 1)
+    if scale is not None:
+        y = (y.float() * scale + shift).to(x.dtype)
+    return F.relu(y) if relu else y
 
 
-def _check_cuda_args(x: torch.Tensor, weight: torch.Tensor):
+def _check_cuda_args(x, weight, scale, shift):
     if x.dim() != 4 or x.shape[-1] != _CIN:
         raise ValueError(f"{KERNEL_NAME}: x must be (N, H, W, 3), got "
                          f"{tuple(x.shape)}")
@@ -51,38 +95,59 @@ def _check_cuda_args(x: torch.Tensor, weight: torch.Tensor):
                          f"{weight.device}")
     if not x.is_contiguous():
         raise ValueError(f"{KERNEL_NAME}: x must be contiguous NHWC")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+    if -(-x.shape[2] // _STRIDE) > MAX_OUT_WIDTH:
+        raise ValueError(f"{KERNEL_NAME}: W = {x.shape[2]} is wider than "
+                         f"the kernel takes ({2 * MAX_OUT_WIDTH})")
+    affine = (scale, shift)
+    if (scale is None) != (shift is None):
+        raise ValueError(f"{KERNEL_NAME}: give both scale and shift, or "
+                         "neither")
+    if scale is not None:
+        for t in affine:
+            if (t.shape != (_COUT,) or t.dtype != torch.float32
+                    or t.device != x.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"{KERNEL_NAME}: scale and shift must be contiguous "
+                    f"float32 (64,) on {x.device}, got {tuple(t.shape)} "
+                    f"{t.dtype} on {t.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight) + affine):
         raise NotImplementedError(
             f"{KERNEL_NAME}: the backward pass is not ported yet (ROADMAP "
             "§2, K2 backward); call it under torch.inference_mode()")
 
 
-def stem_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """x (N, H, W, 3), weight (64, 3, 7, 7) -> (N, Ho, Wo, 64), NHWC.
+def stem_conv(x: torch.Tensor, weight: torch.Tensor,
+              scale: Optional[torch.Tensor] = None,
+              shift: Optional[torch.Tensor] = None,
+              relu: bool = False) -> torch.Tensor:
+    """x (N, H, W, 3), weight (64, 3, 7, 7) -> (N, Ho, Wo, 64), NHWC, with
+    the optional epilogue relu(conv * scale + shift).
 
     CPU: the plain version, in x's dtype.  CUDA: the kernel, bf16 only.
     """
     if x.device.type == "cpu":
-        return stem_conv_plain(x, weight)
+        return stem_conv_plain(x, weight, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {x.device}")
-    _check_cuda_args(x, weight)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return stem_conv(x, weight, scale, shift, relu)
+    _check_cuda_args(x, weight, scale, shift)
     n, h, w, _ = x.shape
     ho, wo = -(-h // _STRIDE), -(-w // _STRIDE)
     out = torch.empty((n, ho, wo, _COUT), dtype=torch.bfloat16,
                       device=x.device)
     if out.numel() == 0:
         return out
-    # (64, 3, 7, 7) -> (7, 7, 3, 64) -> (147, 64): row (kh * 7 + kw) * 3 + c.
-    w147 = weight.permute(2, 3, 1, 0).reshape(_KSIZE * _KSIZE * _CIN, _COUT)
-    w147 = w147.contiguous()
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.stem_conv7x7s2_bf16(
-            x.data_ptr(), w147.data_ptr(), out.data_ptr(), n, h, w, ho, wo,
-            same_pads(h, _KSIZE, _STRIDE)[0], same_pads(w, _KSIZE, _STRIDE)[0],
-            stream)
+    packed = _packed_weight(weight)
+    code = _build.library().stem_conv7x7s2_bf16(
+        x.data_ptr(), packed.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(), out.data_ptr(),
+        n, h, w, ho, wo, same_pads(h, _KSIZE, _STRIDE)[0],
+        same_pads(w, _KSIZE, _STRIDE)[0], int(relu),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(code, KERNEL_NAME)
     stem_conv.launches += 1
     return out

@@ -9,7 +9,8 @@ skip it there):
         tests/test_torch_cuda_kernels.py
 
 Tolerances: the stem (bf16 out, both sides accumulate in fp32) rtol = atol
-= 1e-2, one bf16 rounding apart; the grouping head (fp32) scheme exact,
+= 1e-2, one bf16 rounding apart; with the epilogue, the bound stated in
+`test_stem_epilogue_matches_plain`; the grouping head (fp32) scheme exact,
 weights rtol 1e-6, fused rtol 1e-5 / atol 1e-6.  TF32 is turned off for the
 fp32 comparisons, so the plain version's einsums run in full fp32.
 """
@@ -18,6 +19,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch.nn.functional as F  # noqa: E402
 
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import (  # noqa: E402
     group_and_fuse,
@@ -44,8 +47,15 @@ def cuda():
      torch.backends.cudnn.allow_tf32) = tf32
 
 
-@pytest.mark.parametrize("shape", [(12, 224, 224, 3), (2, 30, 30, 3),
-                                   (1, 31, 33, 3), (3, 8, 130, 3)])
+# (12, 224, 224): the B=1 serving shape; (5, 224, 224): 140 tiles, not a
+# multiple of a persistent grid of 132 blocks; W = 224 and 32 take the
+# 16-byte cp.async row path, W = 30, 130 (W % 8 != 0) and 33 (odd) the
+# 2-byte one; H = 30 has H % 4 == 2.
+STEM_SHAPES = [(12, 224, 224, 3), (2, 30, 30, 3), (1, 31, 33, 3),
+               (3, 8, 130, 3), (5, 224, 224, 3), (2, 32, 32, 3)]
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_kernel_matches_plain(cuda, shape):
     rs = np.random.RandomState(sum(shape))
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
@@ -60,6 +70,79 @@ def test_stem_kernel_matches_plain(cuda, shape):
     assert got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
+
+
+def _bf16_ulp(t):
+    """Spacing of bf16 numbers at |t| (t float32)."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_stem_epilogue_matches_plain(cuda, shape, relu):
+    """Kernel: relu(acc * scale + shift) from the fp32 accumulator, rounded
+    to bf16 once.  Plain: the conv rounded to bf16, then the affine in fp32,
+    then the ReLU, rounded again.  So they may differ by |scale| x one bf16
+    ulp of the conv output, plus one bf16 ulp of the result, plus
+    |scale| x 1e-5 for the two fp32 sums taken in another order."""
+    rs = np.random.RandomState(sum(shape) + relu)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(np.float32))
+    scale = torch.from_numpy(rs.uniform(0.5, 2.0, 64).astype(np.float32))
+    shift = torch.from_numpy(rs.uniform(-1.0, 1.0, 64).astype(np.float32))
+    xd, wd = x.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
+    sd, hd = scale.to(cuda), shift.to(cuda)
+    before = stem_conv.launches
+    with torch.inference_mode():
+        got = stem_conv(xd, wd, sd, hd, relu=relu)
+        torch.cuda.synchronize()
+        want = stem_conv_plain(xd, wd, sd, hd, relu=relu).float()
+        conv = stem_conv_plain(xd, wd).float()
+    assert stem_conv.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    bound = sd.abs() * (_bf16_ulp(conv) + 1e-5) + _bf16_ulp(want)
+    err = (got.float() - want).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    if relu:
+        assert bool((got >= 0).all()) and bool((got == 0).any())
+    else:
+        assert bool((got < 0).any())
+
+
+def test_stem_module_runs_the_epilogue_in_the_kernel(cuda):
+    """Stem.forward in eval mode: one stem launch with the BatchNorm and
+    ReLU as its epilogue, and no batch_norm or relu kernel after it."""
+    from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import Stem
+
+    rs = np.random.RandomState(3)
+    stem = Stem().eval()
+    with torch.no_grad():
+        stem.conv.weight.copy_(torch.from_numpy(
+            (rs.randn(64, 3, 7, 7) * 0.1).astype(np.float32)))
+        stem.BatchNorm.bias.copy_(torch.from_numpy(
+            rs.randn(64).astype(np.float32)))
+        stem.BatchNorm.running_mean.copy_(torch.from_numpy(
+            rs.randn(64).astype(np.float32)))
+        stem.BatchNorm.running_var.copy_(torch.from_numpy(
+            rs.uniform(0.25, 4.0, 64).astype(np.float32)))
+    stem.conv.to(torch.bfloat16)
+    stem.to(cuda)
+    x = torch.from_numpy(rs.randn(2, 64, 64, 3).astype(np.float32))
+    xd = x.to(cuda, torch.bfloat16)
+    launches = stem_conv.launches
+    with torch.inference_mode():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got = stem(xd)
+        torch.cuda.synchronize()
+        y = stem_conv_plain(xd, stem.conv.weight).permute(0, 3, 1, 2)
+        want = F.relu(stem.BatchNorm(y))
+    assert stem_conv.launches == launches + 1
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::batch_norm", "aten::relu", "aten::relu_"}, ops
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=5e-2)
 
 
 def test_stem_kernel_refuses_what_it_does_not_take(cuda):
@@ -87,8 +170,12 @@ def _edge_scores(b, v, m):
 
 
 @pytest.mark.parametrize("mode", ["mean", "ceil_sum"])
+# B = 1 at C = 1024 (8 channel tiles), a ragged last tile (C = 300), C <
+# 128 (64, 100: one tile), M in {1, 8, 16}.
 @pytest.mark.parametrize("b,v,c,m", [(8, 12, 1024, 8), (3, 1, 64, 1),
-                                     (2, 8, 1024, 16), (1, 12, 300, 8)])
+                                     (2, 8, 1024, 16), (1, 12, 300, 8),
+                                     (1, 12, 1024, 8), (1, 12, 100, 16),
+                                     (4, 16, 300, 1), (1, 12, 300, 16)])
 @pytest.mark.parametrize("edges", [False, True])
 def test_grouping_kernel_matches_plain(cuda, mode, b, v, c, m, edges):
     rs = np.random.RandomState(b * v + m)

@@ -42,8 +42,10 @@ from gvcnn_tf_tpu_torch.bridge import (  # noqa: E402
 from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (  # noqa: E402
     ENDPOINTS,
     BatchNorm,
+    Stem,
 )
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model  # noqa: E402
+from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv_plain  # noqa: E402
 from gvcnn_tf_tpu_torch.utils import fold_batch_norm  # noqa: E402
 
 B, V, H = 2, 4, 64
@@ -70,11 +72,18 @@ def _calibrate_bn(model, x, rs):
         bn.running_mean.copy_(mean)
         bn.running_var.copy_(sq + sq.mean())
 
+    def stem_hook(stem, args):
+        # The stem runs its BatchNorm as the conv's epilogue, not as a call.
+        y = stem_conv_plain(args[0], stem.conv.weight)
+        hook(stem.BatchNorm, (y.permute(0, 3, 1, 2),))
+
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.bias.copy_(torch.from_numpy(
                 rs.normal(0, 0.1, m.bias.shape).astype(np.float32)))
             handles.append(m.register_forward_pre_hook(hook))
+        elif isinstance(m, Stem):
+            handles.append(m.register_forward_pre_hook(stem_hook))
     model(x)
     for h in handles:
         h.remove()
