@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -20,6 +21,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    requests; the card's logits and scores for a B=2 request against the
    same weights run in fp32 on the CPU through the plain versions; request
    latency at B=1 and B=8.
+6. The stem kernel's autograd Function (kernel forward, cuDNN weight
+   gradient backward) against autograd through the plain version: dw at the
+   B=8 training shape (96, 224, 224, 3) and at (2, 30, 30, 3) and
+   (3, 8, 130, 3), and dx where x needs a gradient; the Function's forward
+   + backward, its backward alone, and cuDNN's weight gradient alone.
+7. The grouping kernel's autograd Function against autograd through the
+   plain version: both modes, M in {1, 8, 16}, scores on the j/M edges,
+   empty groups; forward + backward and backward alone.
+8. The training slice: `train()` of mn40_12view at full width (B=8, 12
+   views of 224x224, bf16, momentum SGD, dropout 0.8, the synthetic stream)
+   into a scratch train_logdir for TRAIN_STEPS steps, then a second call
+   that resumes from its last checkpoint for RESUME_STEPS more; the loss
+   finite, parameters and BN statistics moved, one launch of each kernel a
+   step, the resume at the right step.  One train step at B=2, full width,
+   on the card (bf16) against the same seeded weights and batch in fp32 on
+   the CPU through the plain versions.  Overfit: Adam at lr 1e-3, 30 steps
+   on one fixed B=8 batch; the last loss below half the first.  The step
+   time (CUDA events, median of 20 steps on a batch already on the card)
+   and views/s.
 
 TF32 is turned off for the whole run (`torch.backends.cudnn.allow_tf32`,
 `torch.backends.cuda.matmul.allow_tf32`), so fp32 comparisons on the card
@@ -62,6 +82,20 @@ BF16_FLOPS, FP32_FLOPS = 989e12, 67e12     # dense peaks, the same sheet
 # ~0.6% of max|logit|, scores ~3e-4.  The bounds leave 5x / 15x room.
 LOGIT_REL_TOL = 3e-2
 SCORE_ABS_TOL = 5e-3
+# One train step, card (bf16) vs CPU (fp32).  Predicted from
+# `measure.py train-drift` (bf16 vs fp32 on the CPU, 64x64, 4 views, B=2):
+# loss 1.58% apart, grad_norm 1.58%, the Logits gradient's cosine 0.9900.
+# Bounds with 3x room or more: 5%, 6%, 1 - cos <= 0.03.  The cosine of all
+# gradients was 0.50 on the CPU (0.57 in the JAX package): at random init
+# the early convs' gradients, which dominate its norm, swing with any
+# rounding of the activations (a 1e-3 perturbation of the input alone gives
+# 0.89 in fp32), so 3x room leaves no bound; it is printed and held to > 0.
+TRAIN_LOSS_REL_TOL = 5e-2
+TRAIN_GNORM_REL_TOL = 6e-2
+TRAIN_LOGITS_COS_MIN = 0.97
+TRAIN_STEPS, RESUME_STEPS = 20, 4
+OVERFIT_STEPS = 30
+STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
 
 
 def log(msg):
@@ -373,6 +407,246 @@ def phase_slice(card):
     return launches
 
 
+def phase_stem_backward(dev):
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv, stem_conv_plain
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+
+    rs = np.random.RandomState(6)
+    w32 = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+        np.float32)).to(dev)
+    max_err, timed = 0.0, None
+    for shape in STEM_GRAD_SHAPES:
+        n, h, wd, _ = shape
+        x = torch.from_numpy(rs.uniform(-1, 1, shape).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        g = torch.from_numpy(rs.randn(n, -(-h // 2), -(-wd // 2), 64).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        need_dx = shape != STEM_GRAD_SHAPES[0]
+        grads = []
+        for fn in (stem_conv, stem_conv_plain):
+            xg = x.clone().requires_grad_(need_dx)
+            w = w32.clone().requires_grad_()
+            fn(xg, w.to(torch.bfloat16)).backward(g)
+            grads.append((w.grad, xg.grad))
+        torch.cuda.synchronize()
+        errs = []
+        for got, want in zip(grads[0], grads[1]):
+            if want is None:
+                continue
+            tol = 1e-2 * want.abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"stem gradient {shape}: max|err| "
+                                     f"{err:.4g} past {tol:.4g}")
+            errs.append(err / want.abs().max().item())
+        max_err = max(max_err, *errs)
+        log(f"stem backward {shape}: dw{' and dx' if need_dx else ''} match "
+            f"autograd through the plain version (max|err| / max "
+            f"{max(errs):.3g}, bound 1e-2)")
+        if timed is not None:
+            continue
+        w = w32.clone().requires_grad_()
+        wb = w.to(torch.bfloat16)
+
+        def fwd_bwd():
+            w.grad = None
+            stem_conv(x, w.to(torch.bfloat16)).backward(g)
+
+        y = stem_conv(x, wb)
+        ph, pw = same_pads(h, 7, 2), same_pads(wd, 7, 2)
+        xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+        gn = g.permute(0, 3, 1, 2)
+        wbd = wb.detach()
+        timed = dict(
+            fwd_bwd_ms=cuda_ms(fwd_bwd),
+            backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                y, wb, g, retain_graph=True)),
+            plain_fwd_bwd_ms=cuda_ms(lambda: stem_conv_plain(
+                x, w.to(torch.bfloat16)).backward(g)),
+            backward_library_ms=cuda_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    gn, xn, wbd, None, [2, 2], [0, 0], [1, 1], False, [0, 0],
+                    1, [False, True, False])))
+        # dw: reads x and the output gradient, writes dw; 147 multiply-adds
+        # per element of the output gradient.
+        timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
+            x.numel() * 2 + g.numel() * 2 + w32.numel() * 2,
+            2 * g.numel() * 147, BF16_FLOPS)
+        log(f"stem backward {shape}: Function forward + backward "
+            f"{timed['fwd_bwd_ms']:.4f} ms (plain "
+            f"{timed['plain_fwd_bwd_ms']:.4f}"
+            f"), backward alone {timed['backward_ms']:.4f} ms, cuDNN weight "
+            f"gradient on pre-padded input {timed['backward_library_ms']:.4f}"
+            f" ms, bound {timed['backward_bound_ms']:.4f} ms "
+            f"({timed['backward_bound_by']})")
+    return dict(grad_max_rel_err=max_err, **timed)
+
+
+def phase_grouping_backward(dev):
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import (
+        group_and_fuse,
+        group_and_fuse_plain,
+    )
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+
+    rs = np.random.RandomState(7)
+    cases = [(8, 12, 1024, m, mode, edges) for m in (1, 8, 16)
+             for mode in ("mean", "ceil_sum") for edges in (False, True)]
+    max_err, empty_seen = 0.0, False
+    for b, v, c, m, mode, edges in cases:
+        scores = _edge_scores(b, v, m) if edges else _clear_scores(rs, b, v, m)
+        d = rs.randn(b, v, c).astype(np.float32)
+        gf = torch.from_numpy(rs.randn(b, c).astype(np.float32)).to(dev)
+        gw = torch.from_numpy(rs.randn(b, m).astype(np.float32)).to(dev)
+        grads = []
+        for fn in (group_and_fuse, group_and_fuse_plain):
+            s = torch.from_numpy(scores).to(dev).requires_grad_()
+            dd = torch.from_numpy(d).to(dev).requires_grad_()
+            fused, weights, scheme = fn(s, dd, m, mode)
+            ((fused * gf).sum() + (weights * gw).sum()).backward()
+            grads.append((s.grad, dd.grad))
+        empty_seen |= bool((scheme.sum(-1) == 0).any())
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            max_err = max(max_err, (got - want).abs().max().item())
+    if not empty_seen:
+        raise AssertionError("no case had an empty group")
+    log(f"grouping backward: {len(cases)} cases match autograd through the "
+        f"plain version, max|err| {max_err:.3g}")
+
+    b, v, c, m = 8, 12, 1024, 8
+    s = torch.from_numpy(_clear_scores(rs, b, v, m)).to(dev).requires_grad_()
+    d = torch.from_numpy(rs.randn(b, v, c).astype(np.float32)).to(dev)
+    d.requires_grad_()
+    gf = torch.ones(b, c, device=dev)
+
+    def fwd_bwd(fn):
+        s.grad = d.grad = None
+        fn(s, d, m)[0].backward(gf)
+
+    fused = group_and_fuse(s, d, m)[0]
+    timed = dict(
+        fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(group_and_fuse)),
+        plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(group_and_fuse_plain)),
+        backward_ms=cuda_ms(lambda: torch.autograd.grad(
+            fused, (s, d), gf, retain_graph=True)))
+    log(f"grouping backward ({b}, {v}, {c}, M={m}): Function forward + "
+        f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
+        f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone (the plain "
+        f"version's VJP replayed) {timed['backward_ms']:.4f} ms")
+    return dict(grad_max_abs_err=max_err, **timed)
+
+
+def _moved(a, b):
+    return [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+
+
+def phase_train(card, dev):
+    import dataclasses
+    import shutil
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+    from gvcnn_tf_tpu_torch.tools.measure import (
+        cuda_ms,
+        train_batch,
+        train_step_drift,
+    )
+    from gvcnn_tf_tpu_torch.train import create_train_state, train, train_step
+
+    logdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(logdir, ignore_errors=True)
+    base = get_config("mn40_12view")
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, train_logdir=str(logdir), log_every=10,
+        checkpoint_every=10))
+    d = cfg.data
+    views = d.batch_size * d.num_views
+
+    # The main path: train(), then a second train() that resumes.
+    t0 = time.perf_counter()
+    stem_conv.launches = group_and_fuse.launches = 0
+    state, mets = train(cfg, num_steps=TRAIN_STEPS, device="cuda")
+    launches = {"stem": stem_conv.launches,
+                "grouping": group_and_fuse.launches}
+    wall = time.perf_counter() - t0
+    log(f"train(): {TRAIN_STEPS} steps in {wall:.1f} s "
+        f"({TRAIN_STEPS * views / wall:.1f} views/s end to end, first step "
+        f"and the synthetic stream's host time included); last {mets}")
+    if not all(np.isfinite(v) for v in mets.values()):
+        raise AssertionError(f"non-finite train metrics {mets}")
+    if launches != {"stem": TRAIN_STEPS, "grouping": TRAIN_STEPS}:
+        raise AssertionError(f"expected {TRAIN_STEPS} launches of each "
+                             f"kernel in {TRAIN_STEPS} steps, got {launches}")
+    init = init_weights(build_model(cfg), cfg.train.seed).state_dict()
+    trained = state.model.state_dict()
+    moved = _moved(init, trained)
+    stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
+    if set(stats) - set(moved) or len(moved) < len(init) // 2:
+        raise AssertionError(f"only {len(moved)} of {len(init)} tensors "
+                             "moved")
+    log(f"{len(moved)} of {len(init)} parameters and statistics moved, every "
+        f"BN statistic among them")
+
+    stem_conv.launches = group_and_fuse.launches = 0
+    resumed, _ = train(cfg, num_steps=TRAIN_STEPS + RESUME_STEPS,
+                       device="cuda")
+    got = (resumed.step, stem_conv.launches, group_and_fuse.launches)
+    if got != (TRAIN_STEPS + RESUME_STEPS, RESUME_STEPS, RESUME_STEPS):
+        raise AssertionError(f"resume: (step, stem, grouping launches) "
+                             f"{got}")
+    log(f"resumed at step {TRAIN_STEPS} and ran {RESUME_STEPS} steps "
+        f"(launches {got[1:]})")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    # Card vs CPU, one step at B=2.
+    small = cfg.replace(data=dataclasses.replace(d, batch_size=2))
+    drift = train_step_drift(small, dev)
+    log(f"B=2 train step, card (bf16) vs CPU (fp32): loss {drift['loss']:.6g}"
+        f" vs {drift['loss_ref']:.6g} (rel {drift['loss_rel']:.3g}, bound "
+        f"{TRAIN_LOSS_REL_TOL}); grad_norm {drift['grad_norm']:.6g} vs "
+        f"{drift['grad_norm_ref']:.6g} (rel {drift['grad_norm_rel']:.3g}, "
+        f"bound {TRAIN_GNORM_REL_TOL}); Logits gradient cosine "
+        f"{drift['logits_grad_cosine']:.5f} (bound {TRAIN_LOGITS_COS_MIN}); "
+        f"all gradients' cosine {drift['grad_cosine']:.4f} (held > 0)")
+    if not (drift["loss_rel"] <= TRAIN_LOSS_REL_TOL
+            and drift["grad_norm_rel"] <= TRAIN_GNORM_REL_TOL
+            and drift["logits_grad_cosine"] >= TRAIN_LOGITS_COS_MIN
+            and drift["grad_cosine"] > 0):
+        raise AssertionError("card and CPU train steps disagree")
+
+    # Overfit one fixed batch with Adam.
+    ocfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, optimizer="adam", learning_rate=1e-3, weight_decay=0.0))
+    ostate = create_train_state(ocfg, dev)
+    batch = train_batch(ocfg, np.random.RandomState(8), dev)
+    losses = [float(train_step(ostate, batch, ocfg)["loss"])
+              for _ in range(OVERFIT_STEPS)]
+    log(f"overfit (Adam 1e-3, B=8): loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f" in {OVERFIT_STEPS} steps")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"overfit: {losses[0]} -> {losses[-1]}")
+
+    # Step time on a batch already on the card (no input pipeline).
+    tstate = create_train_state(cfg, dev)
+    batch = train_batch(cfg, np.random.RandomState(9), dev)
+    stem_conv.launches = group_and_fuse.launches = 0
+    step_ms = cuda_ms(lambda: train_step(tstate, batch, cfg), runs=20,
+                      warmup=5)
+    per_step = {"stem": stem_conv.launches / 25,
+                "grouping": group_and_fuse.launches / 25}
+    log(f"train step B=8: {step_ms:.3f} ms median, {views / step_ms * 1e3:.1f}"
+        f" views/s, launches per step {per_step} [{card}]")
+    return dict(launches=launches, per_step=per_step, step_ms=step_ms,
+                views_per_s=views / step_ms * 1e3, drift=drift)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -389,18 +663,25 @@ def main():
     stem = phase_stem(dev)
     grouping = phase_grouping(dev)
     launches = phase_slice(card)
+    stem_bwd = phase_stem_backward(dev)
+    grouping_bwd = phase_grouping_backward(dev)
+    tr = phase_train(card, dev)
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_stem.py:93",
-             launches=launches["stem"],
-             launches_per_forward=launches["stem"] / FORWARDS, **stem),
+             launches=tr["launches"]["stem"],
+             serve_launches=launches["stem"],
+             launches_per_forward=launches["stem"] / FORWARDS,
+             launches_per_step=tr["per_step"]["stem"], **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_grouping.py:80",
-             launches=launches["grouping"],
+             launches=tr["launches"]["grouping"],
+             serve_launches=launches["grouping"],
              launches_per_forward=launches["grouping"] / FORWARDS,
-             **grouping),
+             launches_per_step=tr["per_step"]["grouping"],
+             backward_library_ms=None, **grouping, **grouping_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -146,6 +146,19 @@ class GVCNNConfig:
         return dataclasses.replace(self, **kw)
 
 
+def resolve_transfer_dtype(config: "GVCNNConfig"):
+    """DataConfig.transfer_dtype -> dtype name for the host-to-device
+    copy, or None for no host-side cast (a copy of the JAX package's rule):
+    "auto" sends bfloat16 exactly when the model computes in bfloat16 (the
+    same bits as the cast on the device, half the bytes); float32 and uint8
+    go as they are."""
+    td = config.data.transfer_dtype
+    if td == "auto":
+        td = ("bfloat16" if config.compute_dtype == "bfloat16"
+              else "float32")
+    return None if td in ("float32", "uint8") else td
+
+
 def _cfg(**kw) -> GVCNNConfig:
     data_kw = kw.pop("data", {})
     train_kw = kw.pop("train", {})

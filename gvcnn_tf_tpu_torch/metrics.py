@@ -1,12 +1,63 @@
-"""Logging for gvcnn_tf_tpu_torch.
+"""Logging and step timing for gvcnn_tf_tpu_torch (counterpart of
+`gvcnn_tf_tpu/metrics.py`).
 
-Only the `log` helper of `gvcnn_tf_tpu/metrics.py`, which the server uses;
-the training writers come with the training port.
+`MetricWriter` prints one JSON line per call, as the JAX package's does,
+and, given a logdir, appends the same line to `<logdir>/metrics.jsonl` (the
+port has no TensorBoard writer).  `StepTimer` is the JAX package's.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import sys
+import time
+from typing import Optional
+
+
+class MetricWriter:
+    def __init__(self, logdir: Optional[str] = None):
+        self.logdir = logdir
+        self._file = None
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            self._file = open(os.path.join(logdir, "metrics.jsonl"), "a")
+
+    def scalars(self, step: int, values: dict):
+        rec = {"step": int(step)}
+        rec.update({k: float(v) for k, v in values.items()})
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if self._file is not None:
+            self._file.write(line + "\n")
+
+    def flush(self):
+        if self._file is not None:
+            self._file.flush()
+
+    def close(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+class StepTimer:
+    """Wall-clock throughput over a window of steps (call after the device
+    has finished the window's work)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def tick(self, n: int = 1):
+        self._steps += n
+
+    def rate(self) -> float:
+        dt = time.perf_counter() - self._t0
+        return self._steps / dt if dt > 0 else float("inf")
 
 
 def log(msg: str):

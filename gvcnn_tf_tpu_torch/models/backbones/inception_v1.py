@@ -14,8 +14,9 @@ Dtypes: convs run in the input's dtype (the weight is cast where it is not
 already that dtype, as Flax casts fp32 params to the compute dtype);
 BatchNorm computes in fp32 and returns the input's dtype, as Flax's does.
 
-Inference only: BatchNorm's training mode (batch statistics and their EMA)
-comes with the training port, and a module left in training mode raises.
+Train and eval mode follow the module's `training` flag: in train mode
+BatchNorm normalizes with the batch's statistics and updates its running
+statistics in place (Flax's `use_running_average=False`).
 """
 
 from __future__ import annotations
@@ -58,28 +59,54 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor,
 
 
 class BatchNorm(nn.Module):
-    """Flax `BatchNorm(use_scale=False)` at inference:
-    y = (x - mean) / sqrt(var + eps) + bias over channel dim 1, computed in
-    fp32 and returned in x's dtype.  Parameters and statistics stay fp32."""
+    """Flax `BatchNorm(use_scale=False)` over channel dim 1, computed in fp32
+    and returned in x's dtype; parameters and statistics stay fp32.
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    Eval: y = (x - running_mean) / sqrt(running_var + eps) + bias.
+    Train (Flax's `use_running_average=False`): y normalized with the
+    batch's mean and biased variance over (N, H, W), in fp32, by PyTorch's
+    fused batch-norm kernel (`native_batch_norm`, which also gives the
+    gradients of x and bias); then in place
+    r <- momentum * r + (1 - momentum) * stat for the running mean and the
+    running *biased* variance, as Flax updates `batch_stats` (torch's own
+    running update would store the unbiased one).  The kernel computes the
+    variance in one Welford pass where Flax takes max(0, E[x^2] - E[x]^2):
+    the same statistic, rounded differently; the variance comes back as
+    1 / invstd^2 - eps, floored at 0.  `momentum` is the EMA decay (slim's
+    0.9997; `config.bn_momentum` overrides it)."""
+
+    def __init__(self, features: int, eps: float = 1e-3,
+                 momentum: float = 0.9997):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        # The fused kernel's unit scale: given no weight, its CUDA backward
+        # returns no bias gradient.  Not part of the state_dict.
+        self.register_buffer("_unit", torch.ones(features), persistent=False)
         self._affine = None           # (key, (scale, shift)); scale_shift
 
     def _check_eval(self):
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet (ROADMAP §1 "
-                "item 6); call .eval() on the model")
+            raise RuntimeError(
+                "BatchNorm.scale_shift is the eval-mode affine; the module "
+                "is in training mode")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            None, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                None, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self._unit, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = torch.clamp(invstd.square().reciprocal() - self.eps,
+                              min=0.0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
+        return y
 
     def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """fp32 (scale, shift) with BN(y) == y * scale + shift:
@@ -122,10 +149,14 @@ class Stem(nn.Module):
     """Conv2d_1a_7x7 through the stem kernel (counterpart of `PallasStem`,
     the same parameters as a `ConvBNReLU(3, 64, 7x7, stride 2)`).
 
-    NHWC (N, H, W, 3) in, NCHW out.  The BatchNorm and the ReLU run as the
-    kernel's epilogue (`BatchNorm.scale_shift`), so on the card the conv
-    output is written once, in bf16; on the CPU the plain version applies
-    the same affine in fp32 after the conv."""
+    NHWC (N, H, W, 3) in, NCHW out.  In eval mode with no gradient to
+    take, the BatchNorm and the ReLU run as the kernel's epilogue
+    (`BatchNorm.scale_shift`), so on the card the conv output is written
+    once, in bf16; on the CPU the plain version applies the same affine in
+    fp32 after the conv.  Otherwise (train mode: batch statistics; or a
+    gradient is needed) the kernel runs without its epilogue, through
+    `StemConvFunction`, and BatchNorm and the ReLU follow as their own
+    passes."""
 
     def __init__(self, features: int = 64):
         super().__init__()
@@ -133,10 +164,14 @@ class Stem(nn.Module):
         self.BatchNorm = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight.to(x.dtype)
+        if self.training or (torch.is_grad_enabled() and (
+                x.requires_grad or w.requires_grad
+                or self.BatchNorm.bias.requires_grad)):
+            y = stem_conv(x, w).permute(0, 3, 1, 2)
+            return F.relu(self.BatchNorm(y))
         scale, shift = self.BatchNorm.scale_shift()
-        y = stem_conv(x, self.conv.weight.to(x.dtype), scale, shift,
-                      relu=True)
-        return y.permute(0, 3, 1, 2)
+        return stem_conv(x, w, scale, shift, relu=True).permute(0, 3, 1, 2)
 
 
 class InceptionBlock(nn.Module):

@@ -10,13 +10,17 @@ Dtypes follow the JAX module: the backbone and the scoring FCN run in
 `config.compute_dtype`; the global average pools, the grouping head and the
 `Logits` layer run in fp32.
 
-Inference only: dropout is the identity at inference and is left out; the
-training port adds it with the train step.
+Train mode (`model.train()`): every BatchNorm uses the batch's statistics
+and updates its running statistics with decay `config.bn_momentum` (None:
+slim's 0.9997), and dropout with keep probability
+`config.dropout_keep_prob` acts on the fused descriptor before `Logits`.
+Its mask comes from the `torch.Generator` the caller passes (the train step
+seeds one from `train.seed` and the step); it cannot match JAX's stream.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,6 +30,7 @@ from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.backbones import get_backbone
 from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (
     _TRUNC_STDDEV,
+    BatchNorm,
     ConvBNReLU,
     Stem,
     trunc_normal_,
@@ -37,6 +42,23 @@ from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
 def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> (N, C) mean over space."""
     return x.mean(dim=(2, 3))
+
+
+def dropout(x: torch.Tensor, keep_prob: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax `nn.Dropout(rate=1 - keep_prob)` in train mode: keep each
+    element with probability keep_prob and scale it by 1 / keep_prob."""
+    if keep_prob >= 1.0:
+        return x
+    if keep_prob <= 0.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator "
+                         "(forward(x, generator=...))")
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def _resolve_endpoints(cfg: GVCNNConfig, backbone_cls) -> Tuple[str, str]:
@@ -88,6 +110,10 @@ class GVCNN(nn.Module):
             backbone_cls.ENDPOINT_CHANNELS[self.raw_endpoint])
         self.Logits = nn.Linear(backbone_cls.ENDPOINT_CHANNELS[final_ep],
                                 config.data.num_classes)
+        if config.bn_momentum is not None:
+            for m in self.modules():
+                if isinstance(m, BatchNorm):
+                    m.momentum = config.bn_momentum
 
     def cast_convs_(self) -> "GVCNN":
         """In place: store every conv weight in the compute dtype, so the
@@ -97,7 +123,10 @@ class GVCNN(nn.Module):
                 m.to(self.compute_dtype)
         return self
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """x (B, V, H, W, 3) -> (logits, end_points); `generator` draws the
+        dropout mask in train mode."""
         cfg = self.config
         B, V = x.shape[:2]
         xf = x.reshape((B * V,) + tuple(x.shape[2:]))
@@ -111,7 +140,9 @@ class GVCNN(nn.Module):
         fused, weights, scheme = group_and_fuse(
             scores.contiguous(), descs.contiguous(), cfg.num_group,
             cfg.group_weight)
-        logits = self.Logits(fused)
+        net = (dropout(fused, cfg.dropout_keep_prob, generator)
+               if self.training else fused)
+        logits = self.Logits(net)
 
         end_points: Dict[str, torch.Tensor] = {
             "view_descriptors": descs,
@@ -171,8 +202,8 @@ def build_model(config: GVCNNConfig) -> GVCNN:
             "have (ROADMAP, 'Not ported'); the stem runs as its CUDA kernel")
     if config.remat_until or config.remat_backbone:
         raise NotImplementedError(
-            "rematerialization (--remat_until, remat_backbone) applies to "
-            "the backward pass, which is not ported (ROADMAP, 'Not ported')")
+            "rematerialization (--remat_until, remat_backbone) is not ported "
+            "(ROADMAP, 'Not ported'): the port keeps the activations")
     if config.merge_inception_branches != "none":
         log(f"merge_inception_branches={config.merge_inception_branches!r}: "
             "same math and parameters as unmerged; the port runs the "

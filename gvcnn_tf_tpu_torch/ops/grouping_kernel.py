@@ -8,9 +8,16 @@ version is `ops/grouping.py::group_and_fuse`.
 
 The kernel's grid is (B, ceil(C / 128)) blocks, one channel a thread.
 `group_and_fuse` runs the plain version for CPU tensors only.  For CUDA
-tensors it launches the kernel or raises: it never falls back.  The kernel
-is forward-only; the backward pass comes with training, so a CUDA call that
-would need a gradient raises.
+tensors it launches the kernel or raises: it never falls back.
+
+Gradients: the kernel is forward-only, as the Pallas kernel is.  Where the
+scores or the descriptors need a gradient, `group_and_fuse` goes through
+`GroupAndFuseFunction`, the counterpart of `_make_fused_op`'s custom VJP
+(`pallas_grouping.py:115-137`): the kernel forward (the plain version for a
+CPU tensor), and a backward that replays the plain version's VJP from the
+saved scores and descriptors.  That VJP keeps the scheme detached and the
+straight-through ceil of `ceil_sum`; the scheme's cotangent is accepted
+and is zero by construction.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ MAX_VIEWS = 16
 MAX_GROUPS = 16
 _MODES = {"mean": 0, "ceil_sum": 1}
 
-__all__ = ["group_and_fuse", "group_and_fuse_plain"]
+__all__ = ["GroupAndFuseFunction", "group_and_fuse", "group_and_fuse_plain"]
 
 
 def _check_cuda_args(scores, descs, num_group, weight_mode):
@@ -47,11 +54,6 @@ def _check_cuda_args(scores, descs, num_group, weight_mode):
                          f"on {descs.device}")
     if not (scores.is_contiguous() and descs.is_contiguous()):
         raise ValueError(f"{KERNEL_NAME}: inputs must be contiguous")
-    if torch.is_grad_enabled() and (scores.requires_grad
-                                    or descs.requires_grad):
-        raise NotImplementedError(
-            f"{KERNEL_NAME}: the backward pass is not ported yet (ROADMAP "
-            "§2, K1 backward); call it under torch.inference_mode()")
 
 
 def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
@@ -59,15 +61,25 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
     """scores (B, V), descs (B, V, C) -> (fused (B, C), weights (B, M),
     scheme (B, M, V)), all fp32 on CUDA.
 
-    CPU: the plain version.  CUDA: the kernel.
+    CPU: the plain version.  CUDA: the kernel.  Where an input needs a
+    gradient: `GroupAndFuseFunction`.
     """
+    if torch.is_grad_enabled() and (scores.requires_grad
+                                    or descs.requires_grad):
+        return GroupAndFuseFunction.apply(scores, descs, num_group,
+                                          weight_mode)
+    return _forward(scores, descs, num_group, weight_mode)
+
+
+def _forward(scores, descs, num_group, weight_mode):
+    """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
     if scores.device.type == "cpu":
         return group_and_fuse_plain(scores, descs, num_group, weight_mode)
     if scores.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {scores.device}")
     if scores.device.index != torch.cuda.current_device():
         with torch.cuda.device(scores.device):
-            return group_and_fuse(scores, descs, num_group, weight_mode)
+            return _forward(scores, descs, num_group, weight_mode)
     _check_cuda_args(scores, descs, num_group, weight_mode)
     b, v, c = descs.shape
     m = num_group
@@ -89,3 +101,29 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
 
 
 group_and_fuse.launches = 0
+
+
+class GroupAndFuseFunction(torch.autograd.Function):
+    """The grouping head under autograd: the kernel forward (plain for a CPU
+    tensor), the plain version's VJP as the backward."""
+
+    @staticmethod
+    def forward(ctx, scores, descs, num_group, weight_mode):
+        ctx.save_for_backward(scores, descs)
+        ctx.num_group, ctx.weight_mode = num_group, weight_mode
+        fused, weights, scheme = _forward(scores, descs, num_group,
+                                          weight_mode)
+        ctx.mark_non_differentiable(scheme)
+        return fused, weights, scheme
+
+    @staticmethod
+    def backward(ctx, d_fused, d_weights, d_scheme):
+        scores, descs = ctx.saved_tensors
+        with torch.enable_grad():
+            s = scores.detach().requires_grad_()
+            d = descs.detach().requires_grad_()
+            fused, weights, _ = group_and_fuse_plain(s, d, ctx.num_group,
+                                                     ctx.weight_mode)
+            ds, dd = torch.autograd.grad((fused, weights),
+                                         (s, d), (d_fused, d_weights))
+        return ds, dd, None, None

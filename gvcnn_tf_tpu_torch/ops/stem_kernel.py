@@ -17,9 +17,20 @@ and shift = bias - mean * scale it is eval-mode BatchNorm and its ReLU
 and rounds once.
 
 `stem_conv` runs the plain version for a CPU tensor only.  For a CUDA tensor
-it launches the kernel or raises: it never falls back.  The backward pass
-is not ported (training comes later), so a CUDA call that would need a
-gradient raises too.
+it launches the kernel or raises: it never falls back.
+
+Gradients (counterpart of `stem_conv`'s custom VJP, `pallas_stem.py:
+145-164`, which is XLA's conv VJP and no Pallas kernel): where x or the
+weight needs a gradient, `stem_conv` goes through `StemConvFunction`.  Its
+forward is the kernel (the plain version for a CPU tensor) without the
+epilogue; its backward is cuDNN's (on the CPU, PyTorch's) gradient of the
+same stride-2 conv on the explicitly padded input,
+`aten.convolution_backward`: dw always, dx only when x needs one (for a
+data input it is dead, as in JAX).  The only full-size tensor the backward
+reads is the incoming gradient, used in place as a channels-last NCHW view
+of the NHWC output; the padded copy of x is the input's size (3 channels).
+The epilogue is eval-only: a call with scale/shift that needs a gradient
+raises (`Stem` runs its train-mode BatchNorm as its own pass).
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ def pack_stem_weight(weight: torch.Tensor) -> torch.Tensor:
 def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
     """pack_stem_weight(weight), kept on the weight while its storage and
     version counter stay the same and grad mode is off, so a serving
-    forward pays no packing launches."""
+    forward pays no packing launches.  (Inside `StemConvFunction.forward`
+    grad mode is off too, and the pack stays out of the autograd graph.)"""
     if torch.is_grad_enabled() or weight.is_inference():
         return pack_stem_weight(weight)
     key = (weight.data_ptr(), weight._version)
@@ -110,11 +122,6 @@ def _check_cuda_args(x, weight, scale, shift):
                     f"{KERNEL_NAME}: scale and shift must be contiguous "
                     f"float32 (64,) on {x.device}, got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight) + affine):
-        raise NotImplementedError(
-            f"{KERNEL_NAME}: the backward pass is not ported yet (ROADMAP "
-            "§2, K2 backward); call it under torch.inference_mode()")
 
 
 def stem_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -125,14 +132,30 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
     the optional epilogue relu(conv * scale + shift).
 
     CPU: the plain version, in x's dtype.  CUDA: the kernel, bf16 only.
+    Where x or the weight needs a gradient: `StemConvFunction` (no
+    epilogue).
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, weight, scale, shift)):
+        if scale is not None or shift is not None or relu:
+            raise NotImplementedError(
+                f"{KERNEL_NAME}: the scale/shift/ReLU epilogue is eval-only "
+                "and has no gradient; run the conv alone and BatchNorm after "
+                "it (Stem does so in train mode)")
+        return StemConvFunction.apply(x, weight)
+    return _stem_forward(x, weight, scale, shift, relu)
+
+
+def _stem_forward(x, weight, scale=None, shift=None, relu=False):
+    """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
         return stem_conv_plain(x, weight, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {x.device}")
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
-            return stem_conv(x, weight, scale, shift, relu)
+            return _stem_forward(x, weight, scale, shift, relu)
     _check_cuda_args(x, weight, scale, shift)
     n, h, w, _ = x.shape
     ho, wo = -(-h // _STRIDE), -(-w // _STRIDE)
@@ -154,3 +177,43 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
 
 
 stem_conv.launches = 0
+
+
+def stem_conv_backward(x: torch.Tensor, weight: torch.Tensor,
+                       grad_out: torch.Tensor, need_dx: bool = False,
+                       need_dw: bool = True):
+    """(dx or None, dw or None) of the stem conv at x (N, H, W, 3) NHWC,
+    weight (64, 3, 7, 7), for grad_out (N, Ho, Wo, 64) NHWC: the reference
+    conv's VJP, one `aten.convolution_backward` on the TF-'SAME'-padded
+    input, in x's dtype (cuDNN accumulates bf16 in fp32).  dw comes back
+    in the weight's dtype, dx as NHWC."""
+    h, w = x.shape[1], x.shape[2]
+    ph = same_pads(h, _KSIZE, _STRIDE)
+    pw = same_pads(w, _KSIZE, _STRIDE)
+    xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+    wx = weight.to(x.dtype)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        grad_out.to(x.dtype).permute(0, 3, 1, 2), xn, wx, None,
+        [_STRIDE, _STRIDE], [0, 0], [1, 1], False, [0, 0], 1,
+        [need_dx, need_dw, False])
+    if dx is not None:
+        dx = dx[:, :, ph[0]:ph[0] + h, pw[0]:pw[0] + w].permute(0, 2, 3, 1)
+    if dw is not None:
+        dw = dw.to(weight.dtype)
+    return dx, dw
+
+
+class StemConvFunction(torch.autograd.Function):
+    """The stem conv under autograd: the kernel forward (plain for a CPU
+    tensor), the reference conv's VJP backward (`stem_conv_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _stem_forward(x, weight)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad
+        return stem_conv_backward(x, weight, grad_out, need_dx, need_dw)

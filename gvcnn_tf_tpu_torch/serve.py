@@ -47,20 +47,11 @@ from gvcnn_tf_tpu_torch.bridge import jax_to_state_dict
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
-from gvcnn_tf_tpu_torch.utils import fold_batch_norm, normalize_views
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA request without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "false; the port never falls back to the CPU (pass --device cpu "
-            "to run on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+from gvcnn_tf_tpu_torch.utils import (
+    fold_batch_norm,
+    normalize_views,
+    resolve_device,
+)
 
 
 class InferenceEngine:

@@ -1,7 +1,8 @@
 """Kernel and forward measurements of the port on one NVIDIA GPU.
 
     python gvcnn_tf_tpu_torch/tools/measure.py wrappers [--root DIR]
-    python gvcnn_tf_tpu_torch/tools/measure.py profile
+    python gvcnn_tf_tpu_torch/tools/measure.py profile [--train]
+    python gvcnn_tf_tpu_torch/tools/measure.py train-drift   # CPU
 
 `wrappers`: each kernel wrapper at the main path's shapes (the stem at 96
 and 12 views of 224x224; the grouping head at B = 8 and 1, 12 views,
@@ -19,8 +20,22 @@ forward time (CUDA events), device busy time and idle share over 3
 profiled forwards, and device time by kernel; then every op and kernel
 that `Stem.forward` runs on the card.
 
+`profile --train`: one mn40_12view train step at B = 8 (seeded weights,
+fp32 master parameters, bf16 compute, channels-last, momentum SGD, dropout
+on; a fixed synthetic batch already on the card, bf16 as the loader sends
+it): step time (CUDA events, median of 10), views/s, peak device memory,
+device busy time and idle share over 3 profiled steps, and device time by
+kernel class and by kernel.
+
+`train-drift` (runs on the CPU, and is no device measurement): one train
+step of mn40_12view at 64x64, 4 views, B = 2 in bf16 and in fp32 from the
+same weights and batch, dropout off: the relative gaps of loss and
+grad_norm and the cosine of the flattened gradients.  `chip_smoke.py`
+derives its card-vs-CPU bounds for the train step from these numbers.
+
 Each result is one line of JSON (after the card's name and power limit);
-TF32 is off.  Needs a card: without one it exits non-zero.
+TF32 is off.  Except for `train-drift`, it needs a card: without one it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -212,17 +227,131 @@ def _profile_forward(dev, cfg, model, top):
     return rows
 
 
+# Kernel classes of a train step, by substrings of the kernel's name (the
+# first that matches).
+_CLASSES = (
+    ("K2 stem kernel", ("stem_conv",)),
+    ("K1 grouping kernel", ("group_and_fuse",)),
+    ("max-pool", ("max_pool",)),
+    ("optimizer (foreach)", ("foreach", "multi_tensor")),
+    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop",
+                      "implicit", "sm90_", "nhwc")),
+    ("gemm", ("gemm", "cutlass", "ampere", "sm80")),
+    ("concat", ("cat",)),
+    ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "memcpy")),
+    ("elementwise", ("elementwise", "where", "fill")),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, parts in _CLASSES:
+        if any(p in low for p in parts):
+            return cls
+    return "other"
+
+
+def train_batch(cfg, rs, dev, dtype=torch.bfloat16):
+    """A fixed synthetic-looking batch of cfg's shape on `dev`."""
+    d = cfg.data
+    views = rs.uniform(-1, 1, (d.batch_size, d.num_views, d.height, d.width,
+                               3)).astype(np.float32)
+    labels = rs.randint(0, d.num_classes, d.batch_size)
+    return {"views": torch.from_numpy(views).to(dev, dtype),
+            "label": torch.from_numpy(labels).to(dev)}
+
+
+def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
+    """One train step of `cfg` on `dev` and of `cfg` in fp32 on `ref_dev`,
+    from the same seeded weights and batch, dropout off -> the two losses,
+    grad norms, their relative gaps, and the cosines of the flattened
+    gradients (after the step, which leaves them in `.grad`): of all
+    parameters, and of the `Logits` layer's alone."""
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    cfg = cfg.replace(dropout_keep_prob=1.0)
+    ref_cfg = cfg.replace(compute_dtype="float32")
+    batch = train_batch(cfg, np.random.RandomState(seed), "cpu",
+                        torch.float32)
+    out = {}
+    grads, head = [], []
+    for name, c, d in (("", cfg, dev), ("_ref", ref_cfg, ref_dev)):
+        state = create_train_state(c, d)
+        mets = train_step(state, {k: t.to(d) for k, t in batch.items()}, c)
+        out.update({f"{k}{name}": float(v) for k, v in mets.items()})
+        named = list(state.model.named_parameters())
+        flat = lambda ps: torch.cat([p.grad.detach().double().flatten()  # noqa
+                                     .cpu() for p in ps])
+        grads.append(flat(p for _, p in named))
+        head.append(flat(p for n, p in named if n.startswith("Logits.")))
+    out["loss_rel"] = abs(out["loss"] - out["loss_ref"]) / abs(
+        out["loss_ref"])
+    out["grad_norm_rel"] = abs(out["grad_norm"] - out["grad_norm_ref"]) / (
+        out["grad_norm_ref"])
+    cos = torch.nn.functional.cosine_similarity
+    out["grad_cosine"] = float(cos(grads[0], grads[1], dim=0))
+    out["logits_grad_cosine"] = float(cos(head[0], head[1], dim=0))
+    return out
+
+
+def profile_train(dev, top=25):
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    cfg = get_config("mn40_12view")
+    state = create_train_state(cfg, dev)
+    batch = train_batch(cfg, np.random.RandomState(3), dev)
+    step = lambda: train_step(state, batch, cfg)             # noqa: E731
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(step, runs=10, warmup=3)
+    per_kernel = kernel_durations_us(step, calls=3)
+    total = {k: sum(v) / 3 / 1e3 for k, v in per_kernel.items()}
+    busy = sum(total.values())
+    classes = {}
+    for k, ms in total.items():
+        c = classes.setdefault(kernel_class(k), [0.0, 0])
+        c[0] += ms
+        c[1] += len(per_kernel[k]) // 3
+    views = cfg.data.batch_size * cfg.data.num_views
+    ranked = sorted(total.items(), key=lambda kv: -kv[1])
+    return [dict(
+        profile="train step B=8", step_ms=step_ms,
+        views_per_s=views / step_ms * 1e3, device_busy_ms=busy,
+        idle_share=1 - busy / step_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        classes=[dict(name=c, ms=v[0], share=v[0] / busy, launches=v[1])
+                 for c, v in sorted(classes.items(),
+                                    key=lambda kv: -kv[1][0])],
+        kernels=[dict(name=k[:100], ms=v, share=v / busy,
+                      launches=len(per_kernel[k]) // 3)
+                 for k, v in ranked[:top]])]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("wrappers", "profile"))
+    ap.add_argument("what", choices=("wrappers", "profile", "train-drift"))
     ap.add_argument("--root", default=None,
                     help="checkout whose gvcnn_tf_tpu_torch to measure "
                     "(default: the one holding this file)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile: the train step instead of the forward")
     args = ap.parse_args(argv)
+    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
+    if args.what == "train-drift":
+        from gvcnn_tf_tpu_torch import get_config
+
+        import dataclasses
+
+        base = get_config("mn40_12view")
+        cfg = base.replace(data=dataclasses.replace(
+            base.data, height=64, width=64, num_views=4, batch_size=2))
+        print(json.dumps(dict(run="train-drift on the CPU (bf16 vs fp32)",
+                              **train_step_drift(cfg, "cpu"))), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("measure: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
     import gvcnn_tf_tpu_torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -231,6 +360,7 @@ def main(argv=None):
     print(card_line(), flush=True)
     print(f"package: {gvcnn_tf_tpu_torch.__file__}", flush=True)
     rows = (measure_wrappers(dev) if args.what == "wrappers"
+            else profile_train(dev) if args.train
             else profile_forward(dev))
     for row in rows:
         print(json.dumps(row), flush=True)

@@ -127,7 +127,9 @@ def test_config_from_flags_equal_jax(argv):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, gvcnn_tf_tpu_torch, gvcnn_tf_tpu_torch.serve; "
+    code = ("import sys, gvcnn_tf_tpu_torch, gvcnn_tf_tpu_torch.serve, "
+            "gvcnn_tf_tpu_torch.train, gvcnn_tf_tpu_torch.checkpoint, "
+            "gvcnn_tf_tpu_torch.data; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'gvcnn_tf_tpu' not in sys.modules, 'gvcnn_tf_tpu'")
     env = dict(os.environ, PYTHONPATH=REPO)

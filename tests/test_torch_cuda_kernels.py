@@ -13,6 +13,14 @@ Tolerances: the stem (bf16 out, both sides accumulate in fp32) rtol = atol
 `test_stem_epilogue_matches_plain`; the grouping head (fp32) scheme exact,
 weights rtol 1e-6, fused rtol 1e-5 / atol 1e-6.  TF32 is turned off for the
 fp32 comparisons, so the plain version's einsums run in full fp32.
+
+Gradients: the stem's autograd Function against autograd through the plain
+version (both end in cuDNN's bf16 conv gradient, fp32 accumulation, in
+whatever order cuDNN picks) within 1% of max|dw| and max|dx|; the grouping
+head's Function against autograd through its plain version, rtol 1e-5 /
+atol 1e-6.  One mn40_12view train step at 64x64, 4 views, B = 2, bf16 on
+the card against the same step in fp32 on the CPU: loss within 5%, grad
+norm within 10% (bf16 through ~60 layers with batch statistics).
 """
 
 import numpy as np
@@ -152,8 +160,13 @@ def test_stem_kernel_refuses_what_it_does_not_take(cuda):
         stem_conv(x, w)                                       # fp32
     with pytest.raises(ValueError):
         stem_conv(x.bfloat16().permute(0, 2, 1, 3), w.bfloat16())
-    with pytest.raises(NotImplementedError):
-        stem_conv(x.bfloat16(), w.bfloat16().requires_grad_())
+    wg = w.bfloat16().requires_grad_()
+    one = torch.ones(64, device=cuda)
+    with pytest.raises(NotImplementedError):                  # epilogue
+        stem_conv(x.bfloat16(), wg, one, one, relu=True)
+    y = stem_conv(x.bfloat16(), wg)                 # the autograd Function
+    y.float().sum().backward()
+    assert wg.grad is not None and wg.grad.shape == w.shape
 
 
 def _scores_clear_of_edges(rs, b, v, m):
@@ -204,6 +217,91 @@ def test_grouping_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         group_and_fuse(s, torch.zeros((1, 4, 8), device=cuda,
                                       dtype=torch.float64), 8)
-    with pytest.raises(NotImplementedError):
-        group_and_fuse(s.requires_grad_(), torch.zeros((1, 4, 8),
-                                                       device=cuda), 8)
+    sg = s.clone().requires_grad_()
+    fused, _, _ = group_and_fuse(sg, torch.ones((1, 4, 8), device=cuda), 8)
+    fused.sum().backward()                          # the autograd Function
+    assert sg.grad is not None and torch.isfinite(sg.grad).all()
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_stem_function_gradients_match_plain(cuda, shape, need_dx):
+    rs = np.random.RandomState(sum(shape) + need_dx)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(np.float32))
+    n, h, wd, _ = shape
+    g = torch.from_numpy(rs.randn(n, -(-h // 2), -(-wd // 2), 64).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    grads = []
+    for fn in (stem_conv, stem_conv_plain):
+        xd = x.to(cuda, torch.bfloat16).requires_grad_(need_dx)
+        wd32 = w.to(cuda).requires_grad_()
+        before = stem_conv.launches
+        fn(xd, wd32.to(torch.bfloat16)).backward(g)
+        assert stem_conv.launches == before + (fn is stem_conv)
+        grads.append((wd32.grad, xd.grad))
+    (dw, dx), (dw_ref, dx_ref) = grads
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw, dw_ref, rtol=0,
+                               atol=1e-2 * dw_ref.abs().max().item())
+    assert (dx is None) == (not need_dx)
+    if need_dx:
+        torch.testing.assert_close(dx.float(), dx_ref.float(), rtol=0,
+                                   atol=1e-2 * dx_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["mean", "ceil_sum"])
+@pytest.mark.parametrize("b,v,c,m", [(8, 12, 1024, 8), (1, 12, 1024, 8),
+                                     (2, 8, 1024, 16), (4, 16, 300, 1)])
+@pytest.mark.parametrize("edges", [False, True])
+def test_grouping_function_gradients_match_plain(cuda, mode, b, v, c, m,
+                                                 edges):
+    rs = np.random.RandomState(b * v + m + edges)
+    scores = (_edge_scores(b, v, m) if edges
+              else _scores_clear_of_edges(rs, b, v, m))
+    d = rs.randn(b, v, c).astype(np.float32)
+    gf = torch.from_numpy(rs.randn(b, c).astype(np.float32)).to(cuda)
+    gw = torch.from_numpy(rs.randn(b, m).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (group_and_fuse, group_and_fuse_plain):
+        sd = torch.from_numpy(scores).to(cuda).requires_grad_()
+        dd = torch.from_numpy(d).to(cuda).requires_grad_()
+        before = group_and_fuse.launches
+        fused, weights, _ = fn(sd, dd, m, mode)
+        ((fused * gf).sum() + (weights * gw).sum()).backward()
+        assert group_and_fuse.launches == before + (fn is group_and_fuse)
+        grads.append((sd.grad, dd.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_one_train_step_on_the_card(cuda):
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    base = get_config("mn40_12view")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, height=64, width=64, num_views=4, batch_size=2),
+        dropout_keep_prob=1.0)
+    rs = np.random.RandomState(0)
+    batch = {"views": torch.from_numpy(rs.uniform(-1, 1, (2, 4, 64, 64, 3))
+                                       .astype(np.float32)),
+             "label": torch.from_numpy(np.array([3, 17]))}
+    ref = create_train_state(cfg.replace(compute_dtype="float32"), "cpu")
+    want = train_step(ref, batch, cfg.replace(compute_dtype="float32"))
+    state = create_train_state(cfg, cuda)
+    before = [p.detach().clone() for p in state.kernels]
+    launches = (stem_conv.launches, group_and_fuse.launches)
+    got = train_step(state, {k: t.to(cuda) for k, t in batch.items()}, cfg)
+    assert (stem_conv.launches - launches[0],
+            group_and_fuse.launches - launches[1]) == (1, 1)
+    assert state.step == 1
+    assert all(torch.isfinite(t) for t in got.values())
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=0.05)
+    assert float(got["grad_norm"]) == pytest.approx(float(want["grad_norm"]),
+                                                    rel=0.1)
+    # Every kernel moves (the score-logit bias has a zero gradient under the
+    # softmax over views, so only the kernels are checked).
+    assert all(not torch.equal(a, b) for a, b in zip(before, state.kernels))

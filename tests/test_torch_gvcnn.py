@@ -191,6 +191,23 @@ def test_unsupported_configs_are_refused():
 
 
 def test_bn_training_mode_raises():
-    model = build_model(_config(port_configs))  # modules start in train mode
-    with pytest.raises(NotImplementedError, match="training mode"):
-        model(torch.zeros((1, V, H, H, 3)))
+    """Train mode runs: every BatchNorm takes the batch's statistics and
+    moves its running statistics with config.bn_momentum.  What raises is
+    dropout without a generator, and the eval-only BN affine."""
+    cfg = _config(port_configs).replace(bn_momentum=0.5)
+    model = build_model(cfg)                # modules start in train mode
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (1, V, H, H, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="generator"):
+        model(x)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    assert bns and all(m.momentum == 0.5 for m in bns)
+    logits, _ = model(x, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(logits).all() and logits.requires_grad
+    assert all(not torch.equal(m.running_var, torch.ones_like(
+        m.running_var)) for m in bns)
+    with pytest.raises(RuntimeError, match="training mode"):
+        bns[0].scale_shift()
+    model.eval()
+    with torch.no_grad():
+        torch.testing.assert_close(model(x)[0], model(x)[0])  # no dropout

@@ -194,8 +194,27 @@ def test_stem_module_matches_pallas_stem_math_at_bf16(h, w):
 
 
 def test_stem_refuses_training_mode():
-    with pytest.raises(NotImplementedError, match="training mode"):
-        Stem()(torch.zeros((1, 16, 16, 3)))
+    """In training mode the stem refuses its eval-only epilogue: the conv
+    runs alone through the autograd Function, then BatchNorm with the
+    batch's statistics and the ReLU, as JAX's ConvBNReLU(train=True)."""
+    x, k = _inputs(2, 16, 16, seed=11)
+    v = _bn_variables(np.random.RandomState(11), k)
+    mod = JaxConvBNReLU(64, (7, 7), (2, 2), dtype=jnp.float32)
+    want, upd = mod.apply(v, jnp.asarray(x), train=True,
+                          mutable=["batch_stats"])
+    port = _stem_from(v).train()
+    got = port(torch.from_numpy(x))
+    assert got.grad_fn is not None
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(port.BatchNorm.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["BatchNorm"]
+                                          ["var"]), rtol=1e-5, atol=1e-6)
+    with pytest.raises(RuntimeError, match="training mode"):
+        port.BatchNorm.scale_shift()
+    one = torch.ones(64)
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        stem_conv(torch.from_numpy(x), port.conv.weight, one, one, relu=True)
 
 
 def test_packed_weight_is_kept_until_the_weight_changes():
