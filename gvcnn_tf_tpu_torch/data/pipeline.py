@@ -38,9 +38,8 @@ def dataset_size(data_cfg: DataConfig) -> Optional[int]:
     return None
 
 
-def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
-                 num_epochs=None, shard_index: int = 0,
-                 num_shards: int = 1) -> SyntheticStream:
+def make_dataset(data_cfg: DataConfig, *, train: bool,
+                 seed: int = 0) -> SyntheticStream:
     """The synthetic stream for a config; refuses what is not ported."""
     loader = _resolve_loader(data_cfg)
     if loader != "synthetic":
@@ -66,7 +65,4 @@ def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
         num_shapes=data_cfg.synthetic_num_shapes,
         seed=seed,
         train=train,
-        num_epochs=num_epochs,
-        shard_index=shard_index,
-        num_shards=num_shards,
     )

@@ -28,10 +28,12 @@ device busy time and idle share over 3 profiled steps, and device time by
 kernel class and by kernel.
 
 `train-drift` (runs on the CPU, and is no device measurement): one train
-step of mn40_12view at 64x64, 4 views, B = 2 in bf16 and in fp32 from the
-same weights and batch, dropout off: the relative gaps of loss and
-grad_norm and the cosine of the flattened gradients.  `chip_smoke.py`
-derives its card-vs-CPU bounds for the train step from these numbers.
+step of mn40_12view, 12 views, B = 2 in bf16 and in fp32 from the same
+weights and batch, dropout off, at 64x64 for seeds 0-2 and at 96x96 for
+seed 0: the relative gaps of loss and grad_norm, the cosine of the
+flattened gradients (all, `Logits`, and each layer group), and the worst
+ratio of one parameter tensor's gradient norms.  `chip_smoke.py` derives
+its card-vs-CPU bounds for the train step from these numbers.
 
 Each result is one line of JSON (after the card's name and power limit);
 TF32 is off.  Except for `train-drift`, it needs a card: without one it
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +53,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# (size, seed) of each `train-drift` run; 12 views, as mn40_12view.
+DRIFT_RUNS = ((64, 0), (64, 1), (64, 2), (96, 0))
+# A parameter's gradient norm below this share of the global norm, on both
+# sides of a drift comparison, is rounding noise (`train_step_drift`).
+NOISE_REL = 1e-6
 
 
 def cuda_ms(fn, runs=30, warmup=5):
@@ -262,12 +271,42 @@ def train_batch(cfg, rs, dev, dtype=torch.bfloat16):
             "label": torch.from_numpy(labels).to(dev)}
 
 
+def grad_group(name: str) -> str:
+    """A parameter's group for the drift readings: its layer or Mixed
+    block, then `kernel`, `bn_bias` or `bias`
+    ('InceptionV1.Mixed_5c.Branch_1_Conv2d_0b_3x3.BatchNorm.bias' ->
+    'Mixed_5c/bn_bias')."""
+    parts = name.split(".")
+    top = parts[1] if parts[0] == "InceptionV1" else parts[0]
+    kind = ("bn_bias" if "BatchNorm" in parts else
+            "kernel" if name.endswith("weight") else "bias")
+    return f"{top}/{kind}"
+
+
 def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
     """One train step of `cfg` on `dev` and of `cfg` in fp32 on `ref_dev`,
     from the same seeded weights and batch, dropout off -> the two losses,
-    grad norms, their relative gaps, and the cosines of the flattened
-    gradients (after the step, which leaves them in `.grad`): of all
-    parameters, and of the `Logits` layer's alone."""
+    grad norms, their relative gaps, and, from the gradients the step
+    leaves in `.grad`:
+
+      grad_cosine, logits_grad_cosine  cosine of all gradients flattened,
+                                       and of the `Logits` layer's
+      layer_logratio, layer_worst      max over parameter tensors of
+                                       |ln(||g|| / ||g_ref||)|, and where
+      layer_min_rel                    the least ||g_ref|| / grad_norm_ref
+                                       among those tensors
+      noise, noise_max_rel             the tensors left out, and the
+                                       largest ||g|| / grad_norm_ref there
+      group_cosines                    cosine per `grad_group`
+
+    A tensor whose gradient norm is below NOISE_REL x grad_norm_ref on
+    both sides is left out of `layer_logratio`: its gradient is 0
+    analytically and what it holds is rounding noise.  Two such: the
+    score-logit bias under a softmax over views (a shift of every view's
+    logit leaves the softmax as it is), and, when every view's score falls
+    in the first group (12 views at init: softmax scores near 1/12 <
+    1/M), the scoring FCN's BatchNorm bias, as the fused descriptor then
+    does not depend on the scores."""
     from gvcnn_tf_tpu_torch.train import create_train_state, train_step
 
     cfg = cfg.replace(dropout_keep_prob=1.0)
@@ -275,23 +314,40 @@ def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
     batch = train_batch(cfg, np.random.RandomState(seed), "cpu",
                         torch.float32)
     out = {}
-    grads, head = [], []
+    grads = []
     for name, c, d in (("", cfg, dev), ("_ref", ref_cfg, ref_dev)):
         state = create_train_state(c, d)
         mets = train_step(state, {k: t.to(d) for k, t in batch.items()}, c)
         out.update({f"{k}{name}": float(v) for k, v in mets.items()})
-        named = list(state.model.named_parameters())
-        flat = lambda ps: torch.cat([p.grad.detach().double().flatten()  # noqa
-                                     .cpu() for p in ps])
-        grads.append(flat(p for _, p in named))
-        head.append(flat(p for n, p in named if n.startswith("Logits.")))
+        grads.append({n: p.grad.detach().double().flatten().cpu()
+                      for n, p in state.model.named_parameters()})
     out["loss_rel"] = abs(out["loss"] - out["loss_ref"]) / abs(
         out["loss_ref"])
     out["grad_norm_rel"] = abs(out["grad_norm"] - out["grad_norm_ref"]) / (
         out["grad_norm_ref"])
-    cos = torch.nn.functional.cosine_similarity
-    out["grad_cosine"] = float(cos(grads[0], grads[1], dim=0))
-    out["logits_grad_cosine"] = float(cos(head[0], head[1], dim=0))
+    cos = lambda names: float(torch.nn.functional.cosine_similarity(  # noqa
+        *(torch.cat([g[n] for n in names]) for g in grads), dim=0))
+    names = list(grads[0])
+    out["grad_cosine"] = cos(names)
+    out["logits_grad_cosine"] = cos([n for n in names
+                                     if n.startswith("Logits.")])
+    floor = NOISE_REL * out["grad_norm_ref"]
+    norms = {n: [float(g[n].norm()) for g in grads] for n in names}
+    noise = [n for n, ar in norms.items() if max(ar) < floor]
+    ratios = {n: (0.0 if a == r else math.inf if 0 in (a, r)
+                  else abs(math.log(a / r)))
+              for n, (a, r) in norms.items() if n not in noise}
+    out["layer_worst"] = max(ratios, key=ratios.get)
+    out["layer_logratio"] = ratios[out["layer_worst"]]
+    out["layer_min_rel"] = min(norms[n][1] for n in ratios) / (
+        out["grad_norm_ref"])
+    out["noise"] = noise
+    out["noise_max_rel"] = max((max(norms[n]) for n in noise),
+                               default=0.0) / out["grad_norm_ref"]
+    groups = {}
+    for n in names:
+        groups.setdefault(grad_group(n), []).append(n)
+    out["group_cosines"] = {k: cos(v) for k, v in groups.items()}
     return out
 
 
@@ -344,10 +400,14 @@ def main(argv=None):
         import dataclasses
 
         base = get_config("mn40_12view")
-        cfg = base.replace(data=dataclasses.replace(
-            base.data, height=64, width=64, num_views=4, batch_size=2))
-        print(json.dumps(dict(run="train-drift on the CPU (bf16 vs fp32)",
-                              **train_step_drift(cfg, "cpu"))), flush=True)
+        for size, seed in DRIFT_RUNS:
+            cfg = base.replace(data=dataclasses.replace(
+                base.data, height=size, width=size, num_views=12,
+                batch_size=2))
+            print(json.dumps(dict(
+                run=f"train-drift on the CPU (bf16 vs fp32), {size}x{size}, "
+                    f"seed {seed}",
+                **train_step_drift(cfg, "cpu", seed=seed))), flush=True)
         return 0
     if not torch.cuda.is_available():
         print("measure: needs an NVIDIA GPU", file=sys.stderr)

@@ -16,19 +16,23 @@ one-batch-ahead host-to-device prefetcher, a JSON metrics line every
 steps and at the end, a final save on SIGTERM, and resume from the latest
 checkpoint in `train_logdir`.  A checkpoint also holds the data stream's
 generator state, so a resumed run continues the stream where it stopped
-(the JAX package restarts the stream from its seed).  Dropout masks come
-from a `torch.Generator` on the model's device, reseeded from
+(the JAX package restarts the stream from its seed), and the run's config
+(`run_identity`): a run refuses to resume from a checkpoint whose config
+differs in more than its length, cadence and directory.  Dropout masks
+come from a `torch.Generator` on the model's device, reseeded from
 (`train.seed`, step, microbatch) every step, so they need no saved state.
 
-CLI:
+CLI (`--train_logdir` is required):
     python -m gvcnn_tf_tpu_torch.train --config mn40_12view \
-        --how_many_training_steps 100         # on the card (--device cuda)
+        --how_many_training_steps 100 --train_logdir runs/mn40
+        # on the card (--device cuda)
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import signal
 import threading
@@ -221,14 +225,15 @@ class TrainState:
     generator: torch.Generator
     kernels: List[torch.Tensor]        # the parameters the L2 term covers
 
-    def state_dict(self, data_state=None) -> dict:
-        """Checkpoint payload (CPU tensors): step, model, optimizer and the
-        data stream's generator state."""
+    def state_dict(self, data_state=None, config=None) -> dict:
+        """Checkpoint payload (CPU tensors): step, model, optimizer, the
+        data stream's generator state and the run's `run_identity`."""
         return {"step": self.step,
                 "model": {k: v.detach().cpu()
                           for k, v in self.model.state_dict().items()},
                 "optimizer": self.optimizer.state_dict(),
-                "data": data_state}
+                "data": data_state,
+                "config": config}
 
     def load_state_dict(self, payload: dict):
         """Restore from a payload; returns its data stream state."""
@@ -343,6 +348,40 @@ def _refuse_unported(config: GVCNNConfig, profile_steps):
             "'Not ported': tools/profile_step.py)")
 
 
+# What a resumed run may change: its length, its logging and checkpoint
+# cadence, its directory and the prefetch depth.
+_RESUMABLE = {"train": ("num_steps", "epochs", "steps_per_epoch", "log_every",
+                        "checkpoint_every", "train_logdir"),
+              "data": ("prefetch_to_device",)}
+
+
+def run_identity(config: GVCNNConfig) -> Dict[str, object]:
+    """The config as {dotted field: JSON value}, without the `_RESUMABLE`
+    fields.  A checkpoint stores it, and only a run with the same identity
+    resumes from it."""
+    d = json.loads(json.dumps(dataclasses.asdict(config)))
+    for part, keys in _RESUMABLE.items():
+        for k in keys:
+            d[part].pop(k)
+    return {f"{k}.{kk}" if isinstance(v, dict) else k: vv
+            for k, v in d.items()
+            for kk, vv in (v.items() if isinstance(v, dict) else [(k, v)])}
+
+
+def _check_resumable(saved: Optional[Dict[str, object]],
+                     config: GVCNNConfig, logdir: str):
+    """Raise unless the checkpoint's stored identity is this run's."""
+    want = run_identity(config)
+    if saved == want:
+        return
+    saved = saved or {}
+    diff = sorted(k for k in set(want) | set(saved)
+                  if saved.get(k) != want.get(k))
+    raise ValueError(
+        f"{logdir} holds the checkpoint of another run (its config differs "
+        f"in {', '.join(diff)}); give this run its own --train_logdir")
+
+
 def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
           dataset_iter=None, writer: Optional[metrics_lib.MetricWriter] = None,
           profile_steps: Optional[Tuple[int, int]] = None,
@@ -370,10 +409,13 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
         writer = metrics_lib.MetricWriter(tc.train_logdir)
 
     state = create_train_state(config, dev)
+    identity = run_identity(config)
     ckpt = Checkpointer(tc.train_logdir) if tc.checkpoint_every > 0 else None
     data_state = None
     if ckpt is not None and ckpt.latest_step() is not None:
-        data_state = state.load_state_dict(ckpt.restore(map_location="cpu"))
+        payload = ckpt.restore(map_location="cpu")
+        _check_resumable(payload.get("config"), config, tc.train_logdir)
+        data_state = state.load_state_dict(payload)
         metrics_lib.log(f"resumed from step {state.step}")
     if dataset_iter is None:
         dataset_iter = make_dataset(config.data, train=True, seed=tc.seed)
@@ -435,9 +477,11 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
                 writer.scalars(step + 1, vals)
                 timer.reset()
             if ckpt is not None and (step + 1) % tc.checkpoint_every == 0:
-                ckpt.save(step + 1, state.state_dict(prefetch.data_state))
+                ckpt.save(step + 1, state.state_dict(prefetch.data_state,
+                                                     identity))
         if ckpt is not None and ckpt.latest_step() != state.step:
-            ckpt.save(state.step, state.state_dict(prefetch.data_state))
+            ckpt.save(state.step, state.state_dict(prefetch.data_state,
+                                                   identity))
         writer.flush()
         return state, {k: float(v) for k, v in mets.items()}
     finally:
@@ -456,6 +500,9 @@ def main(argv=None):
                    help="torch device; 'cuda' (default) raises when no card "
                         "is present, it never falls back to the CPU")
     args = p.parse_args(argv)
+    if args.train_logdir is None:
+        p.error("--train_logdir is required: a run resumes from the newest "
+                "checkpoint in it, so each run names its own directory")
     config = config_from_flags(args)
     metrics_lib.log(f"training config {config.name}: {config}")
     try:

@@ -217,6 +217,41 @@ def test_resume_reproduces_an_uninterrupted_run(tmp_path):
         == 5
 
 
+def test_resume_refuses_another_runs_checkpoint(tmp_path):
+    port_train.train(_loop_cfg(tmp_path), num_steps=2, device="cpu")
+    # Length and cadence may change on resume ...
+    state, _ = port_train.train(_loop_cfg(tmp_path, log_every=2,
+                                          checkpoint_every=3),
+                                num_steps=3, device="cpu")
+    assert state.step == 3
+    # ... the optimization may not.
+    with pytest.raises(ValueError, match=r"differs in train\.learning_rate\)"):
+        port_train.train(_loop_cfg(tmp_path, learning_rate=0.02),
+                         num_steps=4, device="cpu")
+    assert Checkpointer(str(tmp_path)).latest_step() == 3
+
+
+def test_cli_requires_a_train_logdir(capsys):
+    with pytest.raises(SystemExit) as e:
+        port_train.main(["--how_many_training_steps", "1", "--device", "cpu"])
+    assert e.value.code != 0
+    assert "--train_logdir is required" in capsys.readouterr().err
+
+
+def test_train_step_drift_of_a_step_against_itself_is_zero():
+    from gvcnn_tf_tpu_torch.tools.measure import grad_group, train_step_drift
+
+    cfg = _tiny(port_configs).replace(compute_dtype="float32")
+    drift = train_step_drift(cfg, "cpu")
+    assert drift["loss_rel"] == drift["grad_norm_rel"] == 0.0
+    assert drift["layer_logratio"] == 0.0
+    assert drift["grad_cosine"] == pytest.approx(1.0, abs=1e-12)
+    assert "Conv2d_1a_7x7/bn_bias" in drift["group_cosines"]
+    assert grad_group("InceptionV1.Mixed_5c.Branch_1_Conv2d_0b_3x3."
+                      "BatchNorm.bias") == "Mixed_5c/bn_bias"
+    assert grad_group("Logits.weight") == "Logits/kernel"
+
+
 def test_sigterm_saves_and_stops(tmp_path):
     cfg = _loop_cfg(tmp_path, checkpoint_every=100)
     from gvcnn_tf_tpu_torch.data import make_dataset
