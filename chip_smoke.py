@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving and training paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, evaluation and
+prediction paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -42,6 +42,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    on one fixed B=8 batch; the last loss below half the first.  The step
    time (CUDA events, median of 20 steps on a batch already on the card)
    and views/s.
+9. Evaluation and prediction: mn40_12view at full width on the procedural
+   split (40 classes, PROC_SHAPES shapes a split, raw uint8 views on the
+   wire), both splits rendered first and timed.  `train()` for 10 steps
+   with `eval_every` 5: the val split scored at steps 5 and 10 (6 padded
+   batches of 8, one launch of each kernel a batch, 10 + 2 x 6 in all).
+   `evaluate()` of the step-5 and step-10 checkpoints with a fresh model on
+   the card gives the in-training results and argmaxes exactly.  The
+   step-10 checkpoint on the card (bf16) against the CPU (fp32, plain
+   versions) over the first CPU_SHAPES val shapes: logits within
+   LOGIT_REL_TOL of max|logit| batch by batch, argmax equal wherever the
+   CPU's top-2 margin is above that bound, counts equal up to the shapes
+   under it.  `predict()` of three OFF meshes (and its CLI's CSV), and of a
+   B=2 uint8 array card against CPU.  Times: eval views/s end to end (host
+   clock, checkpoint load included, rendering excluded) and on the device
+   (CUDA events over the 6 forwards of batches already on the card), and
+   `train()` views/s on the procedural uint8 stream (10 resumed steps,
+   without evaluations).
 
 TF32 is turned off for the whole run (`torch.backends.cudnn.allow_tf32`,
 `torch.backends.cuda.matmul.allow_tf32`), so fp32 comparisons on the card
@@ -59,6 +76,7 @@ checkout, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import statistics
@@ -110,6 +128,12 @@ TRAIN_LAYER_LOGRATIO_MAX = 1.5
 TRAIN_GROUP_COS_MIN = {"Mixed_5c/bn_bias": 0.86, "Logits/bias": 0.999}
 TRAIN_STEPS, RESUME_STEPS = 20, 4
 OVERFIT_STEPS = 30
+# Phase 9: 44 shapes a split give 5 train steps an epoch and 5 full val
+# batches of 8 plus one of 4 (padded); the first 16 val shapes go through
+# the CPU.
+PROC_SHAPES, EVAL_EVERY, EVAL_TRAIN_STEPS = 44, 5, 10
+EVAL_FORWARDS = -(-PROC_SHAPES // 8)
+CPU_SHAPES = 16
 STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
 
 
@@ -651,6 +675,277 @@ def phase_train(card, dev):
                 views_per_s=views / step_ms * 1e3, drift=drift)
 
 
+@contextlib.contextmanager
+def eval_logits():
+    """The fp32 logits (on the host) of every GVCNN forward run in eval
+    mode while the context is open, in a list: a global module hook, so
+    that it sees the forwards inside `train()` and `evaluate()`."""
+    from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN
+
+    seen = []
+
+    def hook(module, args, out):
+        if isinstance(module, GVCNN) and not module.training:
+            seen.append(out[0].detach().float().cpu())
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def check_card_vs_cpu(card, cpu, what):
+    """card and CPU logits (N, K): max|dlogit| within LOGIT_REL_TOL of the
+    CPU's max|logit|, argmax equal wherever the CPU's top-2 margin exceeds
+    that bound.  Returns the shapes under the margin."""
+    scale = float(cpu.abs().max())
+    bound = LOGIT_REL_TOL * scale
+    dlogit = float((card - cpu).abs().max())
+    top2 = cpu.topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > bound
+    agree = card.argmax(-1) == cpu.argmax(-1)
+    log(f"{what}, card (bf16) vs CPU (fp32): max|dlogit| {dlogit:.4g} of "
+        f"max|logit| {scale:.4g} (rel {dlogit / scale:.3g}, bound "
+        f"{LOGIT_REL_TOL}); argmax equal on {int(agree.sum())} of "
+        f"{len(agree)}, {int((~clear).sum())} under the margin")
+    if not all(np.isfinite(card.numpy()).ravel()):
+        raise AssertionError(f"{what}: non-finite logits on the card")
+    if dlogit > bound or not bool(agree[clear].all()):
+        raise AssertionError(f"{what}: card and CPU disagree")
+    return int((~clear).sum())
+
+
+def phase_eval(card, dev):
+    import csv
+    import dataclasses
+    import importlib
+    import itertools
+    import shutil
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch import evaluate, get_config, predict, train
+    from gvcnn_tf_tpu_torch.checkpoint import Checkpointer, load_model
+    from gvcnn_tf_tpu_torch.data import make_dataset
+    from gvcnn_tf_tpu_torch.data.procedural import class_table
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+    from gvcnn_tf_tpu_torch.tools.make_demo_meshes import write_off
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_durations_us
+    from gvcnn_tf_tpu_torch.utils import normalize_views
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    predict_mod = importlib.import_module("gvcnn_tf_tpu_torch.predict")
+    counts = lambda: {"stem": stem_conv.launches,                # noqa: E731
+                      "grouping": group_and_fuse.launches}
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    logdir = root / "train"
+    base = get_config("mn40_12view")
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, dataset="procedural",
+                                 transfer_dtype="uint8",
+                                 synthetic_num_shapes=PROC_SHAPES),
+        train=dataclasses.replace(base.train, train_logdir=str(logdir),
+                                  log_every=EVAL_EVERY,
+                                  checkpoint_every=EVAL_EVERY,
+                                  eval_every=EVAL_EVERY))
+    cfg32 = cfg.replace(compute_dtype="float32")
+    d, seed = cfg.data, cfg.train.seed
+    views_per_eval = PROC_SHAPES * d.num_views
+
+    # 1. Both splits, rendered once and kept by the split cache.
+    t0 = time.perf_counter()
+    for split in (True, False):
+        make_dataset(d, train=split, seed=seed)
+    log(f"rendered the procedural train and val splits (2 x {PROC_SHAPES} "
+        f"shapes, {d.num_views} views of {d.height}x{d.width}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. train() with an evaluation every EVAL_EVERY steps; the in-training
+    # evaluations' results, logits and times are taken as they run.
+    real_evaluate, in_training = train_mod.evaluate, []
+
+    def recorded_evaluate(*args, **kw):
+        with eval_logits() as seen:
+            t = time.perf_counter()
+            res = real_evaluate(*args, **kw)
+            dt = time.perf_counter() - t
+        in_training.append((res, torch.cat(seen)[:PROC_SHAPES], dt))
+        return res
+
+    train_mod.evaluate = recorded_evaluate
+    stem_conv.launches = group_and_fuse.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, mets = train(cfg, num_steps=EVAL_TRAIN_STEPS, device="cuda")
+    finally:
+        train_mod.evaluate = real_evaluate
+    wall = time.perf_counter() - t0
+    train_eval_launches = counts()
+    want = EVAL_TRAIN_STEPS + EVAL_TRAIN_STEPS // EVAL_EVERY * EVAL_FORWARDS
+    with open(logdir / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    vals = [(r["step"], r["val_count"]) for r in recs if "val_count" in r]
+    log(f"train() with eval_every {EVAL_EVERY}: {EVAL_TRAIN_STEPS} steps "
+        f"and {len(in_training)} evaluations in {wall:.1f} s (the "
+        f"evaluations {', '.join(f'{e[2]:.2f}' for e in in_training)} s); "
+        f"val records {vals}, accuracy "
+        f"{[e[0]['accuracy'] for e in in_training]}; launches "
+        f"{train_eval_launches}; last {mets}")
+    if train_eval_launches != {"stem": want, "grouping": want}:
+        raise AssertionError(f"expected {want} launches of each kernel, got "
+                             f"{train_eval_launches}")
+    if vals != [(s, PROC_SHAPES) for s in range(
+            EVAL_EVERY, EVAL_TRAIN_STEPS + 1, EVAL_EVERY)]:
+        raise AssertionError(f"in-training evaluation records {vals}")
+    if not state.model.training:
+        raise AssertionError("the model stayed in eval mode after train()")
+
+    # 3. Fresh models from the step-5 and step-10 checkpoints.
+    ckpt = Checkpointer(str(logdir))
+    for (want_res, want_logits, _), step in zip(
+            in_training, range(EVAL_EVERY, EVAL_TRAIN_STEPS + 1, EVAL_EVERY)):
+        one = root / f"step{step}"
+        one.mkdir()
+        shutil.copy(ckpt.path(step), one)
+        stem_conv.launches = group_and_fuse.launches = 0
+        with eval_logits() as seen:
+            res = evaluate(cfg, str(one), device="cuda")
+        eval_launches = counts()
+        logits = torch.cat(seen)[:PROC_SHAPES]
+        same = bool(torch.equal(logits.argmax(-1), want_logits.argmax(-1)))
+        log(f"evaluate() of the step-{step} checkpoint, fresh model: {res} "
+            f"(in training: {want_res}); argmax equal on every shape: "
+            f"{same}; max|dlogit| {float((logits - want_logits).abs().max())}"
+            f"; launches {eval_launches}")
+        if res != want_res or not same:
+            raise AssertionError(f"step {step}: a fresh model scores "
+                                 "otherwise than the training model did")
+        if eval_launches != {"stem": EVAL_FORWARDS,
+                             "grouping": EVAL_FORWARDS}:
+            raise AssertionError(f"expected {EVAL_FORWARDS} launches of each "
+                                 f"kernel, got {eval_launches}")
+    # The end-to-end time, without the hook's copies: the main path.
+    stem_conv.launches = group_and_fuse.launches = 0
+    t0 = time.perf_counter()
+    res = evaluate(cfg, str(one), device="cuda")
+    eval_wall = time.perf_counter() - t0
+    eval_launches = counts()
+    if res != want_res or eval_launches != {"stem": EVAL_FORWARDS,
+                                            "grouping": EVAL_FORWARDS}:
+        raise AssertionError(f"evaluate() {res}, launches {eval_launches}")
+    eval_vps = views_per_eval / eval_wall
+
+    # 4. Card against CPU, the step-10 checkpoint, first CPU_SHAPES shapes.
+    def first():
+        return itertools.islice(make_dataset(d, train=False, seed=seed),
+                                CPU_SHAPES // d.batch_size)
+
+    with eval_logits() as card_seen:
+        card_res = evaluate(cfg, str(logdir), dataset_iter=first(),
+                            device="cuda")
+    with eval_logits() as cpu_seen:
+        cpu_res = evaluate(cfg32, str(logdir), dataset_iter=first(),
+                           device="cpu")
+    near = sum(check_card_vs_cpu(a, b, f"eval batch {i}")
+               for i, (a, b) in enumerate(zip(card_seen, cpu_seen)))
+    log(f"first {CPU_SHAPES} val shapes: card {card_res}, CPU {cpu_res}")
+    if (not card_res["count"] == cpu_res["count"] == CPU_SHAPES
+            or abs(card_res["correct"] - cpu_res["correct"]) > near):
+        raise AssertionError("card and CPU counts disagree")
+
+    # 5. Predict: meshes, the CLI's CSV, and a uint8 array card vs CPU.
+    table = dict(class_table(d.num_classes))
+    meshes = []
+    for i, name in enumerate(("chair", "bottle", "lamp")):
+        meshes.append(str(root / f"{name}.off"))
+        write_off(meshes[-1], *table[name](np.random.RandomState(i)))
+    stem_conv.launches = group_and_fuse.launches = 0
+    recs = predict(cfg, str(logdir), mesh_files=meshes, device="cuda")
+    got = [(r["shape"], r["class_index"], r["probability"]) for r in recs]
+    log(f"predict() of 3 meshes: {got}; launches {counts()}")
+    _check_results(recs, 3, d.num_views)
+    if counts() != {"stem": 1, "grouping": 1}:
+        raise AssertionError(f"predict of 3 shapes: launches {counts()}")
+    out = root / "preds.csv"
+    argv = ["--checkpoint_dir", str(logdir), "--output_csv", str(out)]
+    for m in meshes:
+        argv += ["--mesh_file", m]
+    predict_mod.main(argv)
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f))
+    log(f"predict CLI: {rows}")
+    if (rows[0] != ["shape", "class_index", "probability"]
+            or [r[0] for r in rows[1:]] != ["chair", "bottle", "lamp"]):
+        raise AssertionError(f"predict CSV {rows}")
+    u8 = np.random.RandomState(10).randint(
+        0, 256, (2, d.num_views, d.height, d.width, 3)).astype(np.uint8)
+    with eval_logits() as card_seen:
+        card_recs = predict(cfg, str(logdir), views=u8, device="cuda")
+    with eval_logits() as cpu_seen:
+        predict(cfg32, str(logdir), views=u8, device="cpu")
+    _check_results(card_recs, 2, d.num_views)
+    check_card_vs_cpu(card_seen[0], cpu_seen[0], "predict B=2 uint8")
+
+    # 6. Times: the forwards alone on batches already on the card, then
+    # train() on the procedural uint8 stream, resumed, without evaluations.
+    model = load_model(cfg, str(logdir), "cuda")
+    batches = []
+    for batch in make_dataset(d, train=False, seed=seed, num_epochs=1):
+        v = batch["views"]
+        pad = np.zeros((d.batch_size - len(v),) + v.shape[1:], v.dtype)
+        batches.append(torch.from_numpy(np.concatenate([v, pad])).to(dev))
+
+    def forwards():
+        for x in batches:
+            model(normalize_views(x))
+
+    with torch.no_grad():
+        eval_ms = cuda_ms(forwards, runs=10, warmup=2)
+        busy_ms = sum(sum(v) for v in kernel_durations_us(
+            forwards, calls=3).values()) / 3 / 1e3
+    # No evaluation, and no checkpoint inside the last logging window.
+    rcfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, eval_every=0, checkpoint_every=EVAL_TRAIN_STEPS))
+    stem_conv.launches = group_and_fuse.launches = 0
+    t0 = time.perf_counter()
+    resumed, rmets = train(rcfg, num_steps=2 * EVAL_TRAIN_STEPS,
+                           device="cuda")
+    rwall = time.perf_counter() - t0
+    resume_launches = counts()
+    if (resumed.step != 2 * EVAL_TRAIN_STEPS or resume_launches != {
+            "stem": EVAL_TRAIN_STEPS, "grouping": EVAL_TRAIN_STEPS}):
+        raise AssertionError(f"resume without evaluations: step "
+                             f"{resumed.step}, launches {resume_launches}")
+    train_vps = EVAL_TRAIN_STEPS * d.batch_size * d.num_views / rwall
+    with open(logdir / "metrics.jsonl") as f:
+        last = [json.loads(line) for line in f][-1]
+    steady_vps = last["shapes_per_sec"] * d.num_views
+    in_vps = [views_per_eval / e[2] for e in in_training]
+    log(f"eval of {PROC_SHAPES} shapes ({views_per_eval} views): "
+        f"{eval_vps:.1f} views/s end to end ({eval_wall:.3f} s, checkpoint "
+        f"load included; in training {', '.join(f'{v:.1f}' for v in in_vps)}"
+        f"), {views_per_eval / eval_ms * 1e3:.1f} views/s on the device "
+        f"({len(batches)} forwards of B={d.batch_size}, {eval_ms:.3f} ms "
+        f"by CUDA events; device busy {busy_ms:.3f} ms, idle "
+        f"{1 - busy_ms / eval_ms:.1%}); train() on the procedural uint8 "
+        f"stream: "
+        f"{EVAL_TRAIN_STEPS} resumed steps in {rwall:.2f} s, "
+        f"{train_vps:.1f} views/s end to end (start-up included), "
+        f"{steady_vps:.1f} views/s over its last {EVAL_EVERY} steps (the "
+        f"loop's clock); last {rmets} [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(eval_launches=eval_launches,
+                train_eval_launches=train_eval_launches,
+                eval_views_per_s=eval_vps,
+                eval_device_views_per_s=views_per_eval / eval_ms * 1e3,
+                eval_busy_ms=busy_ms,
+                train_views_per_s=train_vps,
+                train_steady_views_per_s=steady_vps)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -700,6 +995,7 @@ def main():
     stem_bwd = phase_stem_backward(dev)
     grouping_bwd = phase_grouping_backward(dev)
     tr = phase_train(card, dev)
+    ev = phase_eval(card, dev)
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
@@ -707,7 +1003,8 @@ def main():
              launches=launches["stem"],
              launches_per_forward=launches["stem"] / FORWARDS,
              train_launches=tr["launches"]["stem"],
-             launches_per_step=tr["per_step"]["stem"], **stem, **stem_bwd),
+             launches_per_step=tr["per_step"]["stem"],
+             eval_launches=ev["eval_launches"]["stem"], **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_grouping.py:80",
@@ -715,6 +1012,7 @@ def main():
              launches_per_forward=launches["grouping"] / FORWARDS,
              train_launches=tr["launches"]["grouping"],
              launches_per_step=tr["per_step"]["grouping"],
+             eval_launches=ev["eval_launches"]["grouping"],
              backward_library_ms=None, **grouping, **grouping_bwd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

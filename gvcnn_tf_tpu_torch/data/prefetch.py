@@ -5,7 +5,9 @@ A producer thread pulls numpy batches from the loader and copies them into
 host tensors in the wire dtype: page-locked (pinned) memory when the target
 is a card, so that the copy to the device can be asynchronous.  bf16 on the
 wire, where `resolve_transfer_dtype` asks for it, is cast on the host
-(round to nearest even, the same bits as a cast on the device).  The thread
+(round to nearest even, the same bits as a cast on the device); only float
+views are cast: raw uint8 views (the uint8 wire) go to the device as uint8
+and are normalized there (`utils/images.py`).  The thread
 does host copies only: every CUDA call is made on the consumer's thread,
 since PyTorch keeps cuDNN plans per thread.
 
@@ -36,8 +38,10 @@ class _Failed:
 
 class DevicePrefetcher:
     """Iterator of {'views', 'label'} device tensors from an iterator of
-    numpy batches.  `views` arrives in `transfer_dtype` ("bfloat16", or
-    None for the loader's own dtype), `label` as int64.
+    numpy batches.  Float `views` arrive in `transfer_dtype` ("bfloat16",
+    or None for the loader's own dtype), uint8 `views` as uint8, `label` as
+    int64.  `depth` batches wait on the host; 0 ("prefetch off") is taken
+    as 1, so the stream is never empty.
 
     `data_state` is the loader's `state_dict()` as it stood right after it
     produced the batch last handed out (None for a loader without one): a
@@ -85,7 +89,9 @@ class DevicePrefetcher:
             for batch in it:
                 state = (it.state_dict() if hasattr(it, "state_dict")
                          else None)
-                item = (self._host(batch["views"], self._wire),
+                views = np.asarray(batch["views"])
+                wire = self._wire if views.dtype.kind == "f" else None
+                item = (self._host(views, wire),
                         self._host(batch["label"], torch.int64), state)
                 if not self._put(item):
                     return

@@ -182,6 +182,14 @@ def init_weights(model: GVCNN, seed: int) -> GVCNN:
     return model
 
 
+def to_device(model: GVCNN, device: torch.device) -> GVCNN:
+    """In place: `model` on `device`, channels-last on a card (the layout
+    of the bf16 cuDNN convs and of the stem kernel's NHWC output)."""
+    return model.to(device, memory_format=(torch.channels_last
+                                           if device.type == "cuda"
+                                           else torch.preserve_format))
+
+
 def build_model(config: GVCNNConfig) -> GVCNN:
     """config -> GVCNN with fp32 parameters (uninitialised: see
     `init_weights` and `bridge.jax_to_state_dict`).

@@ -19,9 +19,12 @@ on an H100 80GB HBM3 at 700 W, against ~12 ms on a warm thread).
 On the card the backbone and the scoring FCN run in bf16 (config
 `compute_dtype`), the stem and the grouping head through their CUDA kernels.
 
-Weights: seeded random weights (`--seed`), or JAX variables handed over as
-numpy arrays through `bridge.py`.  Orbax checkpoints need JAX to read, so
-`--checkpoint_dir` is refused until the port has its own checkpoint reader.
+Weights: the newest of the port's own checkpoints under `--checkpoint_dir`
+(`checkpoint.load_model`: the model alone, whatever optimizer wrote it),
+seeded random weights (`--seed`), or JAX variables handed over as numpy
+arrays through `bridge.py`.  The JAX package's Orbax checkpoints need JAX
+to read: a directory of them is refused until the port has its Orbax
+reader.
 
 CLI:
     python -m gvcnn_tf_tpu_torch.serve --config mn40_12view --port 8390
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from gvcnn_tf_tpu_torch.bridge import jax_to_state_dict
+from gvcnn_tf_tpu_torch.checkpoint import load_model
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
@@ -68,21 +72,20 @@ class InferenceEngine:
         buckets: Optional[Sequence[int]] = None,
         device="cuda",
     ):
-        if checkpoint_dir:
-            raise NotImplementedError(
-                "--checkpoint_dir: Orbax checkpoints need JAX to read and the "
-                "port's checkpoint reader is not ported yet (ROADMAP §1, "
-                "Orbax checkpoint reader); serve seeded weights, or pass JAX "
-                "variables as numpy arrays (variables=...)")
+        if checkpoint_dir and variables is not None:
+            raise ValueError("give checkpoint_dir or variables, not both")
         self.device = resolve_device(device)
         self.config = config
-        model = build_model(config)
-        if variables is not None:
-            model.load_state_dict(jax_to_state_dict(variables))
+        if checkpoint_dir:                # folded on the CPU, in fp32
+            model = load_model(config, checkpoint_dir, "cpu", fold_bn)
         else:
-            init_weights(model, config.train.seed)
-        if fold_bn:
-            fold_batch_norm(model)        # exact transform, in fp32
+            model = build_model(config)
+            if variables is not None:
+                model.load_state_dict(jax_to_state_dict(variables))
+            else:
+                init_weights(model, config.train.seed)
+            if fold_bn:
+                fold_batch_norm(model)    # exact transform, in fp32
         model.cast_convs_()
         self.model = model.to(self.device,
                               memory_format=torch.channels_last).eval()
@@ -294,7 +297,8 @@ def main(argv=None):
                                             "server (PyTorch + CUDA)")
     add_flags(p)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="refused: Orbax checkpoints need JAX to read")
+                   help="directory of the port's checkpoints (the newest is "
+                        "served); default: seeded weights")
     p.add_argument("--port", type=int, default=8390)
     p.add_argument("--serve_batch_size", type=int, default=8)
     p.add_argument("--serve_buckets", default=None,
@@ -316,7 +320,7 @@ def main(argv=None):
                      if args.serve_buckets else None),
             device=args.device,
         )
-    except (RuntimeError, NotImplementedError) as e:
+    except (RuntimeError, NotImplementedError, FileNotFoundError) as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.serve: {e}") from e
 
 

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on the card."""
+"""Tools of the port: the measurement script run on the card, the mesh
+readers and the demo-mesh writer."""

@@ -10,11 +10,14 @@ slim's L2 term, 0.5 * weight_decay * sum(||kernel||^2) over every conv and
 weight_decay * w, is added to the kernels' gradients directly instead of
 through autograd (the same sum, without ~250 small ops a step).
 
-`train(config)` is the training loop: the synthetic stream through a pinned,
-one-batch-ahead host-to-device prefetcher, a JSON metrics line every
-`log_every` steps, a checkpoint (`checkpoint.py`) every `checkpoint_every`
-steps and at the end, a final save on SIGTERM, and resume from the latest
-checkpoint in `train_logdir`.  A checkpoint also holds the data stream's
+`train(config)` is the training loop: the synthetic or procedural stream
+through a pinned, one-batch-ahead host-to-device prefetcher (uint8 views
+are normalized on the device), a JSON metrics line every `log_every`
+steps, a checkpoint (`checkpoint.py`) every `checkpoint_every` steps and at
+the end, with `eval_every` the validation split scored every that many
+steps (`eval.evaluate` on the training model, put back in train mode
+after), a final save on SIGTERM, and resume from the latest checkpoint in
+`train_logdir`.  A checkpoint also holds the data stream's
 generator state, so a resumed run continues the stream where it stopped
 (the JAX package restarts the stream from its seed), and the run's config
 (`run_identity`): a run refuses to resume from a checkpoint whose config
@@ -56,7 +59,13 @@ from gvcnn_tf_tpu_torch.data import (
     dataset_size,
     make_dataset,
 )
-from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN, build_model, init_weights
+from gvcnn_tf_tpu_torch.eval import evaluate
+from gvcnn_tf_tpu_torch.models.gvcnn import (
+    GVCNN,
+    build_model,
+    init_weights,
+    to_device,
+)
 from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
 
 # ---------------------------------------------------------------------------
@@ -247,10 +256,8 @@ def create_train_state(config: GVCNNConfig, device="cuda") -> TrainState:
     """Seeded model (`init_weights(train.seed)`) on the device in train
     mode (channels-last on a card), its optimizer, step 0."""
     dev = resolve_device(device)
-    model = init_weights(build_model(config), config.train.seed)
-    model = model.to(dev, memory_format=(torch.channels_last
-                                         if dev.type == "cuda"
-                                         else torch.preserve_format))
+    model = to_device(init_weights(build_model(config), config.train.seed),
+                      dev)
     model.train()
     named = list(model.named_parameters())
     return TrainState(
@@ -332,10 +339,6 @@ def _refuse_unported(config: GVCNNConfig, profile_steps):
         raise NotImplementedError(
             "--checkpoint_path: warm start from converted ImageNet weights "
             "is not ported yet (ROADMAP §1 item 14, warm start)")
-    if tc.eval_every > 0:
-        raise NotImplementedError(
-            "--eval_every: in-training evaluation is not ported yet (ROADMAP "
-            "§1 item 8, eval and predict)")
     if config.bn_sync == "local" or (config.num_devices or 1) > 1:
         raise NotImplementedError(
             f"multi-GPU training (num_devices={config.num_devices}, "
@@ -348,10 +351,10 @@ def _refuse_unported(config: GVCNNConfig, profile_steps):
             "'Not ported': tools/profile_step.py)")
 
 
-# What a resumed run may change: its length, its logging and checkpoint
-# cadence, its directory and the prefetch depth.
+# What a resumed run may change: its length, its logging, checkpoint and
+# evaluation cadence, its directory and the prefetch depth.
 _RESUMABLE = {"train": ("num_steps", "epochs", "steps_per_epoch", "log_every",
-                        "checkpoint_every", "train_logdir"),
+                        "checkpoint_every", "eval_every", "train_logdir"),
               "data": ("prefetch_to_device",)}
 
 
@@ -479,6 +482,14 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
             if ckpt is not None and (step + 1) % tc.checkpoint_every == 0:
                 ckpt.save(step + 1, state.state_dict(prefetch.data_state,
                                                      identity))
+            if tc.eval_every > 0 and (step + 1) % tc.eval_every == 0:
+                res = evaluate(config, state=state)
+                writer.scalars(step + 1, {"val_accuracy": res["accuracy"],
+                                          "val_count": res["count"]})
+                metrics_lib.log(
+                    f"step {step + 1} val accuracy {res['accuracy']:.4f} "
+                    f"({res['correct']}/{res['count']})")
+                timer.reset()       # the eval's time is not a step's
         if ckpt is not None and ckpt.latest_step() != state.step:
             ckpt.save(state.step, state.state_dict(prefetch.data_state,
                                                    identity))

@@ -129,7 +129,10 @@ def test_config_from_flags_equal_jax(argv):
 def test_port_never_imports_jax():
     code = ("import sys, gvcnn_tf_tpu_torch, gvcnn_tf_tpu_torch.serve, "
             "gvcnn_tf_tpu_torch.train, gvcnn_tf_tpu_torch.checkpoint, "
-            "gvcnn_tf_tpu_torch.data; "
+            "gvcnn_tf_tpu_torch.data, gvcnn_tf_tpu_torch.eval, "
+            "gvcnn_tf_tpu_torch.predict, gvcnn_tf_tpu_torch.data.procedural, "
+            "gvcnn_tf_tpu_torch.tools.render_meshes, "
+            "gvcnn_tf_tpu_torch.tools.make_demo_meshes; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'gvcnn_tf_tpu' not in sys.modules, 'gvcnn_tf_tpu'")
     env = dict(os.environ, PYTHONPATH=REPO)

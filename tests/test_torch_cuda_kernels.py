@@ -21,6 +21,9 @@ head's Function against autograd through its plain version, rtol 1e-5 /
 atol 1e-6.  One mn40_12view train step at 64x64, 4 views, B = 2, bf16 on
 the card against the same step in fp32 on the CPU: loss within 5%, grad
 norm within 10% (bf16 through ~60 layers with batch statistics).
+
+Evaluation: `--eval_every` on a 10-shape procedural split at 64x64, 4
+views, B = 4 (`test_eval_on_the_card`, its bounds in its docstring).
 """
 
 import numpy as np
@@ -305,3 +308,86 @@ def test_one_train_step_on_the_card(cuda):
     # Every kernel moves (the score-logit bias has a zero gradient under the
     # softmax over views, so only the kernels are checked).
     assert all(not torch.equal(a, b) for a, b in zip(before, state.kernels))
+
+
+def _eval_logits():
+    """Context: the logits of every GVCNN forward run in eval mode, appended
+    to the list it yields (a global module hook; removed on exit)."""
+    import contextlib
+
+    from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = []
+
+        def hook(module, args, out):
+            if isinstance(module, GVCNN) and not module.training:
+                seen.append(out[0].detach().float().cpu())
+
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        try:
+            yield seen
+        finally:
+            handle.remove()
+
+    return ctx()
+
+
+def test_eval_on_the_card(cuda, tmp_path):
+    """`--eval_every` on the card: 2 train steps and an eval of the 10-shape
+    procedural split (3 padded batches of 4) launch each kernel 2 + 3 times;
+    the optimizer's foreach update and `load_state_dict` bump the version
+    counters the kernels' caches are keyed on; a fresh model from the
+    checkpoint scores exactly as the training model did; the card (bf16)
+    and the CPU (fp32) predict alike wherever the CPU's top-2 margin is
+    above 3% of max|logit| (the serving bound, chip_smoke.LOGIT_REL_TOL)."""
+    import dataclasses
+    import json
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.eval import evaluate
+    from gvcnn_tf_tpu_torch.train import train
+
+    base = get_config("mn40_12view")
+    cfg = base.replace(
+        data=dataclasses.replace(
+            base.data, height=64, width=64, num_views=4, batch_size=4,
+            num_classes=10, dataset="procedural", transfer_dtype="uint8",
+            synthetic_num_shapes=10),
+        train=dataclasses.replace(base.train, train_logdir=str(tmp_path),
+                                  checkpoint_every=2, eval_every=2,
+                                  log_every=1))
+    launches = (stem_conv.launches, group_and_fuse.launches)
+    state, _ = train(cfg, num_steps=2, device=cuda)
+    assert (stem_conv.launches - launches[0],
+            group_and_fuse.launches - launches[1]) == (5, 5)
+    assert state.model.training
+    rec = [json.loads(line) for line in
+           (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["val_count"] for r in rec if "val_count" in r] == [10]
+
+    with _eval_logits() as in_training:
+        mine = evaluate(cfg, state=state, per_class=True)
+    with _eval_logits() as fresh:
+        got = evaluate(cfg, per_class=True, device=cuda)
+    assert got == mine
+    for a, b in zip(in_training, fresh):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with _eval_logits() as ref:
+        evaluate(cfg.replace(compute_dtype="float32"), device="cpu")
+    card, cpu = torch.cat(fresh)[:10], torch.cat(ref)[:10]
+    bound = 3e-2 * cpu.abs().max()
+    assert (card - cpu).abs().max() <= bound
+    top2 = cpu.topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > bound
+    assert torch.equal(card.argmax(-1)[clear], cpu.argmax(-1)[clear])
+
+    w = state.model.InceptionV1.Conv2d_1a_7x7.conv.weight
+    bn = state.model.InceptionV1.Conv2d_1a_7x7.BatchNorm.running_var
+    v = w._version
+    state.optimizer.step([torch.zeros_like(p) for p in state.optimizer.params])
+    assert w._version > v
+    v = (w._version, bn._version)
+    state.model.load_state_dict(state.model.state_dict())
+    assert w._version > v[0] and bn._version > v[1]

@@ -88,7 +88,7 @@ def test_make_dataset_matches_jax_for_the_synthetic_loader():
 @pytest.mark.parametrize("change,match", [
     (dict(loader="native"), "item 7"),
     (dict(dataset_dir="/nonexistent"), "item 7"),
-    (dict(dataset="procedural"), "item 7"),
+    (dict(loader="decoded"), "item 7"),
     (dict(device_resident="on"), "item 15"),
 ])
 def test_make_dataset_refuses_what_is_not_ported(change, match):

@@ -23,6 +23,7 @@ from gvcnn_tf_tpu.serve import InferenceEngine as JaxInferenceEngine  # noqa: E4
 from gvcnn_tf_tpu_torch import configs as port_configs  # noqa: E402
 from gvcnn_tf_tpu_torch import serve as port_serve  # noqa: E402
 from gvcnn_tf_tpu_torch.serve import InferenceEngine, serve  # noqa: E402
+from gvcnn_tf_tpu_torch.train import train as port_train  # noqa: E402
 
 V, H = 2, 32
 
@@ -151,10 +152,41 @@ def test_cuda_engine_without_a_card_raises(monkeypatch):
                          "2", "--port", "0"])
 
 
-def test_checkpoint_dir_is_refused():
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        InferenceEngine(_config(port_configs), "/nonexistent/ckpt",
-                        device="cpu")
+def test_engine_serves_a_train_checkpoint(tmp_path):
+    """The engine loaded from a `train()` checkpoint answers with the logits
+    of that checkpoint's model (BN folded by the engine: rtol 1e-4)."""
+    cfg = _config(port_configs)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, train_logdir=str(tmp_path), checkpoint_every=2))
+    state, _ = port_train(cfg, num_steps=2, device="cpu")
+    engine = InferenceEngine(cfg, str(tmp_path), serve_batch_size=2,
+                             device="cpu")
+    views = np.random.RandomState(4).uniform(-1, 1, (2, V, H, H, 3))
+    views = views.astype(np.float32)
+    try:
+        logits, scores = engine.logits_and_scores(views)
+    finally:
+        engine.close()
+    with torch.no_grad():
+        want, ep = state.model.eval()(torch.from_numpy(views))
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(logits, want.numpy(), rtol=1e-4,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(scores, ep["view_discrimination_scores"],
+                               rtol=1e-4, atol=1e-6)
+    with pytest.raises(ValueError, match="not both"):
+        InferenceEngine(cfg, str(tmp_path), variables={}, device="cpu")
+
+
+def test_checkpoint_dir_is_refused(tmp_path):
+    """A directory of the JAX package's Orbax checkpoints (one directory
+    per step) is refused with its ROADMAP item; so is a missing one."""
+    (tmp_path / "12" / "default").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="Orbax.*item 1"):
+        InferenceEngine(_config(port_configs), str(tmp_path), device="cpu")
     with pytest.raises(SystemExit, match="Orbax"):
-        port_serve.main(["--checkpoint_dir", "/nonexistent/ckpt",
+        port_serve.main(["--checkpoint_dir", str(tmp_path),
+                         "--device", "cpu", "--port", "0"])
+    with pytest.raises(SystemExit, match="no checkpoint directory"):
+        port_serve.main(["--checkpoint_dir", str(tmp_path / "missing"),
                          "--device", "cpu", "--port", "0"])

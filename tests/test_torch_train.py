@@ -43,15 +43,15 @@ import optax  # noqa: E402
 
 from gvcnn_tf_tpu import configs as jax_configs  # noqa: E402
 from gvcnn_tf_tpu_torch import configs as port_configs  # noqa: E402
-from gvcnn_tf_tpu_torch import train as port_train  # noqa: E402
 from gvcnn_tf_tpu_torch.bridge import (  # noqa: E402
     jax_to_state_dict,
     state_dict_to_jax,
 )
 from gvcnn_tf_tpu_torch.checkpoint import Checkpointer  # noqa: E402
 
-# The JAX package's __init__ exports a function named `train`.
+# Both packages' __init__ export a function named `train`.
 jax_train = importlib.import_module("gvcnn_tf_tpu.train")
+port_train = importlib.import_module("gvcnn_tf_tpu_torch.train")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -273,7 +273,7 @@ def test_sigterm_saves_and_stops(tmp_path):
 
 @pytest.mark.parametrize("change,item", [
     (dict(train=dict(checkpoint_path="/x")), "item 14"),
-    (dict(train=dict(eval_every=5)), "item 8"),
+    (dict(data=dict(loader="decoded")), "item 7"),
     (dict(bn_sync="local"), "item 10"),
     (dict(num_devices=2), "item 10"),
     (dict(data=dict(loader="tfrecord")), "item 7"),
