@@ -60,14 +60,33 @@ Phases, in order; any failure raises and the exit code is not 0:
    `train()` views/s on the procedural uint8 stream (10 resumed steps,
    without evaluations).
 
-TF32 is turned off for the whole run (`torch.backends.cudnn.allow_tf32`,
-`torch.backends.cuda.matmul.allow_tf32`), so fp32 comparisons on the card
-are full fp32.  Times are CUDA-event medians of 30 runs after 5 warm-up
+10. The other families and backbones (`phase_families`), at full width
+   (224x224, B = 8, 12 views, 1 for mn10_single_view, the config's compute
+   dtype): the fp32 stem kernel against its plain version (TF32 off for the
+   reference), without and with its epilogue, at mn10_single_view's
+   (8, 224, 224, 3) and one odd shape, timed against cuDNN's fp32 conv;
+   the grouping kernel at C = 1536 (Inception-v4) and 2048 (ResNet-50)
+   against its plain version in phase 4's cases, timed; then for each of
+   mn40_12view_resnet50, mn40_12view_inception_v4, mn40_12view_mvcnn and
+   mn10_single_view: the inference engine (seeded weights, folded BN) at
+   B = 1 and B = 8 (request p50 and each kernel's launches), B = 2 card
+   vs CPU (fp32, plain versions) logits, argmax and scores, one B = 8 train
+   step (CUDA events, peak memory, launches) and a B = 2 card-vs-CPU train
+   step (loss, grad_norm, the Logits gradient's cosine), each held to a
+   bound set beforehand from `measure.py serve-drift` / `train-drift` on
+   the CPU; and one B = 1 forward through GVCNN on Inception-v2 and v3
+   (`--backbone`), card against CPU.
+
+TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
+fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
+TF32); the fp32 references of the kernels' checks turn it off around
+themselves only.  Times are CUDA-event medians of 30 runs after 5 warm-up
 runs (kernels; `ms`), torch.profiler kernel durations (`device_ms`), or
-host-clock medians of 20 requests (serving).  `bound_ms` is the larger of
-the bytes the function must move (inputs read once, outputs written once)
-over 3.35 TB/s and its operations over the peak rate for their type (bf16
-tensor cores 989 TFLOP/s; fp32 67 TFLOP/s), from this run's shapes.
+host-clock medians of 20 requests (serving; 10 in phase 10).  `bound_ms`
+is the larger of the bytes the function must move (inputs read once,
+outputs written once) over 3.35 TB/s and its operations over the peak rate
+for their type (bf16 tensor cores 989 TFLOP/s; fp32 67 TFLOP/s), from this
+run's shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or outside a
@@ -135,6 +154,50 @@ PROC_SHAPES, EVAL_EVERY, EVAL_TRAIN_STEPS = 44, 5, 10
 EVAL_FORWARDS = -(-PROC_SHAPES // 8)
 CPU_SHAPES = 16
 STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
+# Phase 10.  The fp32 stem at mn10_single_view's B = 8 and one odd shape
+# (a ragged last strip and row pair); fp32 against fp32, 147 products
+# summed in another order.
+STEM_F32_SHAPES = [(8, 224, 224, 3), (3, 31, 45, 3)]
+STEM_F32_REL_TOL = 1e-5
+WIDE_C = (1536, 2048)            # K1: Inception-v4 Mixed_7d, ResNet-50 block4
+FAMILY_REQUESTS = 10
+# (bf16 stem, fp32 stem, grouping) launches a forward.
+FAMILY_LAUNCHES = {"mn40_12view_resnet50": (0, 0, 1),
+                   "mn40_12view_inception_v4": (0, 0, 1),
+                   "mn40_12view_mvcnn": (1, 0, 0),
+                   "mn10_single_view": (0, 1, 0)}
+# mn10_single_view: fp32 on the card (TF32 convs outside the stem kernel)
+# against fp32 on the CPU, read at 224x224 with only the forward's conv
+# inputs TF32-rounded (the card's dgrad and wgrad run in TF32 too): worst
+# loss 2.76e-4, grad_norm 9.46e-3, Logits cosine 0.99997; bounds with 5x
+# room or more for the unemulated backward.
+SINGLE_VIEW_TRAIN_TOL = (2e-3, 5e-2, 0.999)
+# GVCNN on Inception-v2 and v3 (`--backbone`), B = 1: worst `serve-drift`
+# readings v2 7.39e-3 / 9.80e-5, v3 6.63e-3 / 4.53e-6.
+FAMILY_BACKBONE_TOL = {"inception_v2": (3e-2, 5e-4),
+                       "inception_v3": (3e-2, 1e-4)}
+# Serving, card vs CPU: (max|dlogit| / max|logit|, max|dscore|), set from
+# `measure.py serve-drift` (the compute dtype against fp32 on the CPU, 96x96,
+# B = 2, seeds 0-2; fp32 configs against TF32-rounded conv inputs).  Worst
+# readings: ResNet-50 3.20e-3 / 1.60e-4; Inception-v4 9.58e-3 / 2.13e-6;
+# MVCNN 6.70e-3; single view 1.24e-3; GVCNN on v2 and v3 in
+# FAMILY_BACKBONE_TOL.  Bounds with 3x room or more.
+FAMILY_SERVE_TOL = {"mn40_12view_resnet50": (1e-2, 1e-3),
+                    "mn40_12view_inception_v4": (3e-2, 1e-4),
+                    "mn40_12view_mvcnn": (2e-2, None),
+                    "mn10_single_view": (5e-3, None)}
+# One B = 2 train step, card vs CPU: (loss rel, grad_norm rel, Logits
+# gradient cosine), from `measure.py train-drift` (bf16 vs fp32 on the CPU;
+# 64x64 seeds 0-2 and 96x96, v4 at 80x80 and 96x96; mn10_single_view fp32
+# against TF32-rounded conv inputs at 224x224, seeds 0-2).  Worst
+# readings: ResNet-50 5.87e-2, 5.46e-2, 0.9711; Inception-v4 9.02e-2,
+# 5.01e-2, 0.8911; MVCNN 2.50e-2, 2.45e-2, 0.9913; single view in
+# FAMILY_TRAIN_TOL's comment.  Bounds: 2.5-3x the worst gap, 1 - 3 x
+# (1 - the worst cosine).
+FAMILY_TRAIN_TOL = {"mn40_12view_resnet50": (0.15, 0.15, 0.91),
+                    "mn40_12view_inception_v4": (0.25, 0.15, 0.67),
+                    "mn40_12view_mvcnn": (0.075, 0.075, 0.97),
+                    "mn10_single_view": SINGLE_VIEW_TRAIN_TOL}
 
 
 def log(msg):
@@ -156,7 +219,9 @@ def phase_card():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {torch.cuda.get_device_name(0)}, "
-        f"{torch.cuda.device_count()} visible; TF32 off for this run")
+        f"{torch.cuda.device_count()} visible; TF32 as PyTorch's defaults "
+        f"(cuDNN {torch.backends.cudnn.allow_tf32}, matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32})")
     return card
 
 
@@ -287,7 +352,9 @@ def _edge_scores(b, v, m):
     return grid[np.arange(b * v).reshape(b, v) * 3 % (m + 1)]
 
 
-def phase_grouping(dev):
+def phase_grouping(dev, c=1024):
+    """The grouping kernel against its plain version at C = `c` channels
+    (Inception-v1 and v2: 1024; v4: 1536; ResNet-50 and v3: 2048)."""
     from gvcnn_tf_tpu_torch.ops.grouping_kernel import (
         group_and_fuse,
         group_and_fuse_plain,
@@ -295,10 +362,10 @@ def phase_grouping(dev):
     from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_us
 
     rs = np.random.RandomState(1)
-    cases = [(8, 12, 1024, 8, mode, False) for mode in ("mean", "ceil_sum")]
-    cases += [(8, v, 1024, m, "mean", False) for m in (1, 8, 16)
+    cases = [(8, 12, c, 8, mode, False) for mode in ("mean", "ceil_sum")]
+    cases += [(8, v, c, m, "mean", False) for m in (1, 8, 16)
               for v in (1, 8, 12)]
-    cases += [(8, 12, 1024, m, mode, True) for m in (1, 8, 16)
+    cases += [(8, 12, c, m, mode, True) for m in (1, 8, 16)
               for mode in ("mean", "ceil_sum")]
     max_err, empty_seen = 0.0, False
     for b, v, c, m, mode, edges in cases:
@@ -317,9 +384,10 @@ def phase_grouping(dev):
                       float(np.abs(got[1] - want[1]).max()))
     if not empty_seen:
         raise AssertionError("no case had an empty group")
-    log(f"grouping: {len(cases)} cases match, max|err| {max_err:.3g}")
+    log(f"grouping (C={c}): {len(cases)} cases match, max|err| "
+        f"{max_err:.3g}")
 
-    b, v, c, m = 8, 12, 1024, 8
+    b, v, m = 8, 12, 8
     s = torch.from_numpy(_clear_scores(rs, b, v, m)).to(dev)
     d = torch.from_numpy(rs.randn(b, v, c).astype(np.float32)).to(dev)
     with torch.inference_mode():
@@ -946,6 +1014,245 @@ def phase_eval(card, dev):
                 train_steady_views_per_s=steady_vps)
 
 
+def _no_tf32():
+    """cuDNN with TF32 off, around an fp32 reference only."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=b.benchmark,
+                   deterministic=b.deterministic, allow_tf32=False)
+
+
+def phase_stem_f32(dev):
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv, stem_conv_plain
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_us
+
+    rs = np.random.RandomState(11)
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+        np.float32)).to(dev)
+    scale = torch.from_numpy(rs.uniform(0.5, 2.0, 64).astype(np.float32))
+    shift = torch.from_numpy(rs.uniform(-1.0, 1.0, 64).astype(np.float32))
+    scale, shift = scale.to(dev), shift.to(dev)
+    max_err, timed = 0.0, None
+    for shape in STEM_F32_SHAPES:
+        x = torch.from_numpy(rs.uniform(-1, 1, shape).astype(
+            np.float32)).to(dev)
+        errs = []
+        with torch.inference_mode():
+            for args in ((), (scale, shift)):
+                got = stem_conv(x, w, *args, relu=bool(args))
+                torch.cuda.synchronize()
+                with _no_tf32():
+                    want = stem_conv_plain(x, w, *args, relu=bool(args))
+                err = (got - want).abs().max().item()
+                if got.dtype != torch.float32 or not err <= (
+                        STEM_F32_REL_TOL * want.abs().max().item()):
+                    raise AssertionError(
+                        f"fp32 stem {shape}: max|err| {err:.3g}, max|ref| "
+                        f"{want.abs().max().item():.3g}")
+                errs.append(err)
+        max_err = max(max_err, *errs)
+        log(f"fp32 stem {shape}: max|err| {errs[0]:.3g} (epilogue "
+            f"{errs[1]:.3g}), bound {STEM_F32_REL_TOL} x max|ref|")
+        if timed is not None:
+            continue
+        n, h, wd, _ = shape
+        ph, pw = same_pads(h, 7, 2), same_pads(wd, 7, 2)
+        with torch.inference_mode():
+            xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+            y = stem_conv(x, w)
+            with _no_tf32():
+                timed = dict(
+                    ms=cuda_ms(lambda: stem_conv(x, w)),
+                    epilogue_ms=cuda_ms(
+                        lambda: stem_conv(x, w, scale, shift, relu=True)),
+                    plain_ms=cuda_ms(lambda: stem_conv_plain(x, w)),
+                    library_ms=cuda_ms(lambda: F.conv2d(xn, w, stride=2)),
+                    device_ms=kernel_us(lambda: stem_conv(x, w),
+                                        "stem_conv_f32")[0] / 1e3)
+            timed["library_tf32_ms"] = cuda_ms(
+                lambda: F.conv2d(xn, w, stride=2))
+        timed["bound_ms"], timed["bound_by"] = bound(
+            (x.numel() + w.numel() + y.numel()) * 4, 2 * y.numel() * 147,
+            FP32_FLOPS)
+        log(f"fp32 stem {shape}: kernel {timed['ms']:.4f} ms (with epilogue "
+            f"{timed['epilogue_ms']:.4f}, device {timed['device_ms']:.4f}), "
+            f"plain {timed['plain_ms']:.4f} ms, cuDNN fp32 conv on pre-padded "
+            f"input {timed['library_ms']:.4f} ms (TF32 "
+            f"{timed['library_tf32_ms']:.4f}), bound {timed['bound_ms']:.4f} "
+            f"ms ({timed['bound_by']})")
+    return dict(max_abs_err=max_err, **timed)
+
+
+def _counts():
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+
+    return (stem_conv.launches - stem_conv.launches_f32,
+            stem_conv.launches_f32, group_and_fuse.launches)
+
+
+def _zero_counts():
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+
+    stem_conv.launches = stem_conv.launches_f32 = 0
+    group_and_fuse.launches = 0
+
+
+def _card_vs_cpu_serving(engine, cfg, views, tol, what):
+    """The engine's logits (and scores) for `views` against the same seeded,
+    folded weights in fp32 on the CPU -> (max|dlogit| / max|logit|, the
+    kernels' launch counts right after the engine's forward)."""
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.utils import fold_batch_norm
+
+    logits, scores = engine.logits_and_scores(views)
+    launches = _counts()
+    ref = fold_batch_norm(init_weights(build_model(
+        cfg.replace(compute_dtype="float32")), cfg.train.seed)).eval()
+    with torch.inference_mode():
+        ref_logits, ep = ref(torch.from_numpy(views))
+    ref_logits = ref_logits.numpy()
+    scale = float(np.abs(ref_logits).max())
+    dlogit = float(np.abs(logits - ref_logits).max())
+    top2 = np.sort(ref_logits, -1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > tol[0] * scale
+    agree = logits.argmax(-1) == ref_logits.argmax(-1)
+    msg = (f"{what} B={len(views)}, card vs CPU (fp32): max|dlogit| "
+           f"{dlogit:.4g} of max|logit| {scale:.4g} (rel {dlogit / scale:.3g}"
+           f", bound {tol[0]}); argmax equal on {int(agree.sum())} of "
+           f"{len(agree)}, {int((~clear).sum())} under the margin")
+    if not np.all(np.isfinite(logits)):
+        raise AssertionError(f"{what}: non-finite logits on the card")
+    if dlogit > tol[0] * scale or not agree[clear].all():
+        raise AssertionError(f"{msg}: card and CPU disagree")
+    if (scores is None) != (tol[1] is None):
+        raise AssertionError(f"{what}: scores {scores is not None}")
+    if scores is not None:
+        dscore = float(np.abs(scores - ep["view_discrimination_scores"]
+                              .numpy()).max())
+        msg += f"; max|dscore| {dscore:.3g} (bound {tol[1]})"
+        if not dscore <= tol[1]:
+            raise AssertionError(f"{msg}: scores disagree")
+    log(msg)
+    return dlogit / scale, launches
+
+
+def phase_families(card, dev):
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine
+    from gvcnn_tf_tpu_torch.tools.measure import (
+        cuda_ms,
+        train_batch,
+        train_step_drift,
+    )
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    rows = {}
+    for name in FAMILY_LAUNCHES:
+        cfg = get_config(name)
+        d = cfg.data
+        rs = np.random.RandomState(13)
+        shape = (d.num_views, d.height, d.width, 3)
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, serve_batch_size=8, device="cuda")
+        try:
+            up = time.perf_counter() - t0
+            row = dict(engine_up_s=up)
+            _zero_counts()
+            for n in (1, 8):
+                views = rs.randint(0, 256, (n,) + shape).astype(np.uint8)
+                recs = engine.predict(views)
+                if len(recs) != n or any(
+                        ("view_scores" in r) != (FAMILY_LAUNCHES[name][2] > 0)
+                        for r in recs):
+                    raise AssertionError(f"{name}: records {recs[:1]}")
+                lat = []
+                for _ in range(FAMILY_REQUESTS):
+                    t = time.perf_counter()
+                    engine.predict(views)
+                    lat.append(time.perf_counter() - t)
+                row[f"p50_ms_b{n}"] = statistics.median(lat) * 1e3
+            forwards = 2 * (FAMILY_REQUESTS + 1)
+            want = tuple(k * forwards for k in FAMILY_LAUNCHES[name])
+            if _counts() != want:
+                raise AssertionError(f"{name}: launches (bf16 stem, fp32 "
+                                     f"stem, grouping) {_counts()} over "
+                                     f"{forwards} forwards, want {want}")
+            row["serve_launches"] = _counts()
+            views2 = rs.uniform(-1, 1, (2,) + shape).astype(np.float32)
+            row["logit_rel"] = _card_vs_cpu_serving(
+                engine, cfg, views2, FAMILY_SERVE_TOL[name], name)[0]
+        finally:
+            engine.close()
+        log(f"{name}: engine up in {up:.1f} s; p50 B=1 "
+            f"{row['p50_ms_b1']:.2f} ms, B=8 {row['p50_ms_b8']:.2f} ms "
+            f"({8 * d.num_views / row['p50_ms_b8'] * 1e3:.1f} views/s); "
+            f"launches (bf16 stem, fp32 stem, grouping) over {forwards} "
+            f"forwards {row['serve_launches']} [{card}]")
+
+        # One B = 8 train step on the card.
+        state = create_train_state(cfg, dev)
+        batch = train_batch(cfg, rs, dev, getattr(torch, cfg.compute_dtype))
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        row["step_ms"] = cuda_ms(lambda: train_step(state, batch, cfg),
+                                 runs=5, warmup=2)
+        row["step_launches"] = tuple(k / 7 for k in _counts())
+        row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        if row["step_launches"] != FAMILY_LAUNCHES[name]:
+            raise AssertionError(f"{name}: launches a step "
+                                 f"{row['step_launches']}")
+        del state, batch
+        vps = d.batch_size * d.num_views / row["step_ms"] * 1e3
+        log(f"{name}: train step B={d.batch_size} {row['step_ms']:.3f} ms "
+            f"median of 5 ({vps:.1f} views/s), peak memory {row['peak_gb']:.3f} GB, launches a "
+            f"step {row['step_launches']} [{card}]")
+
+        # One B = 2 train step, card vs CPU.
+        drift = train_step_drift(
+            cfg.replace(data=dataclasses.replace(d, batch_size=2)), dev)
+        tol = FAMILY_TRAIN_TOL[name]
+        row["drift"] = {k: drift[k] for k in (
+            "loss_rel", "grad_norm_rel", "logits_grad_cosine",
+            "grad_cosine")}
+        log(f"{name}: B=2 train step, card vs CPU (fp32): loss "
+            f"{drift['loss']:.6g} vs {drift['loss_ref']:.6g} (rel "
+            f"{drift['loss_rel']:.3g}, bound {tol[0]}); grad_norm rel "
+            f"{drift['grad_norm_rel']:.3g} (bound {tol[1]}); Logits "
+            f"gradient cosine {drift['logits_grad_cosine']:.5f} (bound "
+            f"{tol[2]}); all gradients' cosine {drift['grad_cosine']:.4f}")
+        if not (np.isfinite(drift["loss"]) and drift["loss_rel"] <= tol[0]
+                and drift["grad_norm_rel"] <= tol[1]
+                and drift["logits_grad_cosine"] >= tol[2]):
+            raise AssertionError(f"{name}: card and CPU train steps "
+                                 "disagree")
+        rows[name] = row
+
+    # Inception-v2 and v3 through --backbone: one B = 1 forward each.
+    for backbone in FAMILY_BACKBONE_TOL:
+        cfg = get_config("mn40_12view").replace(backbone=backbone)
+        engine = InferenceEngine(cfg, serve_batch_size=1, device="cuda")
+        try:
+            _zero_counts()
+            views = np.random.RandomState(14).uniform(
+                -1, 1, (1, cfg.data.num_views, 224, 224, 3)).astype(
+                    np.float32)
+            rel, launches = _card_vs_cpu_serving(
+                engine, cfg, views, FAMILY_BACKBONE_TOL[backbone],
+                f"mn40_12view --backbone {backbone}")
+            rows[backbone] = dict(logit_rel=rel, launches=launches)
+            if launches != (0, 0, 1):
+                raise AssertionError(f"{backbone}: launches {launches}")
+        finally:
+            engine.close()
+    return rows
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -984,8 +1291,6 @@ def main():
     # Fails here, before any output, outside a checkout of the repository.
     import gvcnn_tf_tpu_torch  # noqa: F401
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = phase_card()
     phase_build()
@@ -996,6 +1301,11 @@ def main():
     grouping_bwd = phase_grouping_backward(dev)
     tr = phase_train(card, dev)
     ev = phase_eval(card, dev)
+    stem32 = phase_stem_f32(dev)
+    wide = {c: phase_grouping(dev, c) for c in WIDE_C}
+    fam = phase_families(card, dev)
+    single = fam["mn10_single_view"]
+    log("phase 10 summary: " + json.dumps(fam))
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
@@ -1013,7 +1323,21 @@ def main():
              train_launches=tr["launches"]["grouping"],
              launches_per_step=tr["per_step"]["grouping"],
              eval_launches=ev["eval_launches"]["grouping"],
-             backward_library_ms=None, **grouping, **grouping_bwd),
+             backward_library_ms=None,
+             wide_c={str(c): {k: v for k, v in t.items()
+                              if k not in ("library_ms", "max_abs_err")}
+                     for c, t in wide.items()},
+             wide_c_max_abs_err=max(t["max_abs_err"] for t in wide.values()),
+             family_launches_per_step={
+                 k: v["step_launches"][2] for k, v in fam.items()
+                 if "step_launches" in v},
+             **grouping, **grouping_bwd),
+        dict(name="stem_conv7x7s2_f32", route="cuda",
+             source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
+             replaces="gvcnn_tf_tpu/ops/pallas_stem.py:93",
+             launches=single["serve_launches"][1],
+             launches_per_forward=FAMILY_LAUNCHES["mn10_single_view"][1],
+             launches_per_step=single["step_launches"][1], **stem32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ so a path maps to a key by joining the scopes with dots and renaming the
 leaf:
 
   params/<scope>/kernel      4-D HWIO  ->  <scope>.weight  OIHW
+                             (a depthwise (7, 7, 1, 24) -> (24, 1, 7, 7))
   params/<scope>/kernel      2-D (in, out) -> <scope>.weight (out, in)
   params/<scope>/bias                  ->  <scope>.bias
+  params/<scope>/scale                 ->  <scope>.scale  (BatchNorm gamma)
   batch_stats/<scope>/mean, var        ->  <scope>.running_mean, running_var
 
 e.g. params/InceptionV1/Mixed_3b/Branch_1_Conv2d_0b_3x3/conv/kernel
@@ -61,8 +63,8 @@ def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             a = np.asarray(leaf)
             if collection == "params" and name == "kernel":
                 key, a = "weight", _to_torch_layout(a)
-            elif collection == "params" and name == "bias":
-                key = "bias"
+            elif collection == "params" and name in ("bias", "scale"):
+                key = name
             elif collection == "batch_stats" and name in _STATS:
                 key = _STATS[name]
             else:
@@ -80,8 +82,8 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         a = t.detach().cpu().numpy()
         if name == "weight":
             collection, leaf, a = "params", "kernel", _to_jax_layout(a)
-        elif name == "bias":
-            collection, leaf = "params", "bias"
+        elif name in ("bias", "scale"):
+            collection, leaf = "params", name
         elif name in _STATS_BACK:
             collection, leaf = "batch_stats", _STATS_BACK[name]
         else:

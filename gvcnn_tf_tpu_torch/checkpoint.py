@@ -26,7 +26,11 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig
-from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN, build_model, to_device
+from gvcnn_tf_tpu_torch.models.gvcnn import (
+    ViewModel,
+    build_model,
+    to_device,
+)
 from gvcnn_tf_tpu_torch.utils import fold_batch_norm, resolve_device
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -97,8 +101,8 @@ def model_state(checkpoint_dir: str) -> Dict[str, torch.Tensor]:
     return Checkpointer(checkpoint_dir).restore(map_location="cpu")["model"]
 
 
-def to_eval(model: GVCNN, state_dict: Dict[str, torch.Tensor],
-            device: torch.device, fold_bn: bool = False) -> GVCNN:
+def to_eval(model: ViewModel, state_dict: Dict[str, torch.Tensor],
+            device: torch.device, fold_bn: bool = False) -> ViewModel:
     """In place: `state_dict` loaded into `model`, BatchNorm folded into the
     convs (exact, in fp32) when asked, and the model on `device`
     (channels-last on a card) in eval mode."""
@@ -109,7 +113,7 @@ def to_eval(model: GVCNN, state_dict: Dict[str, torch.Tensor],
 
 
 def load_model(config: GVCNNConfig, checkpoint_dir: Optional[str] = None,
-               device="cuda", fold_bn: bool = False) -> GVCNN:
+               device="cuda", fold_bn: bool = False) -> ViewModel:
     """`config`'s model with the weights and BatchNorm statistics of the
     newest checkpoint under `checkpoint_dir` (default: the config's
     `train_logdir`), on `device` in eval mode (see `to_eval`).  Parameters

@@ -1,8 +1,12 @@
 // Inception-v1 stem convolution, Conv2d_1a_7x7: 7x7, stride 2, 3 -> 64
-// channels, TF-'SAME' padding, no bias, as an implicit GEMM on the tensor
-// cores.  bf16 NHWC in, fp32 accumulation, bf16 NHWC out, with an optional
-// per-channel epilogue out = relu(acc * scale[c] + shift[c]) rounded once
-// (eval-mode BatchNorm and the ReLU that follows it).
+// channels, TF-'SAME' padding, no bias, with an optional per-channel
+// epilogue out = relu(acc * scale[c] + shift[c]) rounded once (eval-mode
+// BatchNorm and the ReLU that follows it).  Two kernels:
+//   * stem_conv7x7s2_bf16: an implicit GEMM on the tensor cores, bf16 NHWC
+//     in, fp32 accumulation, bf16 NHWC out (the bf16 configs);
+//   * stem_conv7x7s2_f32: a direct conv on the CUDA cores, fp32 NHWC in,
+//     fp32 FMAs, fp32 NHWC out, no TF32 rounding of the inputs (the fp32
+//     configs, e.g. mn10_single_view); described before its code below.
 //
 // Replaces the TPU kernel gvcnn_tf_tpu/ops/pallas_stem.py::_stem_fwd
 // (_stem_kernel + _pack_weights).  That kernel built the im2col matrix in
@@ -12,7 +16,7 @@
 // pixel p are 21 consecutive bf16 of the padded NHWC input row, starting
 // at element 6p.
 //
-// What bounds it on the H100: bytes.  At N = 96, 224x224 the input is
+// The bf16 kernel.  What bounds it on the H100: bytes.  At N = 96, 224x224 the input is
 // 28.9 MB and the output 154.1 MB; at 3.35 TB/s that is 54.6 us.  The
 // 22.7 GFLOP (K = 147) take 22.9 us at the bf16 tensor-core peak.
 //
@@ -313,6 +317,136 @@ stem_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
   cp_async_wait<0>();
 }
 
+// The fp32 kernel.  What bounds it on the H100: operations.  At N = 8,
+// 224x224 (mn10_single_view's B = 8) it does 1.89 GFLOP (147 multiply-adds
+// per output), 28.2 us at the 67 TFLOP/s fp32 peak, against 30.5 MB of
+// input and output, 9.1 us at 3.35 TB/s.  Tensor cores would take the
+// inputs in TF32 (10-bit mantissa); fp32 configs keep fp32 numerics, so the
+// multiply-adds run on the CUDA cores.
+//
+// Design (the direct conv the bf16 path first shipped with, in fp32): one
+// block of 4 warps per (image, strip of F_TILE_W output columns, F_ROWS
+// output rows).  The block stages the (147, 64) weight matrix in shared
+// memory once, then for each output row the 7 input rows of its strip,
+// zero padded and split by column parity, so that the 32 lanes of a warp
+// read 32 consecutive words for every tap (no bank conflicts).  Warp w
+// computes channels [16 w, 16 w + 16) of two output pixels a lane (lane,
+// lane + 32); the 16 weights of a tap are a broadcast read shared by the
+// warp.  The epilogue applies scale / shift / ReLU to the accumulators and
+// writes each pixel's 16 channels as four 16-byte stores.
+constexpr int F_TAPS = 7 * 7 * 3;                        // 147
+constexpr int F_TILE_W = 64;                             // output columns
+constexpr int F_ROWS = 2;                                // output rows
+constexpr int F_THREADS = 128;                           // 4 warps
+constexpr int F_CH = COUT / (F_THREADS / 32);            // 16 a warp
+constexpr int F_IN_COLS = (F_TILE_W - 1) * 2 + 7;        // 133
+constexpr int F_HALF_COLS = (F_IN_COLS + 1) / 2;         // 67 a parity
+
+__global__ void __launch_bounds__(F_THREADS)
+stem_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift, float* __restrict__ out,
+                     int h, int wdt, int ho, int wo, int pad_top,
+                     int pad_left, int relu) {
+  // 37,632 + 11,256 bytes: under the 48 KB of static shared memory.
+  __shared__ __align__(16) float w_s[F_TAPS * COUT];
+  __shared__ float strip[7][3][2][F_HALF_COLS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int cg = tid >> 5;                  // channel group of this warp
+  const int ox0 = blockIdx.x * F_TILE_W;    // first output column
+  const int oy0 = blockIdx.y * F_ROWS;      // first output row
+  const long long n = blockIdx.z;
+
+  for (int i = tid; i < F_TAPS * COUT; i += F_THREADS) w_s[i] = w[i];
+
+  float sc[F_CH], sh[F_CH];
+#pragma unroll
+  for (int k = 0; k < F_CH; ++k) {
+    sc[k] = scale ? scale[cg * F_CH + k] : 1.0f;
+    sh[k] = shift ? shift[cg * F_CH + k] : 0.0f;
+  }
+
+  const int ix0 = ox0 * 2 - pad_left;       // input column of strip col 0
+  const float* xn = x + n * h * wdt * 3;
+
+  for (int r = 0; r < F_ROWS; ++r) {
+    const int oy = oy0 + r;
+    if (oy >= ho) break;                    // uniform across the block
+    const int iy0 = oy * 2 - pad_top;
+
+    __syncthreads();                        // previous row done with strip
+    for (int i = tid; i < 7 * F_IN_COLS * 3; i += F_THREADS) {
+      const int c = i % 3;
+      const int lc = (i / 3) % F_IN_COLS;
+      const int kh = i / (3 * F_IN_COLS);
+      const int iy = iy0 + kh;
+      const int ix = ix0 + lc;
+      float v = 0.0f;
+      if (iy >= 0 && iy < h && ix >= 0 && ix < wdt) {
+        v = xn[(static_cast<long long>(iy) * wdt + ix) * 3 + c];
+      }
+      strip[kh][c][lc & 1][lc >> 1] = v;
+    }
+    __syncthreads();
+
+    float acc0[F_CH], acc1[F_CH];
+#pragma unroll
+    for (int k = 0; k < F_CH; ++k) {
+      acc0[k] = 0.0f;
+      acc1[k] = 0.0f;
+    }
+    for (int kh = 0; kh < 7; ++kh) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+#pragma unroll
+        for (int kw = 0; kw < 7; ++kw) {
+          // Output pixel p reads strip column 2 p + kw: parity kw & 1,
+          // index p + kw / 2.
+          const float* srow = strip[kh][c][kw & 1];
+          const float a0 = srow[lane + (kw >> 1)];
+          const float a1 = srow[lane + 32 + (kw >> 1)];
+          const float4* wv = reinterpret_cast<const float4*>(
+              w_s + ((kh * 7 + kw) * 3 + c) * COUT + cg * F_CH);
+#pragma unroll
+          for (int q = 0; q < F_CH / 4; ++q) {
+            const float4 wq = wv[q];
+            acc0[4 * q + 0] = fmaf(a0, wq.x, acc0[4 * q + 0]);
+            acc0[4 * q + 1] = fmaf(a0, wq.y, acc0[4 * q + 1]);
+            acc0[4 * q + 2] = fmaf(a0, wq.z, acc0[4 * q + 2]);
+            acc0[4 * q + 3] = fmaf(a0, wq.w, acc0[4 * q + 3]);
+            acc1[4 * q + 0] = fmaf(a1, wq.x, acc1[4 * q + 0]);
+            acc1[4 * q + 1] = fmaf(a1, wq.y, acc1[4 * q + 1]);
+            acc1[4 * q + 2] = fmaf(a1, wq.z, acc1[4 * q + 2]);
+            acc1[4 * q + 3] = fmaf(a1, wq.w, acc1[4 * q + 3]);
+          }
+        }
+      }
+    }
+
+    const long long row = (n * ho + oy) * wo;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ox = ox0 + lane + 32 * half;
+      if (ox >= wo) continue;
+      float v[F_CH];
+#pragma unroll
+      for (int k = 0; k < F_CH; ++k) {
+        v[k] = fmaf(half ? acc1[k] : acc0[k], sc[k], sh[k]);
+        if (relu) v[k] = fmaxf(v[k], 0.0f);
+      }
+      float4* dst = reinterpret_cast<float4*>(out + (row + ox) * COUT +
+                                              cg * F_CH);
+#pragma unroll
+      for (int q = 0; q < F_CH / 4; ++q) {
+        dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                             v[4 * q + 3]);
+      }
+    }
+  }
+}
+
 int g_sms[MAX_DEVICES];
 int g_max_smem[MAX_DEVICES];
 
@@ -372,5 +506,23 @@ extern "C" int stem_conv7x7s2_bf16(const void* x, const void* w,
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
       static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out), n,
       s, aligned, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (n, h, w, 3) fp32, contiguous.  w: (147, 64) fp32, row (kh * 7 + kw) *
+// 3 + c (pack_stem_weight_f32).  scale, shift: 64 fp32 each, or both null
+// for no affine.  out: (n, ho, wo, 64) fp32, contiguous, 16-byte aligned.
+extern "C" int stem_conv7x7s2_f32(const void* x, const void* w,
+                                  const void* scale, const void* shift,
+                                  void* out, int n, int h, int wdt, int ho,
+                                  int wo, int pad_top, int pad_left, int relu,
+                                  void* stream) {
+  const dim3 grid((wo + F_TILE_W - 1) / F_TILE_W,
+                  (ho + F_ROWS - 1) / F_ROWS, n);
+  stem_conv_f32_kernel<<<grid, F_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<float*>(out), h, wdt, ho, wo, pad_top, pad_left, relu);
   return static_cast<int>(cudaGetLastError());
 }

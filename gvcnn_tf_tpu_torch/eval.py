@@ -46,16 +46,17 @@ from gvcnn_tf_tpu_torch.configs import (
 )
 from gvcnn_tf_tpu_torch.data import DevicePrefetcher, make_dataset
 from gvcnn_tf_tpu_torch.metrics import log
-from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN, build_model
+from gvcnn_tf_tpu_torch.models.gvcnn import ViewModel, build_model
 from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
 
 # The model that checkpoints and JAX variables are loaded into, one per
 # (config, device), as the JAX package caches its jitted eval step: repeated
 # evaluations build and place it once.
-_MODELS: Dict[Tuple[GVCNNConfig, torch.device], GVCNN] = {}
+_MODELS: Dict[Tuple[GVCNNConfig, torch.device], ViewModel] = {}
 
 
-def _cached_model(config: GVCNNConfig, device: torch.device) -> GVCNN:
+def _cached_model(config: GVCNNConfig,
+                  device: torch.device) -> ViewModel:
     model = _MODELS.get((config, device))
     if model is None:
         model = _MODELS[(config, device)] = build_model(config)

@@ -10,9 +10,8 @@ does.  The stem goes through `ops/stem_kernel.py`, which returns NHWC; its
 permute is a channels-last NCHW tensor, and every later layer runs on NCHW
 tensors (channels-last in memory on the card).  Endpoints are NCHW.
 
-Dtypes: convs run in the input's dtype (the weight is cast where it is not
-already that dtype, as Flax casts fp32 params to the compute dtype);
-BatchNorm computes in fp32 and returns the input's dtype, as Flax's does.
+Dtypes: as `layers.py` says; the stem runs the bf16 or the fp32 kernel
+with the input's dtype.
 
 Train and eval mode follow the module's `training` flag: in train mode
 BatchNorm normalizes with the batch's statistics and updates its running
@@ -27,122 +26,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gvcnn_tf_tpu_torch.ops.pool import max_pool, same_pads
+from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: F401
+    TRUNC_STDDEV,
+    BatchNorm,
+    ConvBN,
+    trunc_normal_,
+)
+from gvcnn_tf_tpu_torch.ops.pool import max_pool
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
 
-# slim's inception_v1 trunc_normal(0.09) for conv kernels.
-_TRUNC_STDDEV = 0.09
-# jax.nn.initializers.truncated_normal divides stddev by the stddev of a
-# unit normal truncated to [-2, 2], so the samples have the stddev asked for.
-_TRUNC_CORRECTION = 0.87962566103423978
-
-
-def trunc_normal_(t: torch.Tensor, stddev: float,
-                  generator: torch.Generator) -> torch.Tensor:
-    """In place: the distribution of jax's truncated_normal(stddev)."""
-    s = stddev / _TRUNC_CORRECTION
-    return nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
-                                 generator=generator)
-
-
-def conv2d_same(x: torch.Tensor, weight: torch.Tensor,
-                stride: Tuple[int, int]) -> torch.Tensor:
-    """`F.conv2d` with TF-'SAME' padding (zeros), in x's dtype."""
-    kh, kw = weight.shape[2:]
-    ph = same_pads(x.shape[2], kh, stride[0])
-    pw = same_pads(x.shape[3], kw, stride[1])
-    weight = weight.to(x.dtype)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, weight, stride=stride, padding=(ph[0], pw[0]))
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, weight, stride=stride)
-
-
-class BatchNorm(nn.Module):
-    """Flax `BatchNorm(use_scale=False)` over channel dim 1, computed in fp32
-    and returned in x's dtype; parameters and statistics stay fp32.
-
-    Eval: y = (x - running_mean) / sqrt(running_var + eps) + bias.
-    Train (Flax's `use_running_average=False`): y normalized with the
-    batch's mean and biased variance over (N, H, W), in fp32, by PyTorch's
-    fused batch-norm kernel (`native_batch_norm`, which also gives the
-    gradients of x and bias); then in place
-    r <- momentum * r + (1 - momentum) * stat for the running mean and the
-    running *biased* variance, as Flax updates `batch_stats` (torch's own
-    running update would store the unbiased one).  The kernel computes the
-    variance in one Welford pass where Flax takes max(0, E[x^2] - E[x]^2):
-    the same statistic, rounded differently; the variance comes back as
-    1 / invstd^2 - eps, floored at 0.  `momentum` is the EMA decay (slim's
-    0.9997; `config.bn_momentum` overrides it)."""
-
-    def __init__(self, features: int, eps: float = 1e-3,
-                 momentum: float = 0.9997):
-        super().__init__()
-        self.eps = eps
-        self.momentum = momentum
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-        # The fused kernel's unit scale: given no weight, its CUDA backward
-        # returns no bias gradient.  Not part of the state_dict.
-        self.register_buffer("_unit", torch.ones(features), persistent=False)
-        self._affine = None           # (key, (scale, shift)); scale_shift
-
-    def _check_eval(self):
-        if self.training:
-            raise RuntimeError(
-                "BatchNorm.scale_shift is the eval-mode affine; the module "
-                "is in training mode")
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                None, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self._unit, self.bias, None, None, True, 0.0, self.eps)
-        with torch.no_grad():
-            var = torch.clamp(invstd.square().reciprocal() - self.eps,
-                              min=0.0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean * (1.0 - m))
-            self.running_var.mul_(m).add_(var * (1.0 - m))
-        return y
-
-    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """fp32 (scale, shift) with BN(y) == y * scale + shift:
-        scale = 1 / sqrt(var + eps), shift = bias - mean * scale.
-
-        With grad mode off they are kept until a parameter or statistic
-        changes (storage or version counter), so serving computes them
-        once."""
-        self._check_eval()
-        tensors = (self.bias, self.running_mean, self.running_var)
-        if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
-            return self._scale_shift()
-        key = tuple((t.data_ptr(), t._version) for t in tensors)
-        if self._affine is None or self._affine[0] != key:
-            self._affine = (key, self._scale_shift())
-        return self._affine[1]
-
-    def _scale_shift(self):
-        scale = torch.rsqrt(self.running_var + self.eps)
-        return scale, torch.addcmul(self.bias, self.running_mean, scale,
-                                    value=-1.0)
-
-
-class ConvBNReLU(nn.Module):
-    """slim.conv2d + batch_norm + relu, TF-'SAME' padding, no conv bias."""
-
-    def __init__(self, in_ch: int, features: int, kernel: Tuple[int, int],
-                 stride: Tuple[int, int] = (1, 1)):
-        super().__init__()
-        self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
-                              bias=False)
-        self.BatchNorm = BatchNorm(features)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.conv.weight, self.conv.stride)
-        return F.relu(self.BatchNorm(y))
+# slim.conv2d + batch_norm + relu, TF-'SAME' padding, no conv bias, BN eps
+# 1e-3 without a scale (inception_arg_scope): `ConvBN`'s defaults.
+ConvBNReLU = ConvBN
 
 
 class Stem(nn.Module):
@@ -152,8 +47,9 @@ class Stem(nn.Module):
     NHWC (N, H, W, 3) in, NCHW out.  In eval mode with no gradient to
     take, the BatchNorm and the ReLU run as the kernel's epilogue
     (`BatchNorm.scale_shift`), so on the card the conv output is written
-    once, in bf16; on the CPU the plain version applies the same affine in
-    fp32 after the conv.  Otherwise (train mode: batch statistics; or a
+    once, in the compute dtype (the bf16 kernel on the tensor cores, the
+    fp32 kernel on the CUDA cores); on the CPU the plain version applies
+    the same affine in fp32 after the conv.  Otherwise (train mode: batch statistics; or a
     gradient is needed) the kernel runs without its epilogue, through
     `StemConvFunction`, and BatchNorm and the ReLU follow as their own
     passes."""
@@ -236,10 +132,13 @@ class InceptionV1Base(nn.Module):
 
     forward(x NHWC (N, H, W, 3)) -> (features NCHW, {endpoint: NCHW})."""
 
+    NAME = "InceptionV1"
     DEFAULT_RAW_ENDPOINT = "Mixed_3c"
     DEFAULT_FINAL_ENDPOINT = "Mixed_5c"
+    DESCRIPTOR_DIM = 1024
     ENDPOINTS = ENDPOINTS
     ENDPOINT_CHANNELS = ENDPOINT_CHANNELS
+    KERNEL_INIT = "trunc_normal"      # slim's trunc_normal(0.09)
 
     def __init__(self, final_endpoint: str = "Mixed_5c"):
         super().__init__()

@@ -1,0 +1,194 @@
+"""Layers shared by the port's backbones, with TF/Flax semantics.
+
+- `conv2d_tf`: `F.conv2d` with TF-'SAME' padding (asymmetric, bottom/right
+  heavy) or 'VALID', in x's dtype, optionally grouped (depthwise).
+- `BatchNorm`: Flax's `BatchNorm` over channel dim 1, with an optional
+  learned `scale` (Flax `use_scale=True`, ResNet) and the family's own eps
+  and EMA decay.
+- `ConvBN`: conv + BatchNorm (+ ReLU), no conv bias: Inception-v1's
+  `ConvBNReLU`, Inception-v3/v4's `_Conv` and ResNet's `_ConvBN`.
+- The JAX package's initializers: slim's truncated normal (Inception-v1 and
+  v2) and Flax's default lecun normal (v3, v4, ResNet, the heads).
+
+Dtypes: convs run in the input's dtype (the weight is cast where it is not
+already that dtype, as Flax casts fp32 params to the compute dtype);
+BatchNorm computes in fp32 and returns the input's dtype, as Flax's does.
+On the card an fp32 conv here goes through cuDNN with PyTorch's default
+(`torch.backends.cudnn.allow_tf32` True: TF32 products, fp32 sums); the
+port sets no global flag.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from gvcnn_tf_tpu_torch.ops.pool import same_pads
+
+# slim's inception_v1 trunc_normal(0.09) for conv kernels.
+TRUNC_STDDEV = 0.09
+# jax.nn.initializers.truncated_normal divides stddev by the stddev of a
+# unit normal truncated to [-2, 2], so the samples have the stddev asked for.
+_TRUNC_CORRECTION = 0.87962566103423978
+
+
+def trunc_normal_(t: torch.Tensor, stddev: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """In place: the distribution of jax's truncated_normal(stddev)."""
+    s = stddev / _TRUNC_CORRECTION
+    return nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
+                                 generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator
+                  ) -> torch.Tensor:
+    """In place: Flax's default kernel init, variance 1 / fan_in, truncated
+    normal.  fan_in of an OIHW conv weight is I * H * W (per group), of a
+    Linear weight (out, in) its `in`."""
+    return trunc_normal_(t, t[0].numel() ** -0.5, generator)
+
+
+def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, stride: Tuple[int, int],
+              padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+    """`F.conv2d` with TF-'SAME' (zeros) or 'VALID' padding, in x's
+    dtype."""
+    weight = weight.to(x.dtype)
+    if padding == "VALID":
+        return F.conv2d(x, weight, stride=stride, groups=groups)
+    if padding != "SAME":
+        raise ValueError(f"unsupported padding {padding!r}")
+    kh, kw = weight.shape[2:]
+    ph = same_pads(x.shape[2], kh, stride[0])
+    pw = same_pads(x.shape[3], kw, stride[1])
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, weight, stride=stride, padding=(ph[0], pw[0]),
+                        groups=groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, weight, stride=stride, groups=groups)
+
+
+class BatchNorm(nn.Module):
+    """Flax `BatchNorm` over channel dim 1, computed in fp32 and returned in
+    x's dtype; parameters and statistics stay fp32.
+
+    `use_scale` False (the Inception families, Flax `use_scale=False`): no
+    gamma.  True (ResNet): a learned per-channel `scale`, init 1, named
+    `scale` as in Flax, so the L2 term (`train.kernel_params`, parameters
+    named `*.weight`) and the bridge's `weight` <-> `kernel` rule leave it
+    alone.
+
+    Eval: y = (x - running_mean) / sqrt(running_var + eps) * scale + bias.
+    Train (Flax's `use_running_average=False`): y normalized with the
+    batch's mean and biased variance over (N, H, W), in fp32, by PyTorch's
+    fused batch-norm kernel (`native_batch_norm`, which also gives the
+    gradients of x, scale and bias); then in place
+    r <- momentum * r + (1 - momentum) * stat for the running mean and the
+    running *biased* variance, as Flax updates `batch_stats` (torch's own
+    running update would store the unbiased one).  The kernel computes the
+    variance in one Welford pass where Flax takes max(0, E[x^2] - E[x]^2):
+    the same statistic, rounded differently; the variance comes back as
+    1 / invstd^2 - eps, floored at 0.  `momentum` is the EMA decay (slim's
+    0.9997 for Inception, 0.997 for ResNet; `config.bn_momentum` overrides
+    it)."""
+
+    def __init__(self, features: int, eps: float = 1e-3,
+                 momentum: float = 0.9997, use_scale: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.register_parameter(
+            "scale", nn.Parameter(torch.ones(features)) if use_scale
+            else None)
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        # The fused kernel's unit scale where there is no learned one:
+        # given no weight, its CUDA backward returns no bias gradient.  Not
+        # part of the state_dict.
+        if self.scale is None:
+            self.register_buffer("_unit", torch.ones(features),
+                                 persistent=False)
+        self._affine = None           # (key, (scale, shift)); scale_shift
+
+    def _check_eval(self):
+        if self.training:
+            raise RuntimeError(
+                "BatchNorm.scale_shift is the eval-mode affine; the module "
+                "is in training mode")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.scale, self.bias, False, 0.0, self.eps)
+        gamma = self._unit if self.scale is None else self.scale
+        y, mean, invstd = torch.native_batch_norm(
+            x, gamma, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = torch.clamp(invstd.square().reciprocal() - self.eps,
+                              min=0.0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
+        return y
+
+    def _params(self):
+        return tuple(t for t in (self.scale, self.bias, self.running_mean,
+                                 self.running_var) if t is not None)
+
+    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 (scale, shift) with BN(y) == y * scale + shift:
+        scale = gamma / sqrt(var + eps) (gamma = 1 without a learned
+        scale), shift = bias - mean * scale.
+
+        With grad mode off they are kept until a parameter or statistic
+        changes (storage or version counter), so serving computes them
+        once."""
+        self._check_eval()
+        tensors = self._params()
+        if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+            return self._scale_shift()
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._affine is None or self._affine[0] != key:
+            self._affine = (key, self._scale_shift())
+        return self._affine[1]
+
+    def _scale_shift(self):
+        scale = torch.rsqrt(self.running_var + self.eps)
+        if self.scale is not None:
+            scale = scale * self.scale
+        return scale, torch.addcmul(self.bias, self.running_mean, scale,
+                                    value=-1.0)
+
+    @torch.no_grad()
+    def reset_(self):
+        """Flax's init: scale 1, bias 0, mean 0, var 1."""
+        if self.scale is not None:
+            self.scale.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+
+class ConvBN(nn.Module):
+    """slim.conv2d + batch_norm (+ relu): TF-'SAME' or 'VALID' padding, no
+    conv bias (Inception-v1's `ConvBNReLU`, v3/v4's `_Conv`, ResNet's
+    `_ConvBN`)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: str = "SAME",
+                 relu: bool = True, eps: float = 1e-3,
+                 momentum: float = 0.9997, use_scale: bool = False):
+        super().__init__()
+        self.padding = padding
+        self.relu = relu
+        self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
+                              bias=False)
+        self.BatchNorm = BatchNorm(features, eps, momentum, use_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.BatchNorm(conv2d_tf(x, self.conv.weight, self.conv.stride,
+                                     self.padding))
+        return F.relu(y) if self.relu else y

@@ -1,19 +1,30 @@
-"""GVCNN model assembly (counterpart of `gvcnn_tf_tpu/models/gvcnn.py`).
+"""Model assembly (counterpart of `gvcnn_tf_tpu/models/gvcnn.py`): the
+three families `build_model` picks from the config.
 
-The view axis is folded into the batch: one (B*V) pass through the
-backbone; the scoring FCN taps an early endpoint of the same pass; the
-grouping head buckets, pools and fuses the views (ops/grouping_kernel.py:
-the CUDA kernel on the card, the plain version on the CPU); a linear head
-gives the logits.  `end_points` carries the reference names.
+- `GVCNN`: the view axis is folded into the batch, one (B*V) pass through
+  the backbone; the scoring FCN taps an early endpoint of the same pass;
+  the grouping head buckets, pools and fuses the views
+  (ops/grouping_kernel.py: the CUDA kernel on the card, the plain version
+  on the CPU); a linear head gives the logits.
+- `MVCNN` (the paper's baseline): the same fold, then an element-wise max
+  over all the view descriptors; no scoring FCN, no grouping head.
+- `SingleViewClassifier` (`multi_view=False`): one view (B, H, W, 3), or
+  (B, 1, H, W, 3) as the data pipeline sends it; global average pool and
+  `Logits`.
 
-Dtypes follow the JAX module: the backbone and the scoring FCN run in
-`config.compute_dtype`; the global average pools, the grouping head and the
-`Logits` layer run in fp32.
+The backbone is any of the registry's (`config.backbone`), held under its
+Flax scope name (`InceptionV1`, `ResNet50`, ...), so the state_dict keys
+follow the JAX parameter tree.  `end_points` carries the reference names;
+only GVCNN has `view_discrimination_scores`.
+
+Dtypes follow the JAX modules: the backbone and the scoring FCN run in
+`config.compute_dtype`; the global average pools, the grouping head, the
+view max and the `Logits` layer run in fp32.
 
 Train mode (`model.train()`): every BatchNorm uses the batch's statistics
 and updates its running statistics with decay `config.bn_momentum` (None:
 slim's 0.9997), and dropout with keep probability
-`config.dropout_keep_prob` acts on the fused descriptor before `Logits`.
+`config.dropout_keep_prob` acts on the shape descriptor before `Logits`.
 Its mask comes from the `torch.Generator` the caller passes (the train step
 seeds one from `train.seed` and the step); it cannot match JAX's stream.
 """
@@ -28,11 +39,11 @@ import torch.nn as nn
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.backbones import get_backbone
-from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (
-    _TRUNC_STDDEV,
+from gvcnn_tf_tpu_torch.models.backbones.layers import (
+    TRUNC_STDDEV,
     BatchNorm,
-    ConvBNReLU,
-    Stem,
+    ConvBN,
+    lecun_normal_,
     trunc_normal_,
 )
 from gvcnn_tf_tpu_torch.ops.grouping import squash_scores
@@ -84,7 +95,7 @@ class GroupingModule(nn.Module):
 
     def __init__(self, in_ch: int, hidden: int = 128):
         super().__init__()
-        self.Conv2d_score_1x1 = ConvBNReLU(in_ch, hidden, (1, 1))
+        self.Conv2d_score_1x1 = ConvBN(in_ch, hidden, (1, 1))
         self.Conv2d_score_logit = nn.Conv2d(hidden, 1, (1, 1), bias=True)
 
     def forward(self, raw_feats: torch.Tensor) -> torch.Tensor:
@@ -95,27 +106,35 @@ class GroupingModule(nn.Module):
         return _global_avg_pool(x.float())[:, 0]                # (B*V,)
 
 
-class GVCNN(nn.Module):
-    """forward(x (B, V, H, W, 3) float) -> (logits (B, num_classes) fp32,
-    end_points dict)."""
+class ViewModel(nn.Module):
+    """What the three families share: the config's backbone under its Flax
+    scope name, its endpoints, the compute dtype, the `bn_momentum`
+    override and the cast of the convs."""
 
     def __init__(self, config: GVCNNConfig):
         super().__init__()
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         backbone_cls = get_backbone(config.backbone)
-        self.raw_endpoint, final_ep = _resolve_endpoints(config, backbone_cls)
-        self.InceptionV1 = backbone_cls(final_endpoint=final_ep)
-        self.GroupingModule = GroupingModule(
-            backbone_cls.ENDPOINT_CHANNELS[self.raw_endpoint])
-        self.Logits = nn.Linear(backbone_cls.ENDPOINT_CHANNELS[final_ep],
-                                config.data.num_classes)
-        if config.bn_momentum is not None:
+        self.raw_endpoint, self.final_endpoint = _resolve_endpoints(
+            config, backbone_cls)
+        self._backbone_name = backbone_cls.NAME
+        self.add_module(backbone_cls.NAME,
+                        backbone_cls(final_endpoint=self.final_endpoint))
+
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self._backbone_name)
+
+    def _set_bn_momentum(self):
+        """`config.bn_momentum`, where given, for every BatchNorm (the
+        backbone's and the heads'), as `_backbone_kwargs` passes it."""
+        if self.config.bn_momentum is not None:
             for m in self.modules():
                 if isinstance(m, BatchNorm):
-                    m.momentum = config.bn_momentum
+                    m.momentum = self.config.bn_momentum
 
-    def cast_convs_(self) -> "GVCNN":
+    def cast_convs_(self) -> "ViewModel":
         """In place: store every conv weight in the compute dtype, so the
         per-call casts are no-ops.  BatchNorm and `Logits` stay fp32."""
         for m in self.modules():
@@ -123,15 +142,38 @@ class GVCNN(nn.Module):
                 m.to(self.compute_dtype)
         return self
 
+    def _fold(self, x: torch.Tensor):
+        """(B, V, H, W, 3) -> ((B*V, H, W, 3) contiguous in the compute
+        dtype, B, V)."""
+        B, V = x.shape[:2]
+        xf = x.reshape((B * V,) + tuple(x.shape[2:]))
+        return xf.to(self.compute_dtype).contiguous(), B, V
+
+    def _logits(self, net, generator):
+        if self.training:
+            net = dropout(net, self.config.dropout_keep_prob, generator)
+        return self.Logits(net)
+
+
+class GVCNN(ViewModel):
+    """forward(x (B, V, H, W, 3) float) -> (logits (B, num_classes) fp32,
+    end_points dict)."""
+
+    def __init__(self, config: GVCNNConfig):
+        super().__init__(config)
+        chans = self.backbone.ENDPOINT_CHANNELS
+        self.GroupingModule = GroupingModule(chans[self.raw_endpoint])
+        self.Logits = nn.Linear(chans[self.final_endpoint],
+                                config.data.num_classes)
+        self._set_bn_momentum()
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """x (B, V, H, W, 3) -> (logits, end_points); `generator` draws the
         dropout mask in train mode."""
         cfg = self.config
-        B, V = x.shape[:2]
-        xf = x.reshape((B * V,) + tuple(x.shape[2:]))
-        xf = xf.to(self.compute_dtype).contiguous()
-        feats, endpoints = self.InceptionV1(xf)
+        xf, B, V = self._fold(x)
+        feats, endpoints = self.backbone(xf)
 
         descs = _global_avg_pool(feats.float()).reshape(B, V, -1)  # fp32
         raw_scores = self.GroupingModule(
@@ -140,9 +182,7 @@ class GVCNN(nn.Module):
         fused, weights, scheme = group_and_fuse(
             scores.contiguous(), descs.contiguous(), cfg.num_group,
             cfg.group_weight)
-        net = (dropout(fused, cfg.dropout_keep_prob, generator)
-               if self.training else fused)
-        logits = self.Logits(net)
+        logits = self._logits(fused, generator)
 
         end_points: Dict[str, torch.Tensor] = {
             "view_descriptors": descs,
@@ -156,54 +196,107 @@ class GVCNN(nn.Module):
         return logits, end_points
 
 
-def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
-    """flax's default kernel init: variance 1/fan_in, truncated normal."""
-    return trunc_normal_(t, fan_in ** -0.5, generator)
+class MVCNN(ViewModel):
+    """MVCNN (Su et al., ICCV 2015): the shared backbone over the folded
+    views, an element-wise max over all V view descriptors (fp32), dropout
+    and `Logits`.  forward(x (B, V, H, W, 3)) -> (logits, end_points)."""
+
+    def __init__(self, config: GVCNNConfig):
+        super().__init__(config)
+        self.Logits = nn.Linear(
+            self.backbone.ENDPOINT_CHANNELS[self.final_endpoint],
+            config.data.num_classes)
+        self._set_bn_momentum()
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        xf, B, V = self._fold(x)
+        feats, _ = self.backbone(xf)
+        descs = _global_avg_pool(feats.float()).reshape(B, V, -1)
+        pooled = descs.amax(dim=1)                          # view pooling
+        logits = self._logits(pooled, generator)
+        return logits, {
+            "view_descriptors": descs,
+            "shape_descriptor": pooled,
+            "Logits": logits,
+            "Predictions": torch.softmax(logits, dim=-1),
+        }
+
+
+class SingleViewClassifier(ViewModel):
+    """BASELINE config 1: the backbone on one view, global average pool
+    (fp32), dropout, `Logits` (slim's classification head).  forward(x
+    (B, H, W, 3) or (B, 1, H, W, 3)) -> (logits, end_points)."""
+
+    def __init__(self, config: GVCNNConfig):
+        super().__init__(config)
+        self.Logits = nn.Linear(
+            self.backbone.ENDPOINT_CHANNELS[self.final_endpoint],
+            config.data.num_classes)
+        self._set_bn_momentum()
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        if x.dim() == 5:
+            if x.shape[1] != 1:
+                raise ValueError(f"the single-view classifier takes one "
+                                 f"view, got {tuple(x.shape)}")
+            x = x[:, 0]
+        feats, _ = self.backbone(x.to(self.compute_dtype).contiguous())
+        logits = self._logits(_global_avg_pool(feats.float()), generator)
+        return logits, {"Logits": logits,
+                        "Predictions": torch.softmax(logits, dim=-1)}
 
 
 @torch.no_grad()
-def init_weights(model: GVCNN, seed: int) -> GVCNN:
+def init_weights(model: ViewModel, seed: int) -> ViewModel:
     """In place: random weights from `seed`, with the distributions of the
     JAX package's initializers (the numbers differ: another generator).
-    Conv kernels: truncated normal, stddev 0.09; score-logit conv and
-    `Logits`: lecun normal; biases 0; BatchNorm mean 0, var 1."""
+    Backbone convs: the family's (`KERNEL_INIT`: slim's truncated normal,
+    stddev 0.09, for Inception-v1 and v2; lecun normal for v3, v4 and
+    ResNet); the scoring FCN's 1x1 conv: truncated normal 0.09; the
+    score-logit conv and `Logits`: lecun normal; biases 0; BatchNorm scale
+    1, mean 0, var 1."""
     g = torch.Generator().manual_seed(seed)
+    lecun = {id(m) for m in model.backbone.modules()
+             if isinstance(m, nn.Conv2d)
+             and model.backbone.KERNEL_INIT == "lecun_normal"}
+    grouping = getattr(model, "GroupingModule", None)
+    logit = None if grouping is None else grouping.Conv2d_score_logit
     for m in model.modules():
-        if isinstance(m, (ConvBNReLU, Stem)):
-            trunc_normal_(m.conv.weight, _TRUNC_STDDEV, g)
-            m.BatchNorm.bias.zero_()
-            m.BatchNorm.running_mean.zero_()
-            m.BatchNorm.running_var.fill_(1.0)
-    logit = model.GroupingModule.Conv2d_score_logit
-    _lecun_normal_(logit.weight, logit.in_channels, g)
-    logit.bias.zero_()
-    _lecun_normal_(model.Logits.weight, model.Logits.in_features, g)
+        if isinstance(m, nn.Conv2d) and m is not logit:
+            if id(m) in lecun:
+                lecun_normal_(m.weight, g)
+            else:
+                trunc_normal_(m.weight, TRUNC_STDDEV, g)
+        elif isinstance(m, BatchNorm):
+            m.reset_()
+    if logit is not None:
+        lecun_normal_(logit.weight, g)
+        logit.bias.zero_()
+    lecun_normal_(model.Logits.weight, g)
     model.Logits.bias.zero_()
     return model
 
 
-def to_device(model: GVCNN, device: torch.device) -> GVCNN:
+def to_device(model: ViewModel, device: torch.device) -> ViewModel:
     """In place: `model` on `device`, channels-last on a card (the layout
-    of the bf16 cuDNN convs and of the stem kernel's NHWC output)."""
+    of the cuDNN convs and of the stem kernel's NHWC output)."""
     return model.to(device, memory_format=(torch.channels_last
                                            if device.type == "cuda"
                                            else torch.preserve_format))
 
 
-def build_model(config: GVCNNConfig) -> GVCNN:
-    """config -> GVCNN with fp32 parameters (uninitialised: see
-    `init_weights` and `bridge.jax_to_state_dict`).
+def build_model(config: GVCNNConfig) -> ViewModel:
+    """config -> GVCNN, MVCNN or SingleViewClassifier with fp32 parameters
+    (uninitialised: see `init_weights` and `bridge.jax_to_state_dict`), as
+    the JAX package's `build_model` picks them.
 
     Refuses what the port does not run yet instead of ignoring it."""
-    if not config.multi_view:
+    if (config.num_devices or 1) > 1:
         raise NotImplementedError(
-            "the single-view classifier is not ported yet (ROADMAP §1 "
-            "item 13, single-view model)")
-    if config.model == "mvcnn":
-        raise NotImplementedError(
-            "MVCNN is not ported yet (ROADMAP §1 item 13, MVCNN)")
-    if config.model != "gvcnn":
-        raise ValueError(f"unknown model family {config.model!r}")
+            f"num_devices={config.num_devices}: multi-GPU data parallelism "
+            "is not ported yet (ROADMAP §1 item 10)")
     if config.stem_space_to_depth:
         raise NotImplementedError(
             "--stem_space_to_depth is a TPU layout trick the port does not "
@@ -216,4 +309,10 @@ def build_model(config: GVCNNConfig) -> GVCNN:
         log(f"merge_inception_branches={config.merge_inception_branches!r}: "
             "same math and parameters as unmerged; the port runs the "
             "branches unmerged")
-    return GVCNN(config)
+    if not config.multi_view:
+        return SingleViewClassifier(config)
+    if config.model == "mvcnn":
+        return MVCNN(config)
+    if config.model == "gvcnn":
+        return GVCNN(config)
+    raise ValueError(f"unknown model family {config.model!r}")

@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles every `gvcnn_tf_tpu_torch/csrc/*.cu` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), under `build/gvcnn_tf_tpu_torch/<hash of the sources>/` at the
-root of the checkout.  A library whose sources are unchanged is loaded
+`nvcc` compiles every `gvcnn_tf_tpu_torch/csrc/*.cu` into an object file,
+one process per source, all started together, and links them into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under `build/gvcnn_tf_tpu_torch/<hash of the sources>/` at
+the root of the checkout.  A library whose sources are unchanged is loaded
 without a rebuild.  Each entry point launches one kernel on the stream it is
 given and returns `cudaGetLastError()` as an int; the wrappers raise when it
 is not 0.  A failed build raises with nvcc's output: there is no fallback.
@@ -27,7 +28,7 @@ BUILD_ROOT = _PKG.parent / "build" / "gvcnn_tf_tpu_torch"
 LIB_NAME = "libgvcnn_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,6 +38,8 @@ _SIGNATURES = {
     # relu, stream
     "stem_conv7x7s2_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P),
+    "stem_conv7x7s2_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
     # scores, descs, fused, weights, scheme, b, v, c, m, ceil_sum, stream
     "group_and_fuse_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -82,22 +85,31 @@ def build() -> dict:
         return {"path": str(path), "compiled": False, "seconds": 0.0,
                 "log": ""}
     path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=path.parent)
     t0 = time.perf_counter()
     try:
+        objs = [os.path.join(tmpdir, f"{src.stem}.o") for src in _sources()]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for p, out in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {p.returncode}:\n{out}")
+        lib = os.path.join(tmpdir, LIB_NAME)
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())],
-            capture_output=True, text=True)
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", lib, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
-                f"{proc.stdout}")
-        os.replace(tmp, path)  # atomic: a reader never sees a partial file
+                f"nvcc failed to link with code {proc.returncode}:\n"
+                f"{proc.stderr}{proc.stdout}")
+        os.replace(lib, path)  # atomic: a reader never sees a partial file
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    log = proc.stdout + proc.stderr
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    log = "".join(logs) + proc.stdout + proc.stderr
     (path.parent / "nvcc.log").write_text(log)
     return {"path": str(path), "compiled": True,
             "seconds": time.perf_counter() - t0, "log": log}

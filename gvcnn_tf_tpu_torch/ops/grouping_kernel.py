@@ -7,8 +7,9 @@ what bounds it on the H100 and what the design does about it); the plain
 version is `ops/grouping.py::group_and_fuse`.
 
 The kernel's grid is (B, ceil(C / 128)) blocks, one channel a thread.
-`group_and_fuse` runs the plain version for CPU tensors only.  For CUDA
-tensors it launches the kernel or raises: it never falls back.
+`group_and_fuse` runs the plain version for CPU tensors only (and for
+`meta` tensors, which have shapes and no data).  For CUDA tensors it
+launches the kernel or raises: it never falls back.
 
 Gradients: the kernel is forward-only, as the Pallas kernel is.  Where the
 scores or the descriptors need a gradient, `group_and_fuse` goes through
@@ -73,7 +74,7 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
 
 def _forward(scores, descs, num_group, weight_mode):
     """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
-    if scores.device.type == "cpu":
+    if scores.device.type in ("cpu", "meta"):
         return group_and_fuse_plain(scores, descs, num_group, weight_mode)
     if scores.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {scores.device}")

@@ -1,10 +1,11 @@
-"""TF-'SAME' max pooling and padding arithmetic, forward only
-(counterpart of `gvcnn_tf_tpu/ops/pool.py:41-58, 194-220`).
+"""TF-'SAME' / 'VALID' pooling and padding arithmetic (counterpart of
+`gvcnn_tf_tpu/ops/pool.py:41-58, 194-220` and of `flax.linen.avg_pool`).
 
 TF-'SAME' pads bottom/right-heavy: a 3x3/2 pool on an even size pads (0, 1).
 `F.max_pool2d`'s own padding is symmetric, so an asymmetric pad is applied
 explicitly with -inf before a padding-free pool.  Tensors are NCHW (any
-memory format).  The backward pass comes with the training port.
+memory format).  Gradients are autograd's: `F.max_pool2d` credits each
+window's first maximum, as XLA's select-and-scatter does.
 """
 
 from __future__ import annotations
@@ -23,14 +24,40 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return lo, total - lo
 
 
+def _pads(x: torch.Tensor, kernel, strides, padding: str):
+    """((lo, hi) of H, (lo, hi) of W) for `padding` 'SAME' or 'VALID'."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding != "SAME":
+        raise ValueError(f"unsupported padding {padding!r}")
+    return (same_pads(x.shape[2], kernel[0], strides[0]),
+            same_pads(x.shape[3], kernel[1], strides[1]))
+
+
 def max_pool(x: torch.Tensor, kernel: Sequence[int],
-             strides: Sequence[int]) -> torch.Tensor:
-    """`flax.linen.max_pool(x, kernel, strides, padding="SAME")` on NCHW."""
-    (kh, kw), (sh, sw) = tuple(kernel), tuple(strides)
-    ph = same_pads(x.shape[2], kh, sh)
-    pw = same_pads(x.shape[3], kw, sw)
+             strides: Sequence[int], padding: str = "SAME") -> torch.Tensor:
+    """`flax.linen.max_pool(x, kernel, strides, padding)` on NCHW."""
+    kernel, strides = tuple(kernel), tuple(strides)
+    ph, pw = _pads(x, kernel, strides, padding)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         # Symmetric: max_pool2d's implicit padding never wins the max.
-        return F.max_pool2d(x, (kh, kw), (sh, sw), padding=(ph[0], pw[0]))
+        return F.max_pool2d(x, kernel, strides, padding=(ph[0], pw[0]))
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=-torch.inf)
-    return F.max_pool2d(x, (kh, kw), (sh, sw))
+    return F.max_pool2d(x, kernel, strides)
+
+
+def avg_pool(x: torch.Tensor, kernel: Sequence[int],
+             strides: Sequence[int], padding: str = "SAME") -> torch.Tensor:
+    """`flax.linen.avg_pool(x, kernel, strides, padding)` on NCHW.
+
+    Flax's default `count_include_pad=True`: the padded zeros count in
+    every window's mean (unlike TF-Slim's 'SAME' average pool, which
+    divides by the window's in-image size); the port follows the JAX
+    package."""
+    kernel, strides = tuple(kernel), tuple(strides)
+    ph, pw = _pads(x, kernel, strides, padding)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.avg_pool2d(x, kernel, strides, padding=(ph[0], pw[0]),
+                            count_include_pad=True)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.avg_pool2d(x, kernel, strides)

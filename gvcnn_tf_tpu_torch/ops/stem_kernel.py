@@ -1,13 +1,20 @@
 """The Inception-v1 stem conv (7x7, stride 2, 3 -> 64 channels, TF-'SAME')
-as a hand-written CUDA kernel, with its plain PyTorch version.
+as hand-written CUDA kernels, with its plain PyTorch version.
 
 Replaces the TPU kernel `gvcnn_tf_tpu/ops/pallas_stem.py::_stem_fwd`.  The
-kernel is `csrc/stem_conv.cu` (its source note says what bounds it on the
-H100 and what the design does about it): an implicit GEMM on the tensor
-cores, bf16 NHWC in, fp32 accumulation, bf16 NHWC out.  Both functions take
-the input NHWC (N, H, W, 3) and the weight in the port's OIHW layout
-(64, 3, 7, 7), and return NHWC (N, ceil(H/2), ceil(W/2), 64); a
-`.permute(0, 3, 1, 2)` of the result is a channels-last NCHW tensor, with
+kernels are in `csrc/stem_conv.cu` (its source notes say what bounds each
+on the H100 and what its design does about it), one for each compute
+dtype, picked by x's dtype:
+
+  bfloat16  `stem_conv7x7s2_bf16`, an implicit GEMM on the tensor cores,
+            bf16 NHWC in, fp32 accumulation, bf16 NHWC out;
+  float32   `stem_conv7x7s2_f32`, a direct conv on the CUDA cores, fp32
+            NHWC in, fp32 multiply-adds (no TF32 rounding), fp32 NHWC out.
+
+Any other dtype raises; neither falls back to `F.conv2d` on a card.  Both
+functions take the input NHWC (N, H, W, 3) and the weight in the port's
+OIHW layout (64, 3, 7, 7), and return NHWC (N, ceil(H/2), ceil(W/2), 64);
+a `.permute(0, 3, 1, 2)` of the result is a channels-last NCHW tensor, with
 no copy.
 
 Optional epilogue: a per-channel fp32 `scale` and `shift` and a `relu`
@@ -16,8 +23,11 @@ and shift = bias - mean * scale it is eval-mode BatchNorm and its ReLU
 (`BatchNorm.scale_shift`); the kernel applies it to the fp32 accumulator
 and rounds once.
 
-`stem_conv` runs the plain version for a CPU tensor only.  For a CUDA tensor
-it launches the kernel or raises: it never falls back.
+`stem_conv` runs the plain version for a CPU tensor only (and for a `meta`
+tensor, which has a shape and no data).  For a CUDA tensor it launches the
+kernel of x's dtype or raises: it never falls back.  `stem_conv.launches`
+counts the launches of both kernels, `stem_conv.launches_f32` those of the
+fp32 one.
 
 Gradients (counterpart of `stem_conv`'s custom VJP, `pallas_stem.py:
 145-164`, which is XLA's conv VJP and no Pallas kernel): where x or the
@@ -44,6 +54,7 @@ from gvcnn_tf_tpu_torch.ops import _build
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 KERNEL_NAME = "stem_conv7x7s2_bf16"
+KERNEL_NAME_F32 = "stem_conv7x7s2_f32"
 _KSIZE, _STRIDE, _CIN, _COUT = 7, 2, 3, 64
 # The kernel's K layout: row kh * 24 + 3 * kw + c; rows kh * 24 + 21..23 and
 # 168..175 are zero, so K = 176 is 11 tensor-core k-steps of 16.
@@ -63,17 +74,27 @@ def pack_stem_weight(weight: torch.Tensor) -> torch.Tensor:
     return packed
 
 
+def pack_stem_weight_f32(weight: torch.Tensor) -> torch.Tensor:
+    """(64, 3, 7, 7) OIHW -> (147, 64), the fp32 kernel's weight matrix:
+    row (kh * 7 + kw) * 3 + c holds weight[:, c, kh, kw]."""
+    return weight.permute(2, 3, 1, 0).reshape(_KSIZE * _KSIZE * _CIN, _COUT)
+
+
 def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
-    """pack_stem_weight(weight), kept on the weight while its storage and
-    version counter stay the same and grad mode is off, so a serving
-    forward pays no packing launches.  (Inside `StemConvFunction.forward`
-    grad mode is off too, and the pack stays out of the autograd graph.)"""
+    """The weight in the layout of its dtype's kernel (`pack_stem_weight`
+    for bf16, `pack_stem_weight_f32` for fp32), kept on the weight while
+    its storage and version counter stay the same and grad mode is off, so
+    a serving forward pays no packing launches.  (Inside
+    `StemConvFunction.forward` grad mode is off too, and the pack stays out
+    of the autograd graph.)"""
+    pack = (pack_stem_weight_f32 if weight.dtype == torch.float32
+            else pack_stem_weight)
     if torch.is_grad_enabled() or weight.is_inference():
-        return pack_stem_weight(weight)
+        return pack(weight).contiguous()
     key = (weight.data_ptr(), weight._version)
     hit = getattr(weight, "_stem_packed", None)
     if hit is None or hit[0] != key:
-        hit = weight._stem_packed = (key, pack_stem_weight(weight))
+        hit = weight._stem_packed = (key, pack(weight).contiguous())
     return hit[1]
 
 
@@ -92,36 +113,56 @@ def stem_conv_plain(x: torch.Tensor, weight: torch.Tensor,
     return F.relu(y) if relu else y
 
 
-def _check_cuda_args(x, weight, scale, shift):
+# The kernel of each compute dtype: x's dtype picks it.
+KERNELS = {torch.bfloat16: KERNEL_NAME, torch.float32: KERNEL_NAME_F32}
+# gridDim.z of the fp32 kernel is the image count.
+_MAX_IMAGES_F32 = 65535
+
+
+def kernel_name(dtype: torch.dtype) -> str:
+    """The name of the kernel that takes `dtype`; raises for any other."""
+    if dtype not in KERNELS:
+        raise TypeError(f"stem_conv7x7s2: takes bfloat16 ({KERNEL_NAME}) "
+                        f"or float32 ({KERNEL_NAME_F32}), got {dtype}")
+    return KERNELS[dtype]
+
+
+def _check_cuda_args(x, weight, scale, shift) -> str:
+    """Raise on what the kernels do not take; the kernel's name."""
+    name = kernel_name(x.dtype)
     if x.dim() != 4 or x.shape[-1] != _CIN:
-        raise ValueError(f"{KERNEL_NAME}: x must be (N, H, W, 3), got "
+        raise ValueError(f"{name}: x must be (N, H, W, 3), got "
                          f"{tuple(x.shape)}")
     if tuple(weight.shape) != (_COUT, _CIN, _KSIZE, _KSIZE):
-        raise ValueError(f"{KERNEL_NAME}: weight must be (64, 3, 7, 7), got "
+        raise ValueError(f"{name}: weight must be (64, 3, 7, 7), got "
                          f"{tuple(weight.shape)}")
-    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError(f"{KERNEL_NAME}: takes bfloat16, got {x.dtype} and "
+    if weight.dtype != x.dtype:
+        raise TypeError(f"{name}: weight must be {x.dtype} like x, got "
                         f"{weight.dtype}")
     if weight.device != x.device:
-        raise ValueError(f"{KERNEL_NAME}: x on {x.device}, weight on "
+        raise ValueError(f"{name}: x on {x.device}, weight on "
                          f"{weight.device}")
     if not x.is_contiguous():
-        raise ValueError(f"{KERNEL_NAME}: x must be contiguous NHWC")
-    if -(-x.shape[2] // _STRIDE) > MAX_OUT_WIDTH:
-        raise ValueError(f"{KERNEL_NAME}: W = {x.shape[2]} is wider than "
+        raise ValueError(f"{name}: x must be contiguous NHWC")
+    if x.dtype == torch.bfloat16 and -(-x.shape[2] // _STRIDE) > (
+            MAX_OUT_WIDTH):
+        raise ValueError(f"{name}: W = {x.shape[2]} is wider than "
                          f"the kernel takes ({2 * MAX_OUT_WIDTH})")
+    if x.dtype == torch.float32 and x.shape[0] > _MAX_IMAGES_F32:
+        raise ValueError(f"{name}: N = {x.shape[0]} is more images than the "
+                         f"kernel takes ({_MAX_IMAGES_F32})")
     affine = (scale, shift)
     if (scale is None) != (shift is None):
-        raise ValueError(f"{KERNEL_NAME}: give both scale and shift, or "
-                         "neither")
+        raise ValueError(f"{name}: give both scale and shift, or neither")
     if scale is not None:
         for t in affine:
             if (t.shape != (_COUT,) or t.dtype != torch.float32
                     or t.device != x.device or not t.is_contiguous()):
                 raise ValueError(
-                    f"{KERNEL_NAME}: scale and shift must be contiguous "
+                    f"{name}: scale and shift must be contiguous "
                     f"float32 (64,) on {x.device}, got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device}")
+    return name
 
 
 def stem_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -131,9 +172,9 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
     """x (N, H, W, 3), weight (64, 3, 7, 7) -> (N, Ho, Wo, 64), NHWC, with
     the optional epilogue relu(conv * scale + shift).
 
-    CPU: the plain version, in x's dtype.  CUDA: the kernel, bf16 only.
-    Where x or the weight needs a gradient: `StemConvFunction` (no
-    epilogue).
+    CPU: the plain version, in x's dtype.  CUDA: the kernel of x's dtype
+    (bf16 or fp32; another dtype raises).  Where x or the weight needs a
+    gradient: `StemConvFunction` (no epilogue).
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -149,34 +190,36 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
 
 def _stem_forward(x, weight, scale=None, shift=None, relu=False):
     """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return stem_conv_plain(x, weight, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {x.device}")
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
             return _stem_forward(x, weight, scale, shift, relu)
-    _check_cuda_args(x, weight, scale, shift)
+    name = _check_cuda_args(x, weight, scale, shift)
     n, h, w, _ = x.shape
     ho, wo = -(-h // _STRIDE), -(-w // _STRIDE)
-    out = torch.empty((n, ho, wo, _COUT), dtype=torch.bfloat16,
-                      device=x.device)
+    out = torch.empty((n, ho, wo, _COUT), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     packed = _packed_weight(weight)
-    code = _build.library().stem_conv7x7s2_bf16(
+    code = getattr(_build.library(), name)(
         x.data_ptr(), packed.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), out.data_ptr(),
         n, h, w, ho, wo, same_pads(h, _KSIZE, _STRIDE)[0],
         same_pads(w, _KSIZE, _STRIDE)[0], int(relu),
         torch.cuda.current_stream().cuda_stream)
-    _build.check(code, KERNEL_NAME)
+    _build.check(code, name)
     stem_conv.launches += 1
+    if name == KERNEL_NAME_F32:
+        stem_conv.launches_f32 += 1
     return out
 
 
 stem_conv.launches = 0
+stem_conv.launches_f32 = 0
 
 
 def stem_conv_backward(x: torch.Tensor, weight: torch.Tensor,

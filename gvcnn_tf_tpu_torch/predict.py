@@ -6,7 +6,8 @@ the process with the procedural split's cameras, or as an (N, V, H, W, 3)
 array (float in [-1, 1], or raw uint8 normalized on the device).  Weights
 as in `eval.py` (`scoring_model`).  Each record holds the shape's name, the
 class index (and name, given `class_names`), its fp32 softmax probability
-and the V view-discrimination scores.  Shapes go through the model
+and, for GVCNN, the V view-discrimination scores (MVCNN and the
+single-view classifier have none, and their records no `view_scores`).  Shapes go through the model
 `batch_size` at a time.
 
 Reading view images needs PIL (Pillow); where it is missing, `--view_dir`
@@ -88,7 +89,7 @@ def predict(config: GVCNNConfig, checkpoint_dir: Optional[str] = None,
             fold_bn: bool = False, device="cuda") -> List[dict]:
     """Classify shapes from one of `view_dir`, `mesh_files` or `views`.
     Returns [{'shape', 'class_index', 'probability', ['class_name'],
-    'view_scores'}] in input order."""
+    ['view_scores']}] in input order."""
     d = config.data
     if views is None and mesh_files:
         views = render_mesh_views(mesh_files, d.num_views, d.height, d.width)
@@ -117,8 +118,9 @@ def predict(config: GVCNNConfig, checkpoint_dir: Optional[str] = None,
             logits, ep = model(normalize_views(x))
             probs = torch.softmax(logits.float(), -1)
             outs.append((probs.argmax(-1), probs.max(-1).values,
-                         ep["view_discrimination_scores"]))
-    pred, prob, scores = (torch.cat(t).cpu().numpy() for t in zip(*outs))
+                         ep.get("view_discrimination_scores")))
+    pred, prob, scores = (None if t[0] is None else torch.cat(t).cpu().numpy()
+                          for t in zip(*outs))
     results = []
     for i, name in enumerate(names):
         idx = int(pred[i])
@@ -126,7 +128,8 @@ def predict(config: GVCNNConfig, checkpoint_dir: Optional[str] = None,
                "probability": float(prob[i])}
         if class_names:
             rec["class_name"] = class_names[idx]
-        rec["view_scores"] = scores[i].tolist()
+        if scores is not None:
+            rec["view_scores"] = scores[i].tolist()
         results.append(rec)
     return results
 

@@ -7,7 +7,9 @@
   POST /predict   -> body: .npz with array 'views' shaped (N, V, H, W, 3)
                      (or (V, H, W, 3) for one shape), float in [-1, 1] or
                      raw uint8 in [0, 255]; response: JSON list of
-                     {class_index, probability, view_scores}
+                     {class_index, probability, view_scores}, without
+                     view_scores for a model that has none (MVCNN, the
+                     single-view classifier)
 
 The model stays resident on the device.  Requests run at the smallest batch
 bucket that fits ({1, serve_batch_size} plus --serve_buckets), padded with
@@ -16,8 +18,10 @@ engine owns: PyTorch keeps cuDNN's execution plans per thread, and
 ThreadingHTTPServer starts a thread per request, so running the forward on
 the request's thread re-planned every conv (~250 ms per request, measured
 on an H100 80GB HBM3 at 700 W, against ~12 ms on a warm thread).
-On the card the backbone and the scoring FCN run in bf16 (config
-`compute_dtype`), the stem and the grouping head through their CUDA kernels.
+Every family and backbone of the configs is served (GVCNN, MVCNN, the
+single-view classifier; V = 1 for it).  On the card the backbone and the
+scoring FCN run in the config's `compute_dtype`, the Inception-v1 stem and
+the grouping head through their CUDA kernels.
 
 Weights: the newest of the port's own checkpoints under `--checkpoint_dir`
 (`checkpoint.load_model`: the model alone, whatever optimizer wrote it),
@@ -132,12 +136,13 @@ class InferenceEngine:
             logits, ep = self.model(normalize_views(x))
             prob, pred = torch.softmax(logits.float(), -1).max(-1)
             out = {"logits": logits, "pred": pred, "prob": prob,
-                   "scores": ep["view_discrimination_scores"]}
-            return {k: v.cpu().numpy() for k, v in out.items()}
+                   "scores": ep.get("view_discrimination_scores")}
+            return {k: None if v is None else v.cpu().numpy()
+                    for k, v in out.items()}
 
     def logits_and_scores(self, views: np.ndarray):
         """(N, V, H, W, 3) uint8 or float32 views, N <= the largest bucket
-        -> (logits (N, K), scores (N, V)) float32 numpy."""
+        -> (logits (N, K), scores (N, V) or None) float32 numpy."""
         out = self._forward(views)
         return out["logits"], out["scores"]
 
@@ -174,11 +179,11 @@ class InferenceEngine:
                 chunk = np.concatenate([chunk, pad])
             out = self._forward(chunk)
             for i in range(n):
-                results.append({
-                    "class_index": int(out["pred"][i]),
-                    "probability": float(out["prob"][i]),
-                    "view_scores": out["scores"][i].tolist(),
-                })
+                rec = {"class_index": int(out["pred"][i]),
+                       "probability": float(out["prob"][i])}
+                if out["scores"] is not None:
+                    rec["view_scores"] = out["scores"][i].tolist()
+                results.append(rec)
         dt = time.perf_counter() - t_start
         with self._stats_lock:
             self._latencies.append((dt, len(views)))

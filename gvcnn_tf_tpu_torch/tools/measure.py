@@ -1,8 +1,9 @@
 """Kernel and forward measurements of the port on one NVIDIA GPU.
 
     python gvcnn_tf_tpu_torch/tools/measure.py wrappers [--root DIR]
-    python gvcnn_tf_tpu_torch/tools/measure.py profile [--train]
-    python gvcnn_tf_tpu_torch/tools/measure.py train-drift   # CPU
+    python gvcnn_tf_tpu_torch/tools/measure.py profile [--train] [--config C]
+    python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
+    python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
 
 `wrappers`: each kernel wrapper at the main path's shapes (the stem at 96
 and 12 views of 224x224; the grouping head at B = 8 and 1, 12 views,
@@ -14,35 +15,48 @@ replayed, divided by K).  `--root DIR` measures the `gvcnn_tf_tpu_torch`
 of another checkout with this file's code, so that two versions are
 compared on one card in one call: parent, change, change, parent.
 
-`profile`: the mn40_12view serving model (seeded weights, folded BN, bf16,
-channels-last, uint8 views normalized on the card) at B = 8 and B = 1:
-forward time (CUDA events), device busy time and idle share over 3
-profiled forwards, and device time by kernel; then every op and kernel
-that `Stem.forward` runs on the card.
+`profile`: the serving model of `--config` (default mn40_12view; seeded
+weights, folded BN, the config's compute dtype, channels-last, uint8 views
+normalized on the card) at B = 8 and B = 1: forward time (CUDA events),
+device busy time and idle share over 3 profiled forwards, and device time
+by kernel; then, for an Inception-v1 backbone, every op and kernel that
+`Stem.forward` runs on the card.
 
-`profile --train`: one mn40_12view train step at B = 8 (seeded weights,
-fp32 master parameters, bf16 compute, channels-last, momentum SGD, dropout
-on; a fixed synthetic batch already on the card, bf16 as the loader sends
-it): step time (CUDA events, median of 10), views/s, peak device memory,
-device busy time and idle share over 3 profiled steps, and device time by
-kernel class and by kernel.
+`profile --train`: one train step of `--config` at B = 8 (seeded weights,
+fp32 master parameters, the config's compute dtype, channels-last, momentum
+SGD, dropout on; a fixed synthetic batch already on the card, in the
+compute dtype as the loader sends it): step time (CUDA events, median of
+10), views/s, peak device memory, device busy time and idle share over 3
+profiled steps, and device time by kernel class and by kernel.
 
 `train-drift` (runs on the CPU, and is no device measurement): one train
-step of mn40_12view, 12 views, B = 2 in bf16 and in fp32 from the same
-weights and batch, dropout off, at 64x64 for seeds 0-2 and at 96x96 for
-seed 0: the relative gaps of loss and grad_norm, the cosine of the
+step of `--config` (default mn40_12view), B = 2, in bf16 and in fp32 from
+the same weights and batch, dropout off, at 64x64 for seeds 0-2 and at
+96x96 for seed 0 (80x80 and 96x96 for Inception-v3 and v4, which need 75x75
+at least): the relative gaps of loss and grad_norm, the cosine of the
 flattened gradients (all, `Logits`, and each layer group), and the worst
-ratio of one parameter tensor's gradient norms.  `chip_smoke.py` derives
-its card-vs-CPU bounds for the train step from these numbers.
+ratio of one parameter tensor's gradient norms.  For an fp32 config (the
+card runs its convs outside the stem in TF32) it compares fp32 with
+TF32-rounded conv inputs (`tf32_convs`) instead.  `--size N` runs seeds
+0-2 at NxN instead.  `chip_smoke.py` derives its card-vs-CPU bounds for
+the train step from these numbers.
+
+`serve-drift` (on the CPU, no device measurement): the serving forward of
+`--config` (seeded weights, folded BN, eval mode), B = 2, in the config's
+compute dtype against fp32 (for an fp32 config: with TF32-rounded conv
+inputs), at 96x96 (`--size`) for seeds 0-2: max|dlogit| over max|logit|,
+max|dscore| where the model has scores, and whether the argmaxes agree;
+`chip_smoke.py`'s card-vs-CPU serving bounds come from these.
 
 Each result is one line of JSON (after the card's name and power limit);
-TF32 is off.  Except for `train-drift`, it needs a card: without one it
-exits non-zero.
+TF32 as PyTorch's defaults, as the port runs.  Except for `train-drift` and
+`serve-drift`, it needs a card: without one it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -54,8 +68,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# (size, seed) of each `train-drift` run; 12 views, as mn40_12view.
+# (size, seed) of each `train-drift` run, at the config's view count; the
+# sizes of the backbones that need 75x75 at least.
 DRIFT_RUNS = ((64, 0), (64, 1), (64, 2), (96, 0))
+DRIFT_RUNS_75 = ((80, 0), (80, 1), (80, 2), (96, 0))
 # A parameter's gradient norm below this share of the global norm, on both
 # sides of a drift comparison, is rounding noise (`train_step_drift`).
 NOISE_REL = 1e-6
@@ -177,20 +193,20 @@ def _measure_wrappers(dev, rs, w):
     return rows
 
 
-def serving_model(dev):
-    """The mn40_12view model as the inference engine holds it."""
+def serving_model(dev, config="mn40_12view"):
+    """The model of `config` as the inference engine holds it."""
     from gvcnn_tf_tpu_torch import get_config
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
     from gvcnn_tf_tpu_torch.utils import fold_batch_norm
 
-    cfg = get_config("mn40_12view")
+    cfg = get_config(config)
     model = fold_batch_norm(init_weights(build_model(cfg), cfg.train.seed))
     model.cast_convs_()
     return cfg, model.to(dev, memory_format=torch.channels_last).eval()
 
 
-def profile_forward(dev, top=20):
-    cfg, model = serving_model(dev)
+def profile_forward(dev, config="mn40_12view", top=20):
+    cfg, model = serving_model(dev, config)
     with torch.inference_mode():
         return _profile_forward(dev, cfg, model, top)
 
@@ -219,9 +235,12 @@ def _profile_forward(dev, cfg, model, top):
                                        launches=len(per_kernel[k]) // 3)
                                   for k, v in ranked[:top]]))
 
-    stem = model.InceptionV1.Conv2d_1a_7x7
-    x = torch.from_numpy(rs.uniform(-1, 1, (96, 224, 224, 3))
-                         .astype(np.float32)).to(dev, torch.bfloat16)
+    stem = getattr(model.backbone, "Conv2d_1a_7x7", None)
+    if type(stem).__name__ != "Stem":     # the stem kernel's layer only
+        return rows
+    n = d.batch_size * d.num_views
+    x = torch.from_numpy(rs.uniform(-1, 1, (n, d.height, d.width, 3))
+                         .astype(np.float32)).to(dev, model.compute_dtype)
     stem(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -232,7 +251,7 @@ def _profile_forward(dev, cfg, model, top):
                 us=e.time_range.elapsed_us()) for e in prof.events()
            if e.name.startswith("aten::")
            or e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.append(dict(profile="Stem.forward (96, 224, 224, 3)", events=ops))
+    rows.append(dict(profile=f"Stem.forward {tuple(x.shape)}", events=ops))
     return rows
 
 
@@ -273,19 +292,56 @@ def train_batch(cfg, rs, dev, dtype=torch.bfloat16):
 
 def grad_group(name: str) -> str:
     """A parameter's group for the drift readings: its layer or Mixed
-    block, then `kernel`, `bn_bias` or `bias`
-    ('InceptionV1.Mixed_5c.Branch_1_Conv2d_0b_3x3.BatchNorm.bias' ->
-    'Mixed_5c/bn_bias')."""
+    block (a ResNet unit's block), then `kernel`, `bn_bias`, `bn_scale` or
+    `bias` ('InceptionV1.Mixed_5c.Branch_1_Conv2d_0b_3x3.BatchNorm.bias' ->
+    'Mixed_5c/bn_bias'; 'ResNet50.block4_unit3.conv3.BatchNorm.scale' ->
+    'block4/bn_scale')."""
+    from gvcnn_tf_tpu_torch.models.backbones import BACKBONES
+
     parts = name.split(".")
-    top = parts[1] if parts[0] == "InceptionV1" else parts[0]
-    kind = ("bn_bias" if "BatchNorm" in parts else
+    scopes = {cls.NAME for cls in BACKBONES.values()}
+    top = parts[1] if parts[0] in scopes else parts[0]
+    top = top.split("_unit")[0]
+    kind = ("bn_scale" if name.endswith("BatchNorm.scale") else
+            "bn_bias" if "BatchNorm" in parts else
             "kernel" if name.endswith("weight") else "bias")
     return f"{top}/{kind}"
 
 
-def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
-    """One train step of `cfg` on `dev` and of `cfg` in fp32 on `ref_dev`,
-    from the same seeded weights and batch, dropout off -> the two losses,
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 t rounded to TF32 (10 mantissa bits, to nearest), with the
+    gradient passed straight through."""
+    r = ((t.detach().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+    return t + (r - t).detach()
+
+
+@contextlib.contextmanager
+def tf32_convs():
+    """Within: every `layers.conv2d_tf` (the convs of `ConvBN`, every conv
+    of an Inception-v1 model but the stem's) rounds its fp32 input and
+    weight to TF32 before the conv, as cuDNN's default TF32 path on the
+    card does; the stem's fp32 kernel does not round."""
+    from gvcnn_tf_tpu_torch.models.backbones import layers
+
+    real = layers.conv2d_tf
+
+    def conv(x, weight, *args, **kw):
+        if x.dtype == torch.float32:
+            x, weight = _tf32(x), _tf32(weight.float())
+        return real(x, weight, *args, **kw)
+
+    layers.conv2d_tf = conv
+    try:
+        yield
+    finally:
+        layers.conv2d_tf = real
+
+
+def train_step_drift(cfg, dev, ref_dev="cpu", seed=0, first=None):
+    """One train step of `cfg` on `dev` (inside the context `first()`, if
+    given) and of `cfg` in fp32 on `ref_dev`, from the same seeded weights
+    and batch, dropout off -> the two losses,
     grad norms, their relative gaps, and, from the gradients the step
     leaves in `.grad`:
 
@@ -317,7 +373,9 @@ def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
     grads = []
     for name, c, d in (("", cfg, dev), ("_ref", ref_cfg, ref_dev)):
         state = create_train_state(c, d)
-        mets = train_step(state, {k: t.to(d) for k, t in batch.items()}, c)
+        with (first() if first and not name else contextlib.nullcontext()):
+            mets = train_step(state, {k: t.to(d) for k, t in batch.items()},
+                              c)
         out.update({f"{k}{name}": float(v) for k, v in mets.items()})
         grads.append({n: p.grad.detach().double().flatten().cpu()
                       for n, p in state.model.named_parameters()})
@@ -351,13 +409,45 @@ def train_step_drift(cfg, dev, ref_dev="cpu", seed=0):
     return out
 
 
-def profile_train(dev, top=25):
+def serve_drift(cfg, seed=0):
+    """The serving forward of `cfg` (seeded, folded, eval) on the CPU, B =
+    2, in its compute dtype (fp32 with TF32-rounded conv inputs for an fp32
+    config) against fp32 -> {logit_rel, score_abs, argmax_equal}."""
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.utils import fold_batch_norm
+
+    d = cfg.data
+    ref = fold_batch_norm(init_weights(build_model(
+        cfg.replace(compute_dtype="float32")), cfg.train.seed)).eval()
+    model = build_model(cfg).eval()
+    model.load_state_dict(ref.state_dict())
+    model.cast_convs_()
+    x = torch.from_numpy(np.random.RandomState(seed).uniform(
+        -1, 1, (2, d.num_views, d.height, d.width, 3)).astype(np.float32))
+    fp32 = cfg.compute_dtype == "float32"
+    with torch.no_grad():
+        want, wep = ref(x)
+        with (tf32_convs() if fp32 else contextlib.nullcontext()):
+            got, gep = model(x)
+    got = got.float()
+    out = dict(logit_rel=float((got - want).abs().max() / want.abs().max()),
+               argmax_equal=bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))))
+    if "view_discrimination_scores" in wep:
+        out["score_abs"] = float((gep["view_discrimination_scores"].float()
+                                  - wep["view_discrimination_scores"])
+                                 .abs().max())
+    return out
+
+
+def profile_train(dev, config="mn40_12view", top=25):
     from gvcnn_tf_tpu_torch import get_config
     from gvcnn_tf_tpu_torch.train import create_train_state, train_step
 
-    cfg = get_config("mn40_12view")
+    cfg = get_config(config)
     state = create_train_state(cfg, dev)
-    batch = train_batch(cfg, np.random.RandomState(3), dev)
+    batch = train_batch(cfg, np.random.RandomState(3), dev,
+                        getattr(torch, cfg.compute_dtype))
     step = lambda: train_step(state, batch, cfg)             # noqa: E731
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = cuda_ms(step, runs=10, warmup=3)
@@ -372,7 +462,8 @@ def profile_train(dev, top=25):
     views = cfg.data.batch_size * cfg.data.num_views
     ranked = sorted(total.items(), key=lambda kv: -kv[1])
     return [dict(
-        profile="train step B=8", step_ms=step_ms,
+        profile=f"{config} train step B={cfg.data.batch_size}",
+        step_ms=step_ms,
         views_per_s=views / step_ms * 1e3, device_busy_ms=busy,
         idle_share=1 - busy / step_ms,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -386,42 +477,73 @@ def profile_train(dev, top=25):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("wrappers", "profile", "train-drift"))
+    ap.add_argument("what", choices=("wrappers", "profile", "train-drift",
+                                     "serve-drift"))
     ap.add_argument("--root", default=None,
                     help="checkout whose gvcnn_tf_tpu_torch to measure "
                     "(default: the one holding this file)")
     ap.add_argument("--train", action="store_true",
                     help="profile: the train step instead of the forward")
+    ap.add_argument("--config", default="mn40_12view",
+                    help="profile, train-drift, serve-drift: the named "
+                    "config")
+    ap.add_argument("--backbone", default=None,
+                    help="serve-drift: swap the config's backbone")
+    ap.add_argument("--size", type=int, default=None,
+                    help="train-drift, serve-drift: the views' size")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
+    if args.what == "serve-drift":
+        from gvcnn_tf_tpu_torch import get_config
+
+        import dataclasses
+
+        base = get_config(args.config)
+        if args.backbone:
+            base = base.replace(backbone=args.backbone)
+        size = args.size or 96
+        cfg = base.replace(data=dataclasses.replace(
+            base.data, height=size, width=size, batch_size=2))
+        for seed in range(3):
+            print(json.dumps(dict(
+                run=f"serve-drift of {args.config} ({base.backbone}) on the "
+                    f"CPU, {size}x{size}, seed {seed}",
+                **serve_drift(cfg, seed))), flush=True)
+        return 0
     if args.what == "train-drift":
         from gvcnn_tf_tpu_torch import get_config
 
         import dataclasses
 
-        base = get_config("mn40_12view")
-        for size, seed in DRIFT_RUNS:
+        base = get_config(args.config)
+        runs = (DRIFT_RUNS_75 if base.backbone in ("inception_v3",
+                                                   "inception_v4")
+                else DRIFT_RUNS)
+        if args.size:
+            runs = tuple((args.size, seed) for seed in range(3))
+        for size, seed in runs:
             cfg = base.replace(data=dataclasses.replace(
-                base.data, height=size, width=size, num_views=12,
-                batch_size=2))
+                base.data, height=size, width=size, batch_size=2))
+            what = ("fp32 vs fp32 with TF32-rounded conv inputs"
+                    if cfg.compute_dtype == "float32" else "bf16 vs fp32")
+            drift = train_step_drift(
+                cfg, "cpu", seed=seed,
+                first=tf32_convs if cfg.compute_dtype == "float32" else None)
             print(json.dumps(dict(
-                run=f"train-drift on the CPU (bf16 vs fp32), {size}x{size}, "
-                    f"seed {seed}",
-                **train_step_drift(cfg, "cpu", seed=seed))), flush=True)
+                run=f"train-drift of {args.config} on the CPU ({what}), "
+                    f"{size}x{size}, seed {seed}", **drift)), flush=True)
         return 0
     if not torch.cuda.is_available():
         print("measure: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     import gvcnn_tf_tpu_torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
     print(f"package: {gvcnn_tf_tpu_torch.__file__}", flush=True)
     rows = (measure_wrappers(dev) if args.what == "wrappers"
-            else profile_train(dev) if args.train
-            else profile_forward(dev))
+            else profile_train(dev, args.config) if args.train
+            else profile_forward(dev, args.config))
     for row in rows:
         print(json.dumps(row), flush=True)
     return 0

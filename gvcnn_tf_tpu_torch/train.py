@@ -6,7 +6,7 @@ update, dropout before `Logits`), backpropagates through both hand-written
 kernels' autograd Functions, and applies an optimizer with optax's
 semantics.  Loss: softmax cross-entropy (optional label smoothing) plus
 slim's L2 term, 0.5 * weight_decay * sum(||kernel||^2) over every conv and
-`Logits` weight, never a BatchNorm or a bias.  The L2 term's gradient,
+`Logits` weight, never a BatchNorm scale or a bias.  The L2 term's gradient,
 weight_decay * w, is added to the kernels' gradients directly instead of
 through autograd (the same sum, without ~250 small ops a step).
 
@@ -61,7 +61,7 @@ from gvcnn_tf_tpu_torch.data import (
 )
 from gvcnn_tf_tpu_torch.eval import evaluate
 from gvcnn_tf_tpu_torch.models.gvcnn import (
-    GVCNN,
+    ViewModel,
     build_model,
     init_weights,
     to_device,
@@ -196,7 +196,9 @@ class Optimizer:
 
 def kernel_params(named_params) -> List[torch.Tensor]:
     """The parameters slim's regularizer covers: those named `*.weight`
-    (conv kernels and `Logits`; the port's BatchNorm has only a bias)."""
+    (conv kernels, Inception-v2's depthwise and pointwise kernels too, and
+    `Logits`), never a BatchNorm's `scale` or `bias`, as the JAX package's
+    L2 covers the leaves named `kernel`."""
     return [p for name, p in named_params if name.endswith("weight")]
 
 
@@ -229,7 +231,7 @@ class TrainState:
     generator."""
 
     step: int
-    model: GVCNN
+    model: ViewModel
     optimizer: Optimizer
     generator: torch.Generator
     kernels: List[torch.Tensor]        # the parameters the L2 term covers
@@ -277,7 +279,8 @@ def dropout_seed(seed: int, step: int, micro: int) -> int:
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                config: GVCNNConfig) -> Dict[str, torch.Tensor]:
     """One optimizer step on `batch` {'views' (B, V, H, W, 3) float or
-    uint8, 'label' (B,)}, in place on `state`.  Returns the metrics as
+    uint8 (V = 1 for the single-view classifier), 'label' (B,)}, in place
+    on `state`.  Returns the metrics as
     0-d device tensors: loss (cross-entropy + L2), accuracy, grad_norm (the
     global norm before clipping).
 

@@ -1,0 +1,160 @@
+"""The blocks of the port's Inception-v3/v4 and ResNet-50 against the JAX
+package's, one at a time, on the CPU at fp32 (the whole backbones:
+`tests/test_torch_backbones.py`, whose helpers this file uses).
+
+- Eval mode: the blocks of v3 and v4 (their stems, Inception-A/B/C,
+  Reduction-A/B), at a few pixels, against the JAX block modules, weights
+  and BatchNorm calibrated as that file does; max|diff| <= 1e-4 x max|ref|.
+- Train mode (batch statistics, the BatchNorm EMA, gradients) of ResNet's
+  strided bottleneck (scaled BN, projection shortcut) and of v4's
+  Inception-A (average pool) and Reduction-A ('VALID' convs, max-pool):
+  output, new statistics, and the gradients of x and of every parameter
+  against `jax.vjp`, within 1e-3 of each tensor's max (the mean
+  subtraction of train-mode BN over a few dozen values amplifies fp32
+  rounding).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from gvcnn_tf_tpu.models.backbones import inception_v3 as jax_v3  # noqa: E402
+from gvcnn_tf_tpu.models.backbones import inception_v4 as jax_v4  # noqa: E402
+from gvcnn_tf_tpu.models.backbones import resnet as jax_resnet  # noqa: E402
+from gvcnn_tf_tpu_torch.bridge import state_dict_to_jax  # noqa: E402
+from gvcnn_tf_tpu_torch.models.backbones import (  # noqa: E402
+    inception_v3,
+    inception_v4,
+    resnet,
+)
+from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: E402
+    BatchNorm,
+)
+from test_torch_backbones import (  # noqa: E402
+    _nhwc,
+    assert_close_rel,
+    calibrate_bn,
+    randomize,
+)
+
+
+# The blocks of v3 and v4, one at a time: (port factory, JAX module,
+# input channels, input size).
+BLOCKS = {
+    "v4_stem": (lambda: inception_v4.InceptionV4Base("Mixed_5a"),
+                functools.partial(jax_v4.InceptionV4Base,
+                                  final_endpoint="Mixed_5a"),
+                3, 75),
+    "v4_inception_a": (inception_v4.inception_a, jax_v4.InceptionA, 384, 5),
+    "v4_reduction_a": (inception_v4.reduction_a, jax_v4.ReductionA, 384, 7),
+    "v4_inception_b": (inception_v4.inception_b, jax_v4.InceptionB, 1024,
+                       5),
+    "v4_reduction_b": (inception_v4.reduction_b, jax_v4.ReductionB, 1024,
+                       7),
+    "v4_inception_c": (inception_v4.inception_c, jax_v4.InceptionC, 1536,
+                       4),
+    "v3_stem": (lambda: inception_v3.InceptionV3Base("MaxPool_5a_3x3"),
+                functools.partial(jax_v3.InceptionV3Base,
+                                  final_endpoint="MaxPool_5a_3x3"), 3, 75),
+    "v3_block_a": (lambda: inception_v3.block_a(192, 32), functools.partial(
+        jax_v3._BlockA, pool_proj=32), 192, 5),
+    "v3_block_b": (lambda: inception_v3.block_b(128), functools.partial(
+        jax_v3._BlockB, width=128), 768, 5),
+    "v3_block_c": (lambda: inception_v3.block_c(1280), jax_v3._BlockC, 1280,
+                   4),
+}
+
+
+def _block_io(key, rs):
+    make, jmake, cin, hw = BLOCKS[key]
+    port = make()
+    x = rs.uniform(-1, 1, (2, hw, hw, cin)).astype(np.float32)
+    return port, jmake(dtype=jnp.float32), x
+
+
+def _port_block(port, x):
+    """A block takes NCHW, a backbone NHWC; both give NHWC back here."""
+    t = torch.from_numpy(x)
+    if isinstance(port, inception_v4.StagedBackbone):
+        return _nhwc(port(t)[0])
+    return _nhwc(port(t.permute(0, 3, 1, 2)))
+
+
+@pytest.mark.parametrize("key", list(BLOCKS))
+def test_block_matches_jax(key):
+    rs = np.random.RandomState(len(key))
+    port, jm, x = _block_io(key, rs)
+    xt = torch.from_numpy(x)
+    calibrate_bn(port, xt if isinstance(port, inception_v4.StagedBackbone)
+                 else xt.permute(0, 3, 1, 2), rs)
+    with torch.no_grad():
+        got = _port_block(port, x)
+    v = state_dict_to_jax(port.state_dict())
+    want = jax.jit(functools.partial(jm.apply, train=False))(v, x)
+    if isinstance(want, tuple):
+        want = want[0]
+    assert_close_rel(got, jax.device_get(want), msg=key)
+
+
+# Train mode: (port factory, JAX factory, input channels, input size).
+TRAIN_BLOCKS = {
+    "resnet_bottleneck_s2": (
+        lambda: resnet.Bottleneck(64, 32, stride=2),
+        lambda: jax_resnet.Bottleneck(32, 2, dtype=jnp.float32), 64, 9),
+    "v4_inception_a": (inception_v4.inception_a,
+                       lambda: jax_v4.InceptionA(dtype=jnp.float32), 384, 5),
+    "v4_reduction_a": (inception_v4.reduction_a,
+                       lambda: jax_v4.ReductionA(dtype=jnp.float32), 384, 7),
+}
+
+
+@pytest.mark.parametrize("key", list(TRAIN_BLOCKS))
+def test_train_mode_block_matches_jax(key):
+    make, jmake, cin, hw = TRAIN_BLOCKS[key]
+    rs = np.random.RandomState(7)
+    port = make()
+    randomize(port, rs)
+    with torch.no_grad():
+        for m in port.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.from_numpy(
+                    rs.normal(0, 0.1, m.running_mean.shape).astype(
+                        np.float32)))
+                m.momentum = 0.9
+    x = rs.uniform(-1, 1, (2, hw, hw, cin)).astype(np.float32)
+    v = state_dict_to_jax(port.state_dict())
+    jm = jmake()
+    jm = jm.clone(bn_momentum=0.9)
+
+    def fwd(params, xx):
+        out, upd = jm.apply({"params": params,
+                             "batch_stats": v["batch_stats"]}, xx,
+                            train=True, mutable=["batch_stats"])
+        return out, upd["batch_stats"]
+
+    out, vjp_fn, stats = jax.vjp(fwd, v["params"], x, has_aux=True)
+    g = rs.normal(0, 1, np.shape(out)).astype(np.float32)
+    gparams, gx = vjp_fn(jnp.asarray(g))
+
+    port.train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    y = port(xt)
+    y.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    assert_close_rel(_nhwc(y), out, rel=1e-3, msg="output")
+    assert_close_rel(_nhwc(xt.grad), gx, rel=1e-3, msg="dx")
+    want = dict(jax.tree_util.tree_flatten_with_path(jax.device_get(
+        {"params": gparams, "batch_stats": stats}))[0])
+    got_tree = state_dict_to_jax(
+        {**{k: p.grad for k, p in port.named_parameters()},
+         **{k: b for k, b in port.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}})
+    got = dict(jax.tree_util.tree_flatten_with_path(got_tree)[0])
+    assert set(got) == set(want)
+    for path in want:
+        assert_close_rel(got[path], want[path], rel=1e-3, msg=str(path))

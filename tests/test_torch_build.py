@@ -49,9 +49,24 @@ def test_nonzero_launch_code_raises():
 
 
 def test_wrappers_refuse_other_devices():
+    """A device other than the CPU, a card or `meta` (shapes only: the
+    plain version, no data) is refused.  The stand-ins carry only what the
+    wrappers read before they refuse."""
+    import types
+
+    def on(shape, device):
+        return types.SimpleNamespace(shape=shape, requires_grad=False,
+                                     device=torch.device(device))
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        stem_conv(on((1, 16, 16, 3), "mps"), on((64, 3, 7, 7), "mps"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_and_fuse(on((1, 4), "mps"), on((1, 4, 8), "mps"), 8)
     x = torch.zeros((1, 16, 16, 3), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        stem_conv(x, torch.zeros((64, 3, 7, 7), device="meta"))
+    assert stem_conv(x, torch.zeros((64, 3, 7, 7), device="meta")).shape == (
+        1, 8, 8, 64)
     s = torch.zeros((1, 4), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        group_and_fuse(s, torch.zeros((1, 4, 8), device="meta"), 8)
+    fused, weights, scheme = group_and_fuse(
+        s, torch.zeros((1, 4, 8), device="meta"), 8)
+    assert (fused.shape, weights.shape, scheme.shape) == ((1, 8), (1, 8),
+                                                          (1, 8, 4))

@@ -156,11 +156,47 @@ def test_stem_module_runs_the_epilogue_in_the_kernel(cuda):
                                atol=5e-2)
 
 
+# The fp32 kernel (mn10_single_view's stem, B = 8), a ragged strip and
+# odd sizes.
+STEM_F32_SHAPES = [(8, 224, 224, 3), (2, 30, 30, 3), (1, 31, 33, 3),
+                   (3, 8, 130, 3)]
+
+
+@pytest.mark.parametrize("shape", STEM_F32_SHAPES)
+@pytest.mark.parametrize("epilogue", [None, "affine", "relu"])
+def test_stem_f32_kernel_matches_plain(cuda, shape, epilogue):
+    """fp32 in and out, fp32 multiply-adds on both sides (TF32 off for the
+    plain version's cuDNN conv): max|err| <= 1e-5 x max|ref|, 147 products
+    summed in another order."""
+    rs = np.random.RandomState(sum(shape) + len(epilogue or ""))
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+        np.float32)).to(cuda)
+    affine = ()
+    if epilogue:
+        affine = tuple(torch.from_numpy(a.astype(np.float32)).to(cuda)
+                       for a in (rs.uniform(0.5, 2.0, 64),
+                                 rs.uniform(-1.0, 1.0, 64)))
+    relu = epilogue == "relu"
+    before = (stem_conv.launches, stem_conv.launches_f32)
+    with torch.inference_mode():
+        got = stem_conv(x, w, *affine, relu=relu)
+        torch.cuda.synchronize()
+        want = stem_conv_plain(x, w, *affine, relu=relu)
+    assert (stem_conv.launches, stem_conv.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
 def test_stem_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros((1, 16, 16, 3), device=cuda)
     w = torch.zeros((64, 3, 7, 7), device=cuda)
     with pytest.raises(TypeError):
-        stem_conv(x, w)                                       # fp32
+        stem_conv(x.half(), w.half())                         # fp16
+    with pytest.raises(TypeError):
+        stem_conv(x, w.bfloat16())                            # mixed
     with pytest.raises(ValueError):
         stem_conv(x.bfloat16().permute(0, 2, 1, 3), w.bfloat16())
     wg = w.bfloat16().requires_grad_()
@@ -188,10 +224,13 @@ def _edge_scores(b, v, m):
 @pytest.mark.parametrize("mode", ["mean", "ceil_sum"])
 # B = 1 at C = 1024 (8 channel tiles), a ragged last tile (C = 300), C <
 # 128 (64, 100: one tile), M in {1, 8, 16}.
+# C = 1536 (Inception-v4's Mixed_7d) and 2048 (ResNet-50's block4,
+# Inception-v3's Mixed_7c).
 @pytest.mark.parametrize("b,v,c,m", [(8, 12, 1024, 8), (3, 1, 64, 1),
                                      (2, 8, 1024, 16), (1, 12, 300, 8),
                                      (1, 12, 1024, 8), (1, 12, 100, 16),
-                                     (4, 16, 300, 1), (1, 12, 300, 16)])
+                                     (4, 16, 300, 1), (1, 12, 300, 16),
+                                     (8, 12, 1536, 8), (8, 12, 2048, 8)])
 @pytest.mark.parametrize("edges", [False, True])
 def test_grouping_kernel_matches_plain(cuda, mode, b, v, c, m, edges):
     rs = np.random.RandomState(b * v + m)
@@ -308,6 +347,46 @@ def test_one_train_step_on_the_card(cuda):
     # Every kernel moves (the score-logit bias has a zero gradient under the
     # softmax over views, so only the kernels are checked).
     assert all(not torch.equal(a, b) for a, b in zip(before, state.kernels))
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("mn10_single_view", (1, 1, 0)),          # (stem, stem fp32, grouping)
+    ("mn40_12view_mvcnn", (1, 0, 0)),
+    ("mn40_12view_resnet50", (0, 0, 1)),
+    ("mn40_12view_inception_v4", (0, 0, 1)),
+])
+def test_families_on_the_card(cuda, name, launches):
+    """One eval forward of each family at 80x80, 2 views (1 for the single
+    view), B = 2, on the card against the CPU in fp32: the kernels of the
+    path launch once each (the fp32 stem for the fp32 config), and the
+    logits agree within the serving bound (3% of max|logit|; TF32 off)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.models.gvcnn import (
+        build_model,
+        init_weights,
+        to_device,
+    )
+
+    base = get_config(name)
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, height=80, width=80, batch_size=2,
+        num_views=min(base.data.num_views, 2)))
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (2, cfg.data.num_views, 80, 80, 3)).astype(np.float32))
+    ref = init_weights(build_model(cfg.replace(compute_dtype="float32")),
+                       cfg.train.seed).eval()
+    model = to_device(init_weights(build_model(cfg), cfg.train.seed),
+                      cuda).eval()
+    before = (stem_conv.launches, stem_conv.launches_f32,
+              group_and_fuse.launches)
+    with torch.no_grad():
+        got = model(x.to(cuda))[0].float().cpu()
+        want = ref(x)[0]
+    assert (stem_conv.launches - before[0], stem_conv.launches_f32
+            - before[1], group_and_fuse.launches - before[2]) == launches
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
 
 
 def _eval_logits():

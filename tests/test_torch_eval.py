@@ -117,6 +117,53 @@ def test_evaluate_takes_a_dataset_iter(shared):
                                               2 * want[False]["correct"])
 
 
+# MVCNN and the single-view classifier, cut as `_config` cuts GVCNN.
+FAMILIES = {"mvcnn": ("mn40_12view_mvcnn", V),
+            "single_view": ("mn10_single_view", 1)}
+
+
+def _family_config(mod, family):
+    name, views = FAMILIES[family]
+    cfg = mod.get_config(name)
+    return cfg.replace(
+        compute_dtype="float32", raw_endpoint="Conv2d_2c_3x3",
+        final_endpoint="Mixed_3b",
+        data=dataclasses.replace(
+            cfg.data, num_classes=10, height=H, width=H, num_views=views,
+            batch_size=B, dataset="procedural",
+            synthetic_num_shapes=N_SHAPES))
+
+
+def family_variables(family, x):
+    """Calibrated weights of `family` on views x (N, V, H, W, 3), as JAX
+    variables, after asserting every top-2 logit margin is clear."""
+    model = build_model(_family_config(port_configs, family)).eval()
+    _calibrate_bn(model, torch.from_numpy(x), np.random.RandomState(1))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x))[0].numpy()
+    top2 = np.sort(logits, -1)[:, -2:]
+    assert (top2[:, 1] - top2[:, 0]).min() > 1e-3 * np.abs(logits).max()
+    return state_dict_to_jax(model.state_dict())
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_evaluate_equals_jax_for_each_family(family):
+    """MVCNN and the single-view classifier: the same counts and per-class
+    accuracy as the JAX package's `evaluate`, unfolded and folded."""
+    jcfg, pcfg = (_family_config(m, family) for m in (jax_configs,
+                                                       port_configs))
+    batch = next(make_dataset(dataclasses.replace(
+        pcfg.data, batch_size=N_SHAPES), train=False, num_epochs=1))
+    variables = family_variables(family, batch["views"])
+    ns = types.SimpleNamespace(**variables)
+    for fold in (False, True):
+        want = jax_evaluate(jcfg, state=ns, per_class=True, fold_bn=fold)
+        got = port_eval.evaluate(pcfg, state=variables, per_class=True,
+                                 fold_bn=fold, device="cpu")
+        assert got["count"] == want["count"] == N_SHAPES
+        assert got == want
+
+
 def _train_cfg(logdir, **train_kw):
     cfg = _config(port_configs, transfer_dtype="uint8")
     return cfg.replace(dropout_keep_prob=0.8, train=dataclasses.replace(

@@ -182,9 +182,7 @@ def test_unsupported_configs_are_refused():
     for bad, what in [
         (cfg.replace(stem_space_to_depth=True), "stem_space_to_depth"),
         (cfg.replace(remat_until="MaxPool_3a_3x3"), "remat"),
-        (port_configs.get_config("mn40_12view_mvcnn"), "MVCNN"),
-        (port_configs.get_config("mn10_single_view"), "single-view"),
-        (port_configs.get_config("mn40_12view_resnet50"), "resnet50"),
+        (port_configs.get_config("mn40_12view_dp8"), "item 10"),
     ]:
         with pytest.raises(NotImplementedError, match=what):
             build_model(bad)

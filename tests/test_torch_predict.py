@@ -43,7 +43,13 @@ from gvcnn_tf_tpu_torch.models.gvcnn import build_model  # noqa: E402
 from gvcnn_tf_tpu_torch.tools import make_demo_meshes as port_demo  # noqa: E402
 from gvcnn_tf_tpu_torch.tools import render_meshes as port_meshes  # noqa: E402
 from gvcnn_tf_tpu_torch.train import train as port_train  # noqa: E402
-from test_torch_eval import _calibrate_bn, _config  # noqa: E402
+from test_torch_eval import (  # noqa: E402
+    FAMILIES,
+    _calibrate_bn,
+    _config,
+    _family_config,
+    family_variables,
+)
 
 # The port's __init__ exports a function named `predict`, as the JAX
 # package's does.
@@ -254,3 +260,23 @@ def test_demo_meshes_equal_jax(tmp_path):
     for rel in found[0]:
         assert ((tmp_path / "port" / rel).read_bytes()
                 == (tmp_path / "jax" / rel).read_bytes()), rel
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_predict_equals_jax_for_each_family(family):
+    """MVCNN and the single-view classifier: the JAX package's records, with
+    no `view_scores` (neither model scores its views)."""
+    jcfg, pcfg = (_family_config(m, family) for m in (jax_configs,
+                                                       port_configs))
+    views = np.random.RandomState(6).uniform(
+        -1, 1, (3, pcfg.data.num_views, H, H, 3)).astype(np.float32)
+    variables = family_variables(family, views)
+    want = jax_predict(jcfg, views=views,
+                       state=types.SimpleNamespace(**variables))
+    got = port_predict_mod.predict(pcfg, views=views, state=variables,
+                                   device="cpu")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == {"shape", "class_index", "probability"}
+        assert g["class_index"] == w["class_index"]
+        np.testing.assert_allclose(g["probability"], w["probability"], **TOL)

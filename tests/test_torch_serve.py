@@ -143,6 +143,42 @@ def test_engine_matches_jax_engine():
                                    rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("family", ["mvcnn", "single_view"])
+def test_server_matches_jax_engine_for_each_family(family):
+    """MVCNN and the single-view classifier served over HTTP: the JAX
+    engine's records on the same (calibrated) weights, with no view scores
+    in either."""
+    from test_torch_eval import _family_config, family_variables
+
+    jcfg, pcfg = (_family_config(m, family) for m in (jax_configs,
+                                                       port_configs))
+    d = pcfg.data
+    views = np.random.RandomState(4).uniform(
+        -1, 1, (3, d.num_views, d.height, d.width, 3)).astype(np.float32)
+    variables = family_variables(family, views)
+    jax_engine = JaxInferenceEngine(
+        jcfg, state=types.SimpleNamespace(**variables), serve_batch_size=2)
+    httpd, thread, engine = serve(pcfg, variables=variables, port=0,
+                                  serve_batch_size=2, block=False,
+                                  device="cpu")
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+        status, got = _post(url, _npz(views=views))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+        thread.join(timeout=30)
+    assert status == 200
+    want = jax_engine.predict(views)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == {"class_index", "probability"}
+        assert g["class_index"] == w["class_index"]
+        np.testing.assert_allclose(g["probability"], w["probability"],
+                                   rtol=1e-4)
+
+
 def test_cuda_engine_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back"):

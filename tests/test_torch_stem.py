@@ -42,7 +42,11 @@ from gvcnn_tf_tpu_torch.ops.pool import same_pads  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.stem_kernel import (  # noqa: E402
     K_PADDED,
     K_ROW,
+    KERNEL_NAME,
+    KERNEL_NAME_F32,
+    kernel_name,
     pack_stem_weight,
+    pack_stem_weight_f32,
     stem_conv,
     stem_conv_plain,
 )
@@ -132,6 +136,58 @@ def test_packed_layout_matches_plain_at_fp32(n, h, w):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("n,h,w", [(2, 30, 30), (1, 31, 33), (8, 64, 64)])
+def test_packed_f32_layout_matches_plain_at_fp32(n, h, w):
+    """The fp32 kernel's (147, 64) weight, row (kh * 7 + kw) * 3 + c, times
+    the im2col of the TF-'SAME'-padded input in that order, is the plain
+    conv."""
+    x, k = _inputs(n, h, w, seed=h + 7 * w)
+    xt, wt = torch.from_numpy(x), _oihw(k)
+    packed = pack_stem_weight_f32(wt)
+    assert packed.shape == (147, 64) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed.numpy(), k.reshape(147, 64))
+    ho, wo = -(-h // 2), -(-w // 2)
+    top, left = same_pads(h, 7, 2)[0], same_pads(w, 7, 2)[0]
+    xp = F.pad(xt, (0, 0, left, 2 * wo + 5 - w - left,
+                    top, 2 * ho + 5 - h - top))
+    cols = xp.unfold(1, 7, 2).unfold(2, 7, 2)        # (N, Ho, Wo, 3, 7, 7)
+    a = cols.permute(0, 1, 2, 4, 5, 3).reshape(n, ho, wo, 147)
+    got = (a.double() @ packed.double()).float()
+    np.testing.assert_allclose(got.numpy(), stem_conv_plain(xt, wt).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dtype_picks_the_kernel_and_anything_else_raises():
+    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one; any
+    other dtype, or a weight of another dtype than x, raises before a
+    launch (the checks a CUDA tensor meets, run here on CPU tensors)."""
+    assert kernel_name(torch.bfloat16) == KERNEL_NAME
+    assert kernel_name(torch.float32) == KERNEL_NAME_F32
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16.*float32"):
+            kernel_name(bad)
+    x = torch.zeros((1, 16, 16, 3))
+    w = torch.zeros((64, 3, 7, 7))
+    check = stem_kernel._check_cuda_args
+    assert check(x, w, None, None) == KERNEL_NAME_F32
+    assert check(x.bfloat16(), w.bfloat16(), None, None) == KERNEL_NAME
+    with pytest.raises(TypeError):
+        check(x.half(), w.half(), None, None)
+    with pytest.raises(TypeError, match="like x"):
+        check(x, w.bfloat16(), None, None)
+    with pytest.raises(ValueError, match="scale and shift"):
+        check(x, w, torch.ones(64), None)
+
+
+def test_packed_weight_cache_keeps_one_layout_per_dtype():
+    w = torch.randn(64, 3, 7, 7)
+    with torch.no_grad():
+        assert stem_kernel._packed_weight(w).shape == (147, 64)
+        wb = w.bfloat16()
+        assert stem_kernel._packed_weight(wb).shape == (K_PADDED, 64)
+        assert stem_kernel._packed_weight(w) is stem_kernel._packed_weight(w)
+
+
 def _bn_variables(rs, k):
     return {
         "params": {"conv": {"kernel": k},
@@ -219,7 +275,7 @@ def test_stem_refuses_training_mode():
 
 def test_packed_weight_is_kept_until_the_weight_changes():
     _, k = _inputs(1, 8, 8)
-    w = _oihw(k)
+    w = _oihw(k).bfloat16()              # the bf16 kernel's layout
     with torch.no_grad():
         first = stem_kernel._packed_weight(w)
         assert stem_kernel._packed_weight(w) is first

@@ -180,6 +180,79 @@ def test_three_train_steps_track_jax(accumulate):
                                    err_msg=k)
 
 
+# The other families, cut to a few layers: (config, endpoint overrides,
+# views).  3 views for GVCNN-ResNet-50: at 2 the softmax scores sit near
+# 1/2, a bucket edge.
+FAMILIES = {
+    "mvcnn": ("mn40_12view_mvcnn", dict(raw_endpoint="Conv2d_2c_3x3",
+                                        final_endpoint="Mixed_3b"), 2),
+    "single_view": ("mn10_single_view", dict(raw_endpoint="Conv2d_2c_3x3",
+                                             final_endpoint="Mixed_3b"), 1),
+    "resnet50": ("mn40_12view_resnet50",
+                 dict(raw_endpoint="conv1", final_endpoint="block2"), 3),
+}
+
+
+def _family(mod, key):
+    name, eps, views = FAMILIES[key]
+    cfg = mod.get_config(name)
+    return cfg.replace(
+        compute_dtype="float32", dropout_keep_prob=1.0, **eps,
+        data=dataclasses.replace(cfg.data, height=32, width=32,
+                                 num_views=views, batch_size=4),
+        train=dataclasses.replace(
+            cfg.train, learning_rate=1e-4 if key == "resnet50" else 1e-3))
+
+
+@pytest.mark.parametrize("key", list(FAMILIES))
+def test_three_train_steps_track_jax_for_each_family(key):
+    """MVCNN, the single-view classifier ((B, 1, H, W, 3) batches) and
+    GVCNN on ResNet-50 (BatchNorm with a scale, eps 1e-5, decay 0.997), as
+    `test_three_train_steps_track_jax`; the L2 term covers the same
+    kernels, never a BatchNorm scale.  Loss, grad_norm, parameters and
+    statistics within rtol 1e-3 (atol 1e-5).  Learning rate 1e-3, and 1e-4
+    for ResNet-50: its gradient norm at init is ~93, 11x Inception-v1's,
+    and dominated by its early layers, whose gradients swing with the
+    rounding of the batch statistics (a BatchNorm bias ahead of another
+    train-mode BatchNorm gets a gradient that is mostly cancellation): at
+    lr 1e-3 its grad_norm drifts 5.7e-4 relative by the second step and
+    block1's kernels and BN biases up to 1.6e-4 apart after the third; at
+    1e-4 one element of conv1's 9,408 is 1.2e-5 apart, so ResNet-50's
+    parameters are held at atol 2e-5.  The two Inception-v1 families stay
+    within 1.1e-4."""
+    jcfg, pcfg = _family(jax_configs, key), _family(port_configs, key)
+    model, tx, jstate = jax_train.create_train_state(jcfg, jax.random.key(0))
+    step = jax.jit(jax_train.make_train_step(model, tx, jcfg))
+    state = port_train.create_train_state(pcfg, "cpu")
+    state.model.load_state_dict(jax_to_state_dict(jax.device_get(
+        {"params": jstate.params, "batch_stats": jstate.batch_stats})))
+    assert not any(k.endswith("scale") for k, p in
+                   state.model.named_parameters()
+                   if any(p is q for q in state.kernels))
+    views = jcfg.data.num_views
+    rs = np.random.RandomState(2)
+    for i in range(3):
+        x = rs.uniform(-1, 1, (4, views, 32, 32, 3)).astype(np.float32)
+        labels = rs.randint(0, jcfg.data.num_classes, 4).astype(np.int32)
+        jstate, jm = step(jstate, {"views": jnp.asarray(x),
+                                   "label": jnp.asarray(labels)},
+                          jax.random.key(1))
+        pm = port_train.train_step(state, {
+            "views": torch.from_numpy(x),
+            "label": torch.from_numpy(labels)}, pcfg)
+        for k in ("loss", "grad_norm", "accuracy"):
+            assert float(pm[k]) == pytest.approx(float(jm[k]),
+                                                 rel=1e-3), (i, k)
+    want = dict(_flat(jax.device_get({"params": jstate.params,
+                                      "batch_stats": jstate.batch_stats})))
+    got = dict(_flat(state_dict_to_jax(state.model.state_dict())))
+    assert set(got) == set(want)
+    atol = 2e-5 if key == "resnet50" else 1e-5
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=atol,
+                                   err_msg=k)
+
+
 def test_train_step_refuses_a_ragged_accumulation():
     cfg = _tiny(port_configs, accumulate_steps=3)
     state = port_train.create_train_state(cfg, "cpu")
