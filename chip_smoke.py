@@ -5,7 +5,8 @@ prediction paths on one NVIDIA GPU.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
-1. The card (nvidia-smi name and power limit), torch and CUDA versions.
+1. The card (nvidia-smi name and power limit), torch and CUDA versions;
+   whether tensorstore and TensorFlow import (child processes).
 2. Build the CUDA kernels from gvcnn_tf_tpu_torch/csrc with nvcc.
 3. The stem kernel against its plain PyTorch version, without and with
    its epilogue (scale in [0.5, 2], mixed-sign shift, ReLU), at the serving
@@ -65,6 +66,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    dtype): the fp32 stem kernel against its plain version (TF32 off for the
    reference), without and with its epilogue, at mn10_single_view's
    (8, 224, 224, 3) and one odd shape, timed against cuDNN's fp32 conv;
+   its autograd Function's dw (and dx at the odd shape) against autograd
+   through the plain version with TF32 off, and its forward + backward,
+   backward alone and cuDNN's fp32 weight gradient timed;
    the grouping kernel at C = 1536 (Inception-v4) and 2048 (ResNet-50)
    against its plain version in phase 4's cases, timed; then for each of
    mn40_12view_resnet50, mn40_12view_inception_v4, mn40_12view_mvcnn and
@@ -76,6 +80,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    bound set beforehand from `measure.py serve-drift` / `train-drift` on
    the CPU; and one B = 1 forward through GVCNN on Inception-v2 and v3
    (`--backbone`), card against CPU.
+11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
+   made from a seed (1001-class head) written by the port's importer, then
+   `train()` of mn40_12view at full width with `checkpoint_path` and the
+   default exclude scopes for WARM_STEPS steps: the weights on the card
+   before step 1 bit for bit the checkpoint's (Inception-v1) and the seeded
+   init (`Logits`, `GroupingModule`), the loss finite, one launch of each
+   kernel a step, the warm start's host time and the steps' CUDA-event
+   times; then a Flax-layout tree (what `read_orbax` returns) of seeded
+   weights served at B = 8 through `model_state` -> `load_model`, card
+   against CPU within the serving bounds.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -147,6 +161,7 @@ TRAIN_LAYER_LOGRATIO_MAX = 1.5
 TRAIN_GROUP_COS_MIN = {"Mixed_5c/bn_bias": 0.86, "Logits/bias": 0.999}
 TRAIN_STEPS, RESUME_STEPS = 20, 4
 OVERFIT_STEPS = 30
+WARM_STEPS = 3                   # phase 11: warm-started train() steps
 # Phase 9: 44 shapes a split give 5 train steps an epoch and 5 full val
 # batches of 8 plus one of 4 (padded); the first 16 val shapes go through
 # the CPU.
@@ -159,6 +174,10 @@ STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
 # summed in another order.
 STEM_F32_SHAPES = [(8, 224, 224, 3), (3, 31, 45, 3)]
 STEM_F32_REL_TOL = 1e-5
+# The fp32 Function's dw (and dx) against the plain version's, both cuDNN
+# fp32 conv gradients with TF32 off, summed in whatever order cuDNN picks
+# (TF32 would round the inputs to 10 bits, ~1e-3).
+STEM_F32_GRAD_REL_TOL = 1e-4
 WIDE_C = (1536, 2048)            # K1: Inception-v4 Mixed_7d, ResNet-50 block4
 FAMILY_REQUESTS = 10
 # (bf16 stem, fp32 stem, grouping) launches a forward.
@@ -1082,7 +1101,93 @@ def phase_stem_f32(dev):
             f"input {timed['library_ms']:.4f} ms (TF32 "
             f"{timed['library_tf32_ms']:.4f}), bound {timed['bound_ms']:.4f} "
             f"ms ({timed['bound_by']})")
-    return dict(max_abs_err=max_err, **timed)
+    return dict(max_abs_err=max_err, **timed, **stem_f32_backward(dev, w))
+
+
+def stem_f32_backward(dev, w32):
+    """The fp32 stem's autograd Function (fp32 kernel forward, cuDNN's fp32
+    weight gradient) against autograd through the plain version, TF32 off
+    on both sides: dw at mn10_single_view's (8, 224, 224, 3), dw and dx at
+    (3, 31, 45, 3); then its times, TF32 off."""
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv, stem_conv_plain
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+
+    rs = np.random.RandomState(16)
+    max_err, timed = 0.0, None
+    for shape in STEM_F32_SHAPES:
+        n, h, wd, _ = shape
+        x = torch.from_numpy(rs.uniform(-1, 1, shape).astype(
+            np.float32)).to(dev)
+        g = torch.from_numpy(rs.randn(n, -(-h // 2), -(-wd // 2), 64).astype(
+            np.float32)).to(dev)
+        need_dx = shape != STEM_F32_SHAPES[0]
+        grads = []
+        with _no_tf32():
+            for fn in (stem_conv, stem_conv_plain):
+                xg = x.clone().requires_grad_(need_dx)
+                w = w32.clone().requires_grad_()
+                fn(xg, w).backward(g)
+                grads.append((w.grad, xg.grad))
+        torch.cuda.synchronize()
+        errs = []
+        for got, want in zip(*grads):
+            if want is None:
+                continue
+            tol = STEM_F32_GRAD_REL_TOL * want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if got.dtype != torch.float32 or not err <= tol:
+                raise AssertionError(f"fp32 stem gradient {shape}: max|err| "
+                                     f"{err:.4g} past {tol:.4g}")
+            errs.append(err / want.abs().max().item())
+        max_err = max(max_err, *errs)
+        log(f"fp32 stem backward {shape}: dw{' and dx' if need_dx else ''} "
+            f"match autograd through the plain version, TF32 off (max|err| "
+            f"/ max {max(errs):.3g}, bound {STEM_F32_GRAD_REL_TOL})")
+        if timed is not None:
+            continue
+        w = w32.clone().requires_grad_()
+
+        def fwd_bwd():
+            w.grad = None
+            stem_conv(x, w).backward(g)
+
+        y = stem_conv(x, w)
+        ph, pw = same_pads(h, 7, 2), same_pads(wd, 7, 2)
+        xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+        gn = g.permute(0, 3, 1, 2)
+        wd_ = w.detach()
+
+        def wgrad():
+            return torch.ops.aten.convolution_backward(
+                gn, xn, wd_, None, [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+                [False, True, False])
+
+        with _no_tf32():
+            timed = dict(
+                fwd_bwd_ms=cuda_ms(fwd_bwd),
+                backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                    y, w, g, retain_graph=True)),
+                plain_fwd_bwd_ms=cuda_ms(
+                    lambda: stem_conv_plain(x, w).backward(g)),
+                backward_library_ms=cuda_ms(wgrad))
+        timed["backward_library_tf32_ms"] = cuda_ms(wgrad)
+        # dw: reads x and the output gradient, writes dw; 147 multiply-adds
+        # per element of the output gradient, in fp32.
+        timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
+            (x.numel() + g.numel() + w32.numel()) * 4,
+            2 * g.numel() * 147, FP32_FLOPS)
+        log(f"fp32 stem backward {shape}, TF32 off: Function forward + "
+            f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
+            f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone "
+            f"{timed['backward_ms']:.4f} ms, cuDNN fp32 weight gradient on "
+            f"pre-padded input {timed['backward_library_ms']:.4f} ms (TF32 "
+            f"{timed['backward_library_tf32_ms']:.4f}), bound "
+            f"{timed['backward_bound_ms']:.4f} ms "
+            f"({timed['backward_bound_by']})")
+    return dict(grad_max_rel_err=max_err, **timed)
 
 
 def _counts():
@@ -1253,6 +1358,183 @@ def phase_families(card, dev):
     return rows
 
 
+def phase_packages():
+    """Whether tensorstore (the Orbax reader) and TensorFlow (the slim
+    importer's reader) import on this machine, each probed in a child
+    process so that neither is loaded here."""
+    import subprocess
+
+    procs = {name: subprocess.Popen([sys.executable, "-c", f"import {name}"],
+                                    stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.DEVNULL)
+             for name in ("tensorstore", "tensorflow")}
+    have = {}
+    try:
+        for name, proc in procs.items():
+            have[name] = proc.wait(timeout=300) == 0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("packages: " + ", ".join(
+        f"{k} {'imports' if v else 'does not import'}"
+        for k, v in have.items()))
+    return have
+
+
+def _slim_variables(rs):
+    """A slim-named Inception-v1 checkpoint's variables (the importer's
+    list, a 1001-class head), from a seed: conv weights N(0, 1/fan_in),
+    BatchNorm beta and moving mean N(0, 0.1), moving variance U(0.5, 2)."""
+    from gvcnn_tf_tpu_torch.tools.import_slim_checkpoint import (
+        slim_variable_shapes,
+    )
+
+    out = {}
+    for name, shape in slim_variable_shapes(1001):
+        if name.endswith("weights"):
+            a = rs.normal(0, (1.0 / np.prod(shape[:-1])) ** 0.5, shape)
+        elif name.endswith("moving_variance"):
+            a = rs.uniform(0.5, 2.0, shape)
+        else:
+            a = rs.normal(0, 0.1, shape)
+        out[name] = a.astype(np.float32)
+    return out
+
+
+def phase_warm_start(card, dev):
+    """(a) `train()` of mn40_12view at full width warm-started from a
+    slim-named Inception-v1 checkpoint written by the port's importer,
+    default exclude scopes, WARM_STEPS steps: before step 1 every
+    Inception-v1 parameter and BN statistic on the card is the slim array
+    bit for bit, `Logits` and `GroupingModule` the port's seeded init; the
+    loss finite, one launch of each kernel a step.  (b) A Flax-layout tree
+    (the form `read_orbax` returns) of seeded weights, as a checkpoint,
+    through `model_state` -> `load_model` into the engine on the card:
+    B = 8 against the same weights in fp32 on the CPU."""
+    import dataclasses
+    import importlib
+    import shutil
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.bridge import state_dict_to_jax
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine
+    from gvcnn_tf_tpu_torch.tools.import_slim_checkpoint import (
+        convert_slim_vars,
+        save_variables,
+        slim_name_to_flax_path,
+    )
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_warm"
+    shutil.rmtree(root, ignore_errors=True)
+    rs = np.random.RandomState(15)
+    slim = _slim_variables(rs)
+    t0 = time.perf_counter()
+    n = save_variables(convert_slim_vars(slim), str(root / "imagenet_v1"))
+    import_s = time.perf_counter() - t0
+    base = get_config("mn40_12view")
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, train_logdir=str(root / "train"),
+        checkpoint_path=str(root / "imagenet_v1"), log_every=WARM_STEPS,
+        checkpoint_every=WARM_STEPS))
+
+    real_warm, real_step, seen, step_ms = (train_mod.warm_start_model,
+                                           train_mod.train_step, {}, [])
+
+    def warm(*args, **kw):
+        t = time.perf_counter()
+        out = real_warm(*args, **kw)
+        torch.cuda.synchronize()
+        seen["warm_s"] = time.perf_counter() - t
+        return out
+
+    def step(state, batch, config):
+        if "before" not in seen:
+            seen["before"] = {k: v.detach().cpu().clone()
+                              for k, v in state.model.state_dict().items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_step(state, batch, config)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        return out
+
+    train_mod.warm_start_model, train_mod.train_step = warm, step
+    _zero_counts()
+    try:
+        state, mets = train_mod.train(cfg, num_steps=WARM_STEPS,
+                                      device="cuda")
+    finally:
+        train_mod.warm_start_model, train_mod.train_step = (real_warm,
+                                                            real_step)
+    launches = _counts()
+    before = state_dict_to_jax(seen["before"])
+    copied = 0
+    for name, a in slim.items():
+        coll, path = slim_name_to_flax_path(name)
+        if path[0] != "InceptionV1":
+            continue
+        node = before[coll]
+        for k in path:
+            node = node[k]
+        if not np.array_equal(node, a):
+            raise AssertionError(f"warm start: {name} differs on the card")
+        copied += 1
+    want = sum(k.startswith("InceptionV1.") for k in seen["before"])
+    fresh = init_weights(build_model(cfg), cfg.train.seed).state_dict()
+    head = [k for k in fresh if k.startswith(("Logits.", "GroupingModule."))]
+    same_head = all(torch.equal(seen["before"][k], fresh[k]) for k in head)
+    log(f"warm start (a): {n} arrays imported in {import_s:.2f} s; "
+        f"warm_start_model {seen['warm_s']:.2f} s (host, read and copy to the "
+        f"card); {copied} of {want} Inception-v1 tensors equal the slim "
+        f"arrays bit for bit before step 1, Logits and GroupingModule "
+        f"({len(head)} tensors) the seeded init: {same_head}; {WARM_STEPS} "
+        f"steps, CUDA events {', '.join(f'{t:.3f}' for t in step_ms)} ms; "
+        f"launches (bf16 stem, fp32 stem, grouping) {launches}; last {mets} "
+        f"[{card}]")
+    if copied != want or not same_head:
+        raise AssertionError("warm start: the card's weights are not the "
+                             "checkpoint's and the seeded init")
+    if not all(np.isfinite(v) for v in mets.values()):
+        raise AssertionError(f"warm start: non-finite metrics {mets}")
+    if launches != (WARM_STEPS, 0, WARM_STEPS):
+        raise AssertionError(f"warm start: launches {launches} in "
+                             f"{WARM_STEPS} steps")
+
+    # (b) Seeded weights under another seed than the engine's config, so
+    # only a loaded checkpoint agrees with the CPU reference.
+    other = cfg.replace(train=dataclasses.replace(
+        cfg.train, seed=cfg.train.seed + 17))
+    tree = state_dict_to_jax(init_weights(build_model(other),
+                                          other.train.seed).state_dict())
+    save_variables(tree, str(root / "jax_layout"))
+    engine = InferenceEngine(cfg, str(root / "jax_layout"),
+                             serve_batch_size=8, device="cuda")
+    try:
+        d = cfg.data
+        views = rs.uniform(-1, 1, (8, d.num_views, d.height, d.width,
+                                   3)).astype(np.float32)
+        _zero_counts()
+        rel, serve_launches = _card_vs_cpu_serving(
+            engine, other, views, (LOGIT_REL_TOL, SCORE_ABS_TOL),
+            "served from a Flax-layout tree")
+    finally:
+        engine.close()
+    if serve_launches != (1, 0, 1):
+        raise AssertionError(f"served from a Flax-layout tree: launches "
+                             f"{serve_launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, warm_s=seen["warm_s"], import_s=import_s,
+                step_ms=step_ms, serve_logit_rel=rel,
+                serve_launches=serve_launches)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -1293,6 +1575,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     card = phase_card()
+    phase_packages()
     phase_build()
     stem = phase_stem(dev)
     grouping = phase_grouping(dev)
@@ -1306,6 +1589,8 @@ def main():
     fam = phase_families(card, dev)
     single = fam["mn10_single_view"]
     log("phase 10 summary: " + json.dumps(fam))
+    warm = phase_warm_start(card, dev)
+    log("phase 11 summary: " + json.dumps(warm))
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
@@ -1314,7 +1599,9 @@ def main():
              launches_per_forward=launches["stem"] / FORWARDS,
              train_launches=tr["launches"]["stem"],
              launches_per_step=tr["per_step"]["stem"],
-             eval_launches=ev["eval_launches"]["stem"], **stem, **stem_bwd),
+             eval_launches=ev["eval_launches"]["stem"],
+             warm_start_launches=warm["launches"][0],
+             **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
              replaces="gvcnn_tf_tpu/ops/pallas_grouping.py:80",
@@ -1323,6 +1610,7 @@ def main():
              train_launches=tr["launches"]["grouping"],
              launches_per_step=tr["per_step"]["grouping"],
              eval_launches=ev["eval_launches"]["grouping"],
+             warm_start_launches=warm["launches"][2],
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}

@@ -6,9 +6,11 @@ The port has the synthetic stream (what the JAX package picks when no
 `"procedural_hard"`), which can yield raw uint8 views for the uint8 wire.
 Every other loader, and `device_resident="on"`, is refused with the ROADMAP
 item that ports it.  `device_resident="auto"` streams every split through
-the prefetcher: unlike the JAX package, which stages a procedural train
-split on the device under `auto` when the uint8 wire is on and shuffles it
-there in another order, the port keeps the host stream's order.
+the prefetcher, where the JAX package stages a procedural train split on
+the device under `auto` when the uint8 wire is on.  The batches are the
+same either way: the JAX package's staged split draws the same per-epoch
+permutation as its stream (`RandomState(seed + 7 + shard_index)`), so the
+port's streamed batches match the reference's batch for batch.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@
 accuracy, the correct and total counts and, with `per_class`, the accuracy
 of each class.  The weights come from the newest checkpoint under
 `checkpoint_dir` (default: the config's `train_logdir`; the model alone,
-whatever optimizer wrote it), from an in-memory `TrainState` (the training
-loop's `--eval_every`), or from JAX variables through the bridge (parity
-tests).
+whatever optimizer wrote it; one of the port's checkpoints or one of the
+JAX package's Orbax checkpoints, `checkpoint.model_state`), from an
+in-memory `TrainState` (the training loop's `--eval_every`), or from JAX
+variables through the bridge (parity tests).
 
 Every batch is padded on the host to one size, `batch_size`, so the convs
 and both kernels see one shape and each kernel launches once a batch; the
@@ -188,8 +189,8 @@ def main(argv=None):
                                             "(PyTorch + CUDA)")
     add_flags(p)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="directory of the port's checkpoints (default: "
-                        "--train_logdir)")
+                   help="directory of the port's or the JAX package's "
+                        "Orbax checkpoints (default: --train_logdir)")
     p.add_argument("--per_class", action="store_true")
     p.add_argument("--fold_bn", action="store_true",
                    help="fold BatchNorm into conv kernels (exact)")
@@ -206,7 +207,7 @@ def main(argv=None):
         result = evaluate(config, checkpoint_dir=args.checkpoint_dir,
                           per_class=args.per_class, fold_bn=args.fold_bn,
                           device=args.device)
-    except (NotImplementedError, FileNotFoundError) as e:
+    except (NotImplementedError, FileNotFoundError, ImportError) as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.eval: {e}") from e
     log(f"top-1 accuracy {result['accuracy']:.4f} "
         f"({result['correct']}/{result['count']})")

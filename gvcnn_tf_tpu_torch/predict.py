@@ -139,8 +139,8 @@ def main(argv=None):
                                             "(PyTorch + CUDA)")
     add_flags(p)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="directory of the port's checkpoints (default: "
-                        "--train_logdir)")
+                   help="directory of the port's or the JAX package's "
+                        "Orbax checkpoints (default: --train_logdir)")
     p.add_argument("--view_dir", default=None,
                    help="dir of V view images, or dir of per-shape dirs")
     p.add_argument("--mesh_file", action="append", default=None,

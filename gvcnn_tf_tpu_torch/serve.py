@@ -23,12 +23,12 @@ single-view classifier; V = 1 for it).  On the card the backbone and the
 scoring FCN run in the config's `compute_dtype`, the Inception-v1 stem and
 the grouping head through their CUDA kernels.
 
-Weights: the newest of the port's own checkpoints under `--checkpoint_dir`
+Weights: the newest checkpoint under `--checkpoint_dir`
 (`checkpoint.load_model`: the model alone, whatever optimizer wrote it),
-seeded random weights (`--seed`), or JAX variables handed over as numpy
-arrays through `bridge.py`.  The JAX package's Orbax checkpoints need JAX
-to read: a directory of them is refused until the port has its Orbax
-reader.
+either one of the port's own or one of the JAX package's Orbax checkpoints
+(read with tensorstore, without JAX: `checkpoint.read_orbax`), seeded
+random weights (`--seed`), or JAX variables handed over as numpy arrays
+through `bridge.py`.
 
 CLI:
     python -m gvcnn_tf_tpu_torch.serve --config mn40_12view --port 8390
@@ -302,7 +302,8 @@ def main(argv=None):
                                             "server (PyTorch + CUDA)")
     add_flags(p)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="directory of the port's checkpoints (the newest is "
+                   help="directory of the port's or the JAX package's Orbax "
+                        "checkpoints (the newest is "
                         "served); default: seeded weights")
     p.add_argument("--port", type=int, default=8390)
     p.add_argument("--serve_batch_size", type=int, default=8)
@@ -325,7 +326,8 @@ def main(argv=None):
                      if args.serve_buckets else None),
             device=args.device,
         )
-    except (RuntimeError, NotImplementedError, FileNotFoundError) as e:
+    except (RuntimeError, NotImplementedError, FileNotFoundError,
+            ImportError) as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.serve: {e}") from e
 
 

@@ -10,25 +10,31 @@ slim's L2 term, 0.5 * weight_decay * sum(||kernel||^2) over every conv and
 weight_decay * w, is added to the kernels' gradients directly instead of
 through autograd (the same sum, without ~250 small ops a step).
 
-`train(config)` is the training loop: the synthetic or procedural stream
-through a pinned, one-batch-ahead host-to-device prefetcher (uint8 views
-are normalized on the device), a JSON metrics line every `log_every`
-steps, a checkpoint (`checkpoint.py`) every `checkpoint_every` steps and at
-the end, with `eval_every` the validation split scored every that many
-steps (`eval.evaluate` on the training model, put back in train mode
-after), a final save on SIGTERM, and resume from the latest checkpoint in
-`train_logdir`.  A checkpoint also holds the data stream's
-generator state, so a resumed run continues the stream where it stopped
-(the JAX package restarts the stream from its seed), and the run's config
-(`run_identity`): a run refuses to resume from a checkpoint whose config
-differs in more than its length, cadence and directory.  Dropout masks
-come from a `torch.Generator` on the model's device, reseeded from
+`train(config)` is the training loop: an optional warm start from
+`checkpoint_path` (`checkpoint.warm_start_model`: an Orbax directory of the
+JAX package, one of the port's training runs, or the slim importer's
+output, without `checkpoint_exclude_scopes`), then the synthetic or
+procedural stream through a pinned, one-batch-ahead host-to-device
+prefetcher (uint8 views are normalized on the device), a JSON metrics line
+every `log_every` steps, a checkpoint (`checkpoint.py`) every
+`checkpoint_every` steps and at the end, with `eval_every` the validation
+split scored every that many steps (`eval.evaluate` on the training model,
+put back in train mode after), a final save on SIGTERM, and resume from the
+latest checkpoint in `train_logdir`.  A checkpoint also holds the data
+stream's generator state, so a resumed run continues the stream where it
+stopped (the JAX package restarts the stream from its seed), and the run's
+config (`run_identity`): a run refuses to resume from a checkpoint whose
+config differs in more than its length, cadence and directory.  Dropout
+masks come from a `torch.Generator` on the model's device, reseeded from
 (`train.seed`, step, microbatch) every step, so they need no saved state.
 
 CLI (`--train_logdir` is required):
     python -m gvcnn_tf_tpu_torch.train --config mn40_12view \
         --how_many_training_steps 100 --train_logdir runs/mn40
         # on the card (--device cuda)
+    python -m gvcnn_tf_tpu_torch.train --config mn40_12view \
+        --checkpoint_path ckpts/imagenet_v1 --train_logdir runs/mn40_ft
+        # warm start; --checkpoint_exclude_scopes Logits,GroupingModule
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch import metrics as metrics_lib
-from gvcnn_tf_tpu_torch.checkpoint import Checkpointer
+from gvcnn_tf_tpu_torch.checkpoint import Checkpointer, warm_start_model
 from gvcnn_tf_tpu_torch.configs import (
     GVCNNConfig,
     TrainConfig,
@@ -337,12 +343,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 
 def _refuse_unported(config: GVCNNConfig, profile_steps):
-    tc = config.train
-    if tc.checkpoint_path:
-        raise NotImplementedError(
-            "--checkpoint_path: warm start from converted ImageNet weights "
-            "is not ported yet (ROADMAP §1 item 14, warm start)")
-    if config.bn_sync == "local" or (config.num_devices or 1) > 1:
+    # bn_sync "local" on one device is the "global" step, as in the JAX
+    # package, whose local path needs a mesh of more than one device.
+    if (config.num_devices or 1) > 1:
         raise NotImplementedError(
             f"multi-GPU training (num_devices={config.num_devices}, "
             f"bn_sync={config.bn_sync!r}) is not ported yet (ROADMAP §1 "
@@ -415,6 +418,15 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
         writer = metrics_lib.MetricWriter(tc.train_logdir)
 
     state = create_train_state(config, dev)
+    if tc.checkpoint_path:
+        # Warm start (slim's assign_from_checkpoint_fn with
+        # checkpoint_exclude_scopes): parameters and BatchNorm statistics
+        # of the included scopes; the excluded ones (a pretrained head of
+        # another size) are not read.  A checkpoint in train_logdir, read
+        # next, wins over it, as in the JAX package.
+        warm_start_model(state.model, tc.checkpoint_path,
+                         tc.checkpoint_exclude_scopes)
+        metrics_lib.log(f"warm-started from {tc.checkpoint_path}")
     identity = run_identity(config)
     ckpt = Checkpointer(tc.train_logdir) if tc.checkpoint_every > 0 else None
     data_state = None
@@ -525,7 +537,7 @@ def main(argv=None):
         raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
     try:
         train(config, device=args.device)
-    except NotImplementedError as e:
+    except (NotImplementedError, FileNotFoundError, ImportError) as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
 
 

@@ -1,8 +1,9 @@
 """The weight bridge, the config copy and the port's import hygiene.
 
 JAX init -> numpy -> port state_dict -> numpy round-trips exactly; the
-port's configs and flags equal the JAX package's; importing the port never
-imports JAX or the JAX package.
+port's configs and flags equal the JAX package's; importing the port, and
+reading an Orbax checkpoint with it, never imports JAX, Orbax or the JAX
+package.
 """
 
 import argparse
@@ -126,14 +127,27 @@ def test_config_from_flags_equal_jax(argv):
     assert parse(port_configs) == parse(jax_configs)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """Importing the port, and reading an Orbax checkpoint of the JAX
+    package with it, imports neither JAX, Orbax nor the JAX package."""
+    import orbax.checkpoint as ocp
+
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(str(tmp_path / "orbax"), {
+            "params": {"Logits": {"kernel": np.ones((4, 2), np.float32)}},
+            "batch_stats": {"A": {"mean": np.zeros(3, np.float32)}}})
     code = ("import sys, gvcnn_tf_tpu_torch, gvcnn_tf_tpu_torch.serve, "
             "gvcnn_tf_tpu_torch.train, gvcnn_tf_tpu_torch.checkpoint, "
             "gvcnn_tf_tpu_torch.data, gvcnn_tf_tpu_torch.eval, "
             "gvcnn_tf_tpu_torch.predict, gvcnn_tf_tpu_torch.data.procedural, "
             "gvcnn_tf_tpu_torch.tools.render_meshes, "
-            "gvcnn_tf_tpu_torch.tools.make_demo_meshes; "
+            "gvcnn_tf_tpu_torch.tools.make_demo_meshes, "
+            "gvcnn_tf_tpu_torch.tools.import_slim_checkpoint; "
+            "from gvcnn_tf_tpu_torch.checkpoint import read_orbax; "
+            f"t = read_orbax({str(tmp_path / 'orbax')!r}); "
+            "assert t['params']['Logits']['kernel'].sum() == 8, t; "
             "assert 'jax' not in sys.modules, 'jax'; "
+            "assert 'orbax' not in sys.modules, 'orbax'; "
             "assert 'gvcnn_tf_tpu' not in sys.modules, 'gvcnn_tf_tpu'")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -13,7 +13,10 @@ in both packages alike).  The same weights go back to JAX through the
 bridge.  Every backbone endpoint, the scores, the exact group scheme, the
 weights, the shape descriptor and the logits are compared, unfolded and
 BN-folded.  Tolerance rtol 1e-4 / atol 1e-4: fp32 through ~60 conv layers,
-summed in another order by XLA:CPU and oneDNN.
+summed in another order by XLA:CPU and oneDNN.  The whole forward also runs
+for every score_squash x group_weight on a cut model
+(`test_whole_model_matches_jax_for_each_score_mode`, bounds in its
+docstring).
 """
 
 import dataclasses
@@ -209,3 +212,59 @@ def test_bn_training_mode_raises():
     model.eval()
     with torch.no_grad():
         torch.testing.assert_close(model(x)[0], model(x)[0])  # no dropout
+
+
+# Score logit (scale, bias) settings tried in turn until every squashed
+# score is clear of the bucket edges j/8 (softmax over views ignores the
+# bias; the scale spreads the scores over the groups).
+_SCORE_SETTINGS = [(s, b) for s in (4.0, 1.0, 12.0, 0.5)
+                   for b in (0.0, 0.37, -0.61, 1.3, -1.7)]
+
+
+@pytest.mark.parametrize("weight", ["mean", "ceil_sum"])
+@pytest.mark.parametrize("squash", ["softmax", "sigmoid", "sigmoid_log"])
+def test_whole_model_matches_jax_for_each_score_mode(squash, weight):
+    """The whole GVCNN forward, port against JAX, for every score_squash x
+    group_weight, on mn40_12view cut to Mixed_3b (scoring FCN on
+    Conv2d_2c_3x3), 32x32, 4 views, B = 2, fp32, calibrated BN: logits
+    within 1e-5 of max|logit|, the group scheme exact.  The score logit is
+    scaled and shifted (a fixed list of settings, the first that clears
+    every edge by 1e-4) so the views spread over several groups."""
+    def cut(mod):
+        cfg = mod.get_config("mn40_12view")
+        return cfg.replace(
+            compute_dtype="float32", score_squash=squash,
+            group_weight=weight, raw_endpoint="Conv2d_2c_3x3",
+            final_endpoint="Mixed_3b", data=dataclasses.replace(
+                cfg.data, height=32, width=32, num_views=4))
+
+    rs = np.random.RandomState(11)
+    x = rs.uniform(-1, 1, (2, 4, 32, 32, 3)).astype(np.float32)
+    jmodel, init = init_model(cut(jax_configs), jax.random.key(SEED),
+                              x.shape)
+    port = build_model(cut(port_configs)).eval()
+    port.load_state_dict(jax_to_state_dict(jax.device_get(init)))
+    _calibrate_bn(port, torch.from_numpy(x), rs)
+    logit = port.GroupingModule.Conv2d_score_logit
+    w0 = logit.weight.detach().clone()
+    for scale, bias in _SCORE_SETTINGS:
+        with torch.no_grad():
+            logit.weight.copy_(w0 * scale)
+            logit.bias.fill_(bias)
+            _, ep = port(torch.from_numpy(x))
+        scores = ep["view_discrimination_scores"].numpy()
+        if _interior_edge_gap(scores, 8) > 1e-4:
+            break
+    else:
+        raise AssertionError("no setting keeps the scores off the edges")
+    assert (ep["group_scheme"].sum(-1) > 0).sum(-1).max() > 1  # spread
+    _, jep = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        state_dict_to_jax(port.state_dict()), x)
+    jep = jax.device_get(jep)
+    np.testing.assert_array_equal(ep["group_scheme"].numpy(),
+                                  jep["group_scheme"])
+    want = jep["Logits"]
+    assert np.abs(ep["Logits"].numpy() - want).max() <= (
+        1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(ep["group_weight"].numpy(),
+                               jep["group_weight"], rtol=1e-5, atol=1e-6)

@@ -215,12 +215,13 @@ def test_engine_serves_a_train_checkpoint(tmp_path):
 
 
 def test_checkpoint_dir_is_refused(tmp_path):
-    """A directory of the JAX package's Orbax checkpoints (one directory
-    per step) is refused with its ROADMAP item; so is a missing one."""
+    """A directory of Orbax step directories without Orbax's `_METADATA`
+    (not a finished Orbax checkpoint) is refused, saying so; so is a
+    missing one."""
     (tmp_path / "12" / "default").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Orbax.*item 1"):
+    with pytest.raises(FileNotFoundError, match="no Orbax _METADATA"):
         InferenceEngine(_config(port_configs), str(tmp_path), device="cpu")
-    with pytest.raises(SystemExit, match="Orbax"):
+    with pytest.raises(SystemExit, match="no Orbax _METADATA"):
         port_serve.main(["--checkpoint_dir", str(tmp_path),
                          "--device", "cpu", "--port", "0"])
     with pytest.raises(SystemExit, match="no checkpoint directory"):

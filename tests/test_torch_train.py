@@ -22,7 +22,8 @@ JAX package's, on the CPU.
   rounding noise only and is held by atol.)
 - A run interrupted by a checkpoint and resumed equals an uninterrupted
   one bit for bit (dropout on, synthetic stream); SIGTERM saves and stops;
-  the CLI refuses what is not ported and exits non-zero without a card.
+  `bn_sync="local"` on one device trains as "global" does; the CLI refuses
+  what is not ported and exits non-zero without a card.
 """
 
 import dataclasses
@@ -345,9 +346,8 @@ def test_sigterm_saves_and_stops(tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(train=dict(checkpoint_path="/x")), "item 14"),
     (dict(data=dict(loader="decoded")), "item 7"),
-    (dict(bn_sync="local"), "item 10"),
+    (dict(bn_sync="local", num_devices=2), "item 10"),
     (dict(num_devices=2), "item 10"),
     (dict(data=dict(loader="tfrecord")), "item 7"),
     (dict(data=dict(device_resident="on")), "item 15"),
@@ -360,6 +360,21 @@ def test_train_refuses_what_is_not_ported(tmp_path, change, item):
                                                **change[part])
     with pytest.raises(NotImplementedError, match=item):
         port_train.train(cfg.replace(**change), num_steps=1, device="cpu")
+
+
+def test_bn_sync_local_on_one_device_is_the_global_step(tmp_path):
+    """`--bn_sync local` on one device: the JAX package takes its local
+    path only on a mesh of more than one device, so the step is the
+    `global` one, bit for bit (dropout on)."""
+    states = []
+    for mode in ("global", "local"):
+        cfg = _loop_cfg(tmp_path / mode).replace(bn_sync=mode)
+        states.append(port_train.train(cfg, num_steps=2, device="cpu"))
+    (a, mets_a), (b, mets_b) = states
+    assert mets_a == mets_b and a.step == b.step == 2
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k in sa:
+        torch.testing.assert_close(sb[k], sa[k], rtol=0, atol=0, msg=k)
 
 
 def test_train_refuses_profile_steps(tmp_path):
