@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving, training, evaluation and
-prediction paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, evaluation,
+prediction and data-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -79,7 +79,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    step (loss, grad_norm, the Logits gradient's cosine), each held to a
    bound set beforehand from `measure.py serve-drift` / `train-drift` on
    the CPU; and one B = 1 forward through GVCNN on Inception-v2 and v3
-   (`--backbone`), card against CPU.
+   (`--backbone`) from seeded weights with BatchNorm statistics calibrated
+   to the request's views, card against CPU.
 11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
    made from a seed (1001-class head) written by the port's importer, then
    `train()` of mn40_12view at full width with `checkpoint_path` and the
@@ -90,6 +91,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    times; then a Flax-layout tree (what `read_orbax` returns) of seeded
    weights served at B = 8 through `model_state` -> `load_model`, card
    against CPU within the serving bounds.
+12. Data parallelism (`phase_parallel`), mn40_12view_dp8's model at its
+   per-card batch (B = 8 a rank), full width, bf16, dropout 0.8.  (a) A
+   world of one rank over NCCL on cuda:0: DP_STEPS steps through the
+   data-parallel step (the gradient, loss and accuracy all-reduce) equal
+   the plain step's bit for bit (same seed and batches, cuDNN
+   deterministic), one launch of each bf16 kernel a step, and both steps'
+   times.  (b) A world of 2 ranks over gloo sharing the one card (NCCL
+   refuses two ranks on one GPU; each rank names cuda:0), spawned with a
+   timeout: the global-mode step against one process's step on the B = 16
+   batch (loss, grad_norm, the Logits gradient's cosine, within
+   DP_GLOBAL_TOL); the local-mode step on a tiled batch against one
+   process on one tile, max|dparam| 0 (cuDNN deterministic); the replicas
+   bitwise equal after DP_STEPS steps (an all-reduced checksum); the
+   procedural split's evaluation over 2 ranks equal to one process's; each
+   kernel launched once a step on each rank; each rank's step time (CUDA
+   events) and the gradient all-reduce's (host clock).  A world of 2 on one
+   card over gloo: none of these times measures scaling across cards.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -191,10 +209,15 @@ FAMILY_LAUNCHES = {"mn40_12view_resnet50": (0, 0, 1),
 # loss 2.76e-4, grad_norm 9.46e-3, Logits cosine 0.99997; bounds with 5x
 # room or more for the unemulated backward.
 SINGLE_VIEW_TRAIN_TOL = (2e-3, 5e-2, 0.999)
-# GVCNN on Inception-v2 and v3 (`--backbone`), B = 1: worst `serve-drift`
-# readings v2 7.39e-3 / 9.80e-5, v3 6.63e-3 / 4.53e-6.
-FAMILY_BACKBONE_TOL = {"inception_v2": (3e-2, 5e-4),
-                       "inception_v3": (3e-2, 1e-4)}
+# GVCNN on Inception-v2 and v3 (`--backbone`), B = 1, BatchNorm statistics
+# calibrated to the request's views (`measure.calibrate_bn`; with init
+# statistics max|logit| read 1.6e5 on v2 and 9e-4 on v3, so the checks
+# exercised little of the network).  Worst `serve-drift --calibrate
+# --size 224` readings (seeds 0-2, the card's size): v2 2.66e-2 / 8.83e-5,
+# v3 3.30e-2 / 7.55e-5 (at 96x96: v2 4.27e-2 / 2.00e-4, v3 9.63e-2 /
+# 2.22e-4).  Bounds with 3x room over the 224x224 readings.
+FAMILY_BACKBONE_TOL = {"inception_v2": (8e-2, 3e-4),
+                       "inception_v3": (1e-1, 3e-4)}
 # Serving, card vs CPU: (max|dlogit| / max|logit|, max|dscore|), set from
 # `measure.py serve-drift` (the compute dtype against fp32 on the CPU, 96x96,
 # B = 2, seeds 0-2; fp32 configs against TF32-rounded conv inputs).  Worst
@@ -217,6 +240,25 @@ FAMILY_TRAIN_TOL = {"mn40_12view_resnet50": (0.15, 0.15, 0.91),
                     "mn40_12view_inception_v4": (0.25, 0.15, 0.67),
                     "mn40_12view_mvcnn": (0.075, 0.075, 0.97),
                     "mn10_single_view": SINGLE_VIEW_TRAIN_TOL}
+
+
+# Phase 12: data parallelism at mn40_12view_dp8's per-card batch (64 over 8
+# cards), full width.  DP_STEPS steps a world; the 2-rank evaluation scores
+# DP_EVAL_SHAPES procedural val shapes.  Every collective of a rank times
+# out after DP_GROUP_TIMEOUT s and the spawned world is killed after
+# DP_TIMEOUT s.
+DP_RANK_BATCH, DP_STEPS, DP_EVAL_SHAPES = 8, 3, 20
+DP_GROUP_TIMEOUT, DP_TIMEOUT = 120, 300
+# Global mode, 2 ranks x B=8 over gloo against one process at B=16, both
+# bf16 on the card: (loss rel, grad_norm rel, Logits gradient cosine).
+# `measure.py dp-drift` (the same comparison in bf16 on the CPU, 64x64, 4
+# views, 2 x B=2 against B=4, seeds 0-2) read at worst 6.79e-3, 1.82e-2,
+# 0.99799: the BatchNorm statistics rounded another way (Flax's fast
+# variance over the ranks, PyTorch's Welford pass in one process) and convs
+# at another batch size perturb bf16 activations by an ulp, and that grows
+# through the network as any bf16 rounding does.  Bounds with 3x room or
+# more.
+DP_GLOBAL_TOL = (2.5e-2, 6e-2, 0.99)
 
 
 def log(msg):
@@ -1206,17 +1248,23 @@ def _zero_counts():
     group_and_fuse.launches = 0
 
 
-def _card_vs_cpu_serving(engine, cfg, views, tol, what):
-    """The engine's logits (and scores) for `views` against the same seeded,
-    folded weights in fp32 on the CPU -> (max|dlogit| / max|logit|, the
-    kernels' launch counts right after the engine's forward)."""
+def _card_vs_cpu_serving(engine, cfg, views, tol, what, variables=None):
+    """The engine's logits (and scores) for `views` against the same
+    weights (seeded, or the JAX-layout `variables` the engine was given),
+    folded, in fp32 on the CPU -> (max|dlogit| / max|logit|, the kernels'
+    launch counts right after the engine's forward)."""
+    from gvcnn_tf_tpu_torch.bridge import jax_to_state_dict
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
     from gvcnn_tf_tpu_torch.utils import fold_batch_norm
 
     logits, scores = engine.logits_and_scores(views)
     launches = _counts()
-    ref = fold_batch_norm(init_weights(build_model(
-        cfg.replace(compute_dtype="float32")), cfg.train.seed)).eval()
+    ref = build_model(cfg.replace(compute_dtype="float32"))
+    if variables is None:
+        init_weights(ref, cfg.train.seed)
+    else:
+        ref.load_state_dict(jax_to_state_dict(variables))
+    ref = fold_batch_norm(ref).eval()
     with torch.inference_mode():
         ref_logits, ep = ref(torch.from_numpy(views))
     ref_logits = ref_logits.numpy()
@@ -1243,6 +1291,19 @@ def _card_vs_cpu_serving(engine, cfg, views, tol, what):
             raise AssertionError(f"{msg}: scores disagree")
     log(msg)
     return dlogit / scale, launches
+
+
+def _calibrated_variables(cfg, views):
+    """JAX-layout variables of cfg's seeded fp32 model with its BatchNorm
+    statistics calibrated to `views` (`measure.calibrate_bn`)."""
+    from gvcnn_tf_tpu_torch.bridge import state_dict_to_jax
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.tools.measure import calibrate_bn
+
+    model = init_weights(build_model(cfg.replace(compute_dtype="float32")),
+                         cfg.train.seed)
+    calibrate_bn(model, torch.from_numpy(views))
+    return state_dict_to_jax(model.state_dict())
 
 
 def phase_families(card, dev):
@@ -1338,18 +1399,22 @@ def phase_families(card, dev):
                                  "disagree")
         rows[name] = row
 
-    # Inception-v2 and v3 through --backbone: one B = 1 forward each.
+    # Inception-v2 and v3 through --backbone: one B = 1 forward each, from
+    # seeded weights whose BatchNorm statistics are calibrated to the views
+    # (with init statistics the logits reach 1e5 on v2 and 1e-3 on v3).
     for backbone in FAMILY_BACKBONE_TOL:
         cfg = get_config("mn40_12view").replace(backbone=backbone)
-        engine = InferenceEngine(cfg, serve_batch_size=1, device="cuda")
+        views = np.random.RandomState(14).uniform(
+            -1, 1, (1, cfg.data.num_views, 224, 224, 3)).astype(np.float32)
+        variables = _calibrated_variables(cfg, views)
+        engine = InferenceEngine(cfg, variables=variables,
+                                 serve_batch_size=1, device="cuda")
         try:
             _zero_counts()
-            views = np.random.RandomState(14).uniform(
-                -1, 1, (1, cfg.data.num_views, 224, 224, 3)).astype(
-                    np.float32)
             rel, launches = _card_vs_cpu_serving(
                 engine, cfg, views, FAMILY_BACKBONE_TOL[backbone],
-                f"mn40_12view --backbone {backbone}")
+                f"mn40_12view --backbone {backbone} (calibrated BN)",
+                variables)
             rows[backbone] = dict(logit_rel=rel, launches=launches)
             if launches != (0, 0, 1):
                 raise AssertionError(f"{backbone}: launches {launches}")
@@ -1535,6 +1600,284 @@ def phase_warm_start(card, dev):
                 serve_launches=serve_launches)
 
 
+def _state_checksum(state):
+    """sha256 of every parameter and statistic of `state`'s model, bit for
+    bit, as an int64."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def _dp_rank(init_method, out_dir):
+    """One of the 2 ranks of phase 12 (b): gloo, both ranks on cuda:0."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from gvcnn_tf_tpu_torch import evaluate, get_config
+    from gvcnn_tf_tpu_torch.parallel import (
+        initialize_distributed,
+        rank_rows,
+        shutdown,
+    )
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    world = initialize_distributed(
+        "gloo", datetime.timedelta(seconds=DP_GROUP_TIMEOUT),
+        device="cuda:0", init_method=init_method)
+    dev, main = world.device, world.is_main
+    dp8 = get_config("mn40_12view_dp8")
+    cfg = dp8.replace(num_devices=world.size, data=dataclasses.replace(
+        dp8.data, batch_size=world.size * DP_RANK_BATCH))
+    d = cfg.data
+    out = {"launches": [0, 0, 0], "steps": 0, "rank": world.rank}
+
+    def host_batch(rs, n):
+        return {"views": rs.uniform(-1, 1, (n, d.num_views, d.height,
+                                            d.width, 3)).astype(np.float32),
+                "label": rs.randint(0, d.num_classes, n)}
+
+    def on_card(batch):     # views in bf16, as the loader's wire sends them
+        return {"views": torch.from_numpy(batch["views"]).to(
+                    dev, torch.bfloat16),
+                "label": torch.from_numpy(batch["label"]).to(dev)}
+
+    def dp_step(state, batch, c):
+        """The path: one data-parallel step, its launches counted."""
+        _zero_counts()
+        mets = train_step(state, batch, c)
+        torch.cuda.synchronize()
+        out["launches"] = [a + b for a, b in zip(out["launches"],
+                                                 _counts())]
+        out["steps"] += 1
+        return {k: float(v) for k, v in mets.items()}
+
+    # 1. Global mode (dropout on) against one process on the whole batch.
+    g = host_batch(np.random.RandomState(30), d.batch_size)
+    state = create_train_state(cfg, world=world)
+    out["global"] = dp_step(state, on_card(rank_rows(g, world)), cfg)
+    grad = state.model.Logits.weight.grad.float()
+    if main:
+        ref = create_train_state(cfg, dev)
+        want = train_step(ref, on_card(g), cfg)
+        ref_grad = ref.model.Logits.weight.grad.float()
+        out["global_ref"] = {k: float(v) for k, v in want.items()}
+        out["global_cos"] = float((grad * ref_grad).sum()
+                                  / (grad.norm() * ref_grad.norm()))
+        del ref
+    del state
+
+    # 2. Local mode on a tiled batch (every rank the same rows, dropout
+    # off, cuDNN deterministic) against one process on one tile.
+    torch.backends.cudnn.deterministic = True
+    lcfg = cfg.replace(bn_sync="local", dropout_keep_prob=1.0)
+    tile = on_card(host_batch(np.random.RandomState(31), DP_RANK_BATCH))
+    state = create_train_state(lcfg, world=world)
+    out["local"] = dp_step(state, tile, lcfg)
+    if main:
+        ref = create_train_state(lcfg, dev)
+        out["local_ref"] = {k: float(v) for k, v in
+                            train_step(ref, tile, lcfg).items()}
+        a, b = state.model.state_dict(), ref.model.state_dict()
+        out["local_max_abs_diff"] = max(float((a[k].float() - b[k].float())
+                                              .abs().max()) for k in a)
+        del ref
+    del state
+    torch.backends.cudnn.deterministic = False
+
+    # 3. Replicas: DP_STEPS global-mode steps, each timed by CUDA events;
+    # then the gradient all-reduce alone (host clock, synchronized).
+    state = create_train_state(cfg, world=world)
+    times = []
+    for i in range(DP_STEPS):
+        batch = on_card(rank_rows(host_batch(
+            np.random.RandomState(40 + i), d.batch_size), world))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out["replica_mets"] = dp_step(state, batch, cfg)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["step_ms"] = times
+    check = torch.tensor([_state_checksum(state)] * 2, dtype=torch.int64)
+    check[1].neg_()
+    dist.all_reduce(check, op=dist.ReduceOp.MAX, group=world.host_group)
+    out["replicas_equal"] = bool(check[0] == -check[1])
+    flat = torch.zeros(sum(p.numel() for p in state.optimizer.params),
+                       device=dev)
+    ar = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=world.group)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = statistics.median(ar[1:])
+    out["allreduce_mb"] = flat.numel() * 4 / 1e6
+
+    # 4. Evaluation of the procedural split over the 2 ranks, and (rank 0)
+    # over one process at the rank's batch.
+    ecfg = cfg.replace(data=dataclasses.replace(
+        d, dataset="procedural", transfer_dtype="uint8",
+        synthetic_num_shapes=DP_EVAL_SHAPES))
+    out["eval"] = evaluate(ecfg, state=state, per_class=True, world=world)
+    if main:
+        out["eval_alone"] = evaluate(ecfg.replace(
+            num_devices=None, data=dataclasses.replace(
+                ecfg.data, batch_size=DP_RANK_BATCH)),
+            state=state, per_class=True)
+    dist.all_reduce(torch.zeros(1), group=world.host_group)
+    torch.save(out, f"{out_dir}/rank{world.rank}.pt")
+    shutdown(world)
+
+
+def phase_parallel(card, dev):
+    """Phase 12: (a) a world of one rank over NCCL against the plain step,
+    (b) a world of 2 ranks over gloo sharing the one card."""
+    import dataclasses
+    import datetime
+    import shutil
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.parallel import (
+        initialize_distributed,
+        shutdown,
+        spawn,
+    )
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, train_batch
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    dp8 = get_config("mn40_12view_dp8")
+    cfg = dp8.replace(num_devices=1, data=dataclasses.replace(
+        dp8.data, batch_size=DP_RANK_BATCH))
+    views = DP_RANK_BATCH * cfg.data.num_views
+
+    # (a) The same seed and batches through the plain step and through the
+    # data-parallel step in a world of one over NCCL; cuDNN deterministic.
+    batches = [train_batch(cfg, np.random.RandomState(20 + i), dev)
+               for i in range(DP_STEPS)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = create_train_state(cfg, dev)
+        want = [train_step(plain, b, cfg) for b in batches]
+        world = initialize_distributed(
+            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT),
+            device=dev, init_method=f"file://{root}/rendezvous_1", rank=0,
+            world_size=1)
+        try:
+            if (world.backend, world.size) != ("nccl", 1):
+                raise AssertionError(f"world {world}")
+            dp = create_train_state(cfg, world=world)
+            _zero_counts()
+            got = [train_step(dp, b, cfg) for b in batches]
+            torch.cuda.synchronize()
+            launches = _counts()
+            same = all(torch.equal(g[k], w[k]) for g, w in zip(got, want)
+                       for k in w)
+            a, b = plain.model.state_dict(), dp.model.state_dict()
+            same_state = all(torch.equal(a[k], b[k]) for k in a)
+            step_ms = cuda_ms(lambda: train_step(dp, batches[0], cfg),
+                              runs=5, warmup=1)
+            plain_ms = cuda_ms(lambda: train_step(plain, batches[0], cfg),
+                               runs=5, warmup=1)
+        finally:
+            shutdown(world)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 12 (a) world of 1 over NCCL, mn40_12view_dp8's model at "
+        f"B={DP_RANK_BATCH} a rank: {DP_STEPS} steps equal the plain step's "
+        f"bit for bit: metrics {same}, every parameter and statistic "
+        f"{same_state}; launches (bf16 stem, fp32 stem, grouping) "
+        f"{launches}; step {step_ms:.3f} ms (plain {plain_ms:.3f} ms, CUDA "
+        f"events, median of 5) [{card}]")
+    if not (same and same_state):
+        raise AssertionError("world of one: the data-parallel step is not "
+                             "the plain step")
+    if launches != (DP_STEPS, 0, DP_STEPS):
+        raise AssertionError(f"world of one: launches {launches}")
+    del plain, dp, batches
+
+    # (b) 2 ranks over gloo on the one card (NCCL refuses two ranks on one
+    # GPU), each with its device named.
+    t0 = time.perf_counter()
+    spawn(_dp_rank, 2, args=(str(root),), timeout=DP_TIMEOUT,
+          rendezvous_dir=str(root))
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    world2_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    got, ref = r0["global"], r0["global_ref"]
+    loss_rel = abs(got["loss"] - ref["loss"]) / ref["loss"]
+    gnorm_rel = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    log(f"phase 12 (b) world of 2 over gloo on one card, B={DP_RANK_BATCH} a "
+        f"rank, full width (ran {world2_s:.1f} s with start-up): global mode "
+        f"vs one process at B={2 * DP_RANK_BATCH}: loss {got['loss']:.6g} vs "
+        f"{ref['loss']:.6g} (rel {loss_rel:.3g}, bound {DP_GLOBAL_TOL[0]}), "
+        f"grad_norm {got['grad_norm']:.6g} vs {ref['grad_norm']:.6g} (rel "
+        f"{gnorm_rel:.3g}, bound {DP_GLOBAL_TOL[1]}), Logits gradient "
+        f"cosine {r0['global_cos']:.6f} (bound {DP_GLOBAL_TOL[2]})")
+    if not (np.isfinite(got["loss"]) and loss_rel <= DP_GLOBAL_TOL[0]
+            and gnorm_rel <= DP_GLOBAL_TOL[1]
+            and r0["global_cos"] >= DP_GLOBAL_TOL[2]):
+        raise AssertionError("global mode disagrees with one process")
+    log(f"  local mode, tiled batch vs one process on one tile (cuDNN "
+        f"deterministic): max|dparam| {r0['local_max_abs_diff']:.3g}, loss "
+        f"{r0['local']['loss']:.6g} vs {r0['local_ref']['loss']:.6g}")
+    if r0["local_max_abs_diff"] != 0 or r0["local"] != r0["local_ref"]:
+        raise AssertionError("local mode on a tiled batch is not one process "
+                             "on one tile")
+    if not all(r["replicas_equal"] for r in ranks) \
+            or ranks[0]["replica_mets"] != ranks[1]["replica_mets"]:
+        raise AssertionError("the replicas differ after "
+                             f"{DP_STEPS} steps")
+    ev, alone = r0["eval"], r0["eval_alone"]
+    log(f"  replicas bitwise equal after {DP_STEPS} steps (all-reduced "
+        f"checksum); evaluation of {DP_EVAL_SHAPES} procedural shapes over 2 "
+        f"ranks {ev['correct']}/{ev['count']}, over 1 "
+        f"{alone['correct']}/{alone['count']}")
+    if not (ev == alone == ranks[1]["eval"]
+            and ev["count"] == DP_EVAL_SHAPES):
+        raise AssertionError(f"evaluation over 2 ranks {ev}, over 1 {alone}")
+    per_step = []
+    for r in ranks:
+        per = [n / r["steps"] for n in r["launches"]]
+        per_step.append(per)
+        log(f"  rank {r['rank']}: launches a step (bf16 stem, fp32 stem, "
+            f"grouping) {per} over {r['steps']} steps; step "
+            f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms (CUDA "
+            f"events); gradient all-reduce of {r['allreduce_mb']:.1f} MB "
+            f"{r['allreduce_ms']:.2f} ms (host clock, synchronized) -- a "
+            f"world of 2 on one card over gloo: no figure here measures "
+            f"scaling [{card}]")
+        if per != [1.0, 0.0, 1.0]:
+            raise AssertionError(f"rank {r['rank']}: launches a step {per}")
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 12 in {seconds:.1f} s")
+    return dict(
+        world1=dict(launches=launches, step_ms=step_ms, plain_ms=plain_ms),
+        world2=dict(loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                    logits_grad_cosine=r0["global_cos"],
+                    local_max_abs_diff=r0["local_max_abs_diff"],
+                    step_ms=[r["step_ms"] for r in ranks],
+                    allreduce_ms=[r["allreduce_ms"] for r in ranks],
+                    allreduce_mb=r0["allreduce_mb"], eval=ev,
+                    launches_per_step=per_step, seconds=world2_s),
+        seconds=seconds)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -1591,6 +1934,9 @@ def main():
     log("phase 10 summary: " + json.dumps(fam))
     warm = phase_warm_start(card, dev)
     log("phase 11 summary: " + json.dumps(warm))
+    dp = phase_parallel(card, dev)
+    log("phase 12 summary: " + json.dumps(dp))
+    dp_per_step = dp["world2"]["launches_per_step"][0]
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/stem_conv.cu",
@@ -1601,6 +1947,8 @@ def main():
              launches_per_step=tr["per_step"]["stem"],
              eval_launches=ev["eval_launches"]["stem"],
              warm_start_launches=warm["launches"][0],
+             dp_launches_per_step=dp_per_step[0],
+             dp_world1_launches=dp["world1"]["launches"][0],
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -1611,6 +1959,8 @@ def main():
              launches_per_step=tr["per_step"]["grouping"],
              eval_launches=ev["eval_launches"]["grouping"],
              warm_start_launches=warm["launches"][2],
+             dp_launches_per_step=dp_per_step[2],
+             dp_world1_launches=dp["world1"]["launches"][2],
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}
@@ -1625,7 +1975,8 @@ def main():
              replaces="gvcnn_tf_tpu/ops/pallas_stem.py:93",
              launches=single["serve_launches"][1],
              launches_per_forward=FAMILY_LAUNCHES["mn10_single_view"][1],
-             launches_per_step=single["step_launches"][1], **stem32),
+             launches_per_step=single["step_launches"][1],
+             dp_launches_per_step=dp_per_step[1], **stem32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,10 +50,17 @@ def dataset_size(data_cfg: DataConfig) -> Optional[int]:
 
 
 def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
-                 num_epochs: Optional[int] = None
+                 num_epochs: Optional[int] = None, shard_index: int = 0,
+                 num_shards: int = 1
                  ) -> Union[SyntheticStream, ProceduralStream]:
     """The split's stream for a config (`num_epochs` None: endless);
-    refuses what is not ported."""
+    refuses what is not ported.
+
+    `shard_index`/`num_shards`: data-parallel input sharding, as in the JAX
+    package: each rank streams a disjoint subset of the split (every
+    num_shards-th shape, its own shuffle) at its local batch size
+    (`data_cfg.batch_size` here is the rank's; `train` divides the global
+    batch by the world's size before calling)."""
     loader = _resolve_loader(data_cfg)
     if loader not in _PORTED:
         raise NotImplementedError(
@@ -75,7 +82,8 @@ def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
               num_views=data_cfg.num_views, height=data_cfg.height,
               width=data_cfg.width, batch_size=data_cfg.batch_size,
               num_shapes=data_cfg.synthetic_num_shapes, seed=seed,
-              train=train, num_epochs=num_epochs)
+              train=train, num_epochs=num_epochs, shard_index=shard_index,
+              num_shards=num_shards)
     if loader == "procedural":
         return ProceduralStream(hard=data_cfg.dataset == "procedural_hard",
                                 raw_uint8=uint8, **kw)

@@ -19,8 +19,15 @@ The forward runs under `torch.no_grad()`, not `inference_mode`: the
 kernels' caches (the stem's packed weight, BatchNorm's scale and shift)
 are kept on parameters that a training run goes on updating.
 
-The JAX package's multi-process evaluation waits for multi-GPU support
-(ROADMAP §1 item 10); `num_devices > 1` is refused.
+Over several data-parallel ranks (`world`, as the JAX package's
+multi-process evaluation does): each rank scores its own shard of the
+split (every world-size-th shape) at the global batch over the world's
+size, padded to that one shape, and the correct, total and per-class counts
+are summed over the ranks by one all-reduce at the end, so shards of
+unequal length cannot deadlock (no collective runs per batch); every rank
+returns the global result.  `num_devices` must be the world's size (None:
+any).  The CLI joins a launcher's world (torchrun's environment), or
+with `--num_devices k` and no launcher spawns k ranks on this host.
 
 CLI:
     python -m gvcnn_tf_tpu_torch.eval --config mn40_12view \
@@ -32,6 +39,8 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
+import sys
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -48,6 +57,15 @@ from gvcnn_tf_tpu_torch.configs import (
 from gvcnn_tf_tpu_torch.data import DevicePrefetcher, make_dataset
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.gvcnn import ViewModel, build_model
+from gvcnn_tf_tpu_torch.parallel import (
+    World,
+    check_num_devices,
+    initialize_distributed,
+    launch_env,
+    shutdown,
+    spawn,
+)
+from gvcnn_tf_tpu_torch.parallel.collectives import sum_counts
 from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
 
 # The model that checkpoints and JAX variables are loaded into, one per
@@ -112,17 +130,21 @@ def _to_host(t: torch.Tensor):
 
 def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
              dataset_iter=None, state=None, per_class: bool = False,
-             fold_bn: bool = False, device="cuda") -> dict:
+             fold_bn: bool = False, device="cuda",
+             world: Optional[World] = None) -> dict:
     """{'accuracy', 'correct', 'count'} (and 'per_class_accuracy', a list
     over classes, with `per_class`) over one pass of the validation split,
-    or of `dataset_iter` (host batches).  For `state` and `device` see
-    `scoring_model`."""
-    if (config.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"evaluation over {config.num_devices} devices is not ported yet "
-            "(ROADMAP §1 item 10, multi-GPU data parallelism)")
+    or of `dataset_iter` (host batches; with several ranks, this rank's).
+    For `state` and `device` see `scoring_model` (`world`'s device, where
+    one is given, wins over `device`); `world`: this rank of the
+    data-parallel world (None: one process)."""
+    world = world or World()
+    check_num_devices(config.num_devices, world)
+    if world.distributed:
+        device = world.device
     d = config.data
-    pad_to = d.batch_size
+    # The JAX package's rule for its processes' batch.
+    pad_to = max(d.batch_size // world.size, 1)
     meta = collections.deque()   # (n, labels[:n]) per batch produced
 
     def padded(batches):
@@ -158,8 +180,10 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
                        device) as model:
         dev = next(model.parameters()).device
         if dataset_iter is None:
-            dataset_iter = make_dataset(d, train=False,
-                                        seed=config.train.seed, num_epochs=1)
+            dataset_iter = make_dataset(
+                dataclasses.replace(d, batch_size=pad_to), train=False,
+                seed=config.train.seed, num_epochs=1,
+                shard_index=world.rank, num_shards=world.size)
         pending = None
         # Depth 0 means "prefetch off": one batch ahead is the unpipelined
         # loop.
@@ -176,6 +200,11 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
         if pending is not None:
             drain(pending)
 
+    # One all-reduce of every count, after the last batch.
+    totals = sum_counts(np.concatenate([[n_correct, n_total], cls_correct,
+                                        cls_total]), world)
+    n_correct, n_total = int(totals[0]), int(totals[1])
+    cls_correct, cls_total = np.split(totals[2:], 2)
     result = {"accuracy": n_correct / max(n_total, 1), "correct": n_correct,
               "count": n_total}
     if per_class:
@@ -184,7 +213,7 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
     return result
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(description="gvcnn_tf_tpu_torch evaluator "
                                             "(PyTorch + CUDA)")
     add_flags(p)
@@ -196,22 +225,57 @@ def main(argv=None):
                    help="fold BatchNorm into conv kernels (exact)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) raises when no card "
-                        "is present, it never falls back to the CPU")
+                        "is present, it never falls back to the CPU; with "
+                        "several ranks 'cuda' is each rank's own card")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="ranks that score the split, one per card (default: "
+                        "the config's); k > 1 without a launcher spawns k "
+                        "ranks on this host")
     args = p.parse_args(argv)
     config = config_from_flags(args)
+    if args.num_devices is not None:
+        config = config.replace(num_devices=args.num_devices)
+    return args, config
+
+
+def _run(args, config, init_method=None):
+    """One rank of the CLI's evaluation; rank 0 prints the result."""
     try:
-        resolve_device(args.device)
+        world = initialize_distributed(device=args.device,
+                                       init_method=init_method)
     except RuntimeError as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.eval: {e}") from e
     try:
         result = evaluate(config, checkpoint_dir=args.checkpoint_dir,
                           per_class=args.per_class, fold_bn=args.fold_bn,
-                          device=args.device)
-    except (NotImplementedError, FileNotFoundError, ImportError) as e:
+                          device=args.device, world=world)
+    except (NotImplementedError, FileNotFoundError, ImportError,
+            ValueError) as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.eval: {e}") from e
-    log(f"top-1 accuracy {result['accuracy']:.4f} "
-        f"({result['correct']}/{result['count']})")
-    print(result)
+    finally:
+        shutdown(world)
+    if world.is_main:
+        log(f"top-1 accuracy {result['accuracy']:.4f} "
+            f"({result['correct']}/{result['count']})")
+        print(result, flush=True)
+
+
+def _spawned_rank(init_method, argv):
+    _run(*_parse(argv), init_method)
+
+
+def main(argv=None):
+    args, config = _parse(argv)
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"gvcnn_tf_tpu_torch.eval: {e}") from e
+    k = config.num_devices or 1
+    if k > 1 and launch_env() is None:
+        spawn(_spawned_rank, k,
+              args=(list(sys.argv[1:] if argv is None else argv),))
+        return
+    _run(args, config)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 
 `MetricWriter` prints one JSON line per call, as the JAX package's does,
 and, given a logdir, appends the same line to `<logdir>/metrics.jsonl` (the
-port has no TensorBoard writer).  `StepTimer` is the JAX package's.
+port has no TensorBoard writer); `NullWriter` is the other ranks'.  `StepTimer` is the JAX package's.
 """
 
 from __future__ import annotations
@@ -39,6 +39,17 @@ class MetricWriter:
         if self._file is not None:
             self._file.close()
             self._file = None
+
+
+class NullWriter(MetricWriter):
+    """The writer of every rank but rank 0: the metrics are the world's,
+    so only one rank emits them."""
+
+    def __init__(self):
+        super().__init__(None)
+
+    def scalars(self, step: int, values: dict):
+        pass
 
 
 class StepTimer:

@@ -112,6 +112,7 @@ class BatchNorm(nn.Module):
             self.register_buffer("_unit", torch.ones(features),
                                  persistent=False)
         self._affine = None           # (key, (scale, shift)); scale_shift
+        self.sync_group = None        # process group of global statistics
 
     def _check_eval(self):
         if self.training:
@@ -123,16 +124,44 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.scale, self.bias, False, 0.0, self.eps)
+        if self.sync_group is not None:
+            return self._global_forward(x)
         gamma = self._unit if self.scale is None else self.scale
         y, mean, invstd = torch.native_batch_norm(
             x, gamma, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
             var = torch.clamp(invstd.square().reciprocal() - self.eps,
                               min=0.0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean * (1.0 - m))
-            self.running_var.mul_(m).add_(var * (1.0 - m))
+            self._update_ema(mean, var)
         return y
+
+    def _update_ema(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean * (1.0 - m))
+        self.running_var.mul_(m).add_(var * (1.0 - m))
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Imported here: the parallel package imports the utilities, which
+        # import this module.
+        from gvcnn_tf_tpu_torch.parallel.collectives import sum_across_ranks
+
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        stats = sum_across_ranks(local, self.sync_group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            mul = mul * self.scale
+        # Flax's order: (x - mean) * mul + bias.
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            self._update_ema(mean, var)
+        return y.to(x.dtype)
 
     def _params(self):
         return tuple(t for t in (self.scale, self.bias, self.running_mean,

@@ -27,6 +27,9 @@ slim's 0.9997), and dropout with keep probability
 `config.dropout_keep_prob` acts on the shape descriptor before `Logits`.
 Its mask comes from the `torch.Generator` the caller passes (the train step
 seeds one from `train.seed` and the step); it cannot match JAX's stream.
+Under data parallelism with `bn_sync="global"`, `sync_batch_norm_` makes
+every BatchNorm take its train-mode statistics over all ranks, and the
+caller's `dropout_rows` places the rank's rows in the global batch's mask.
 """
 
 from __future__ import annotations
@@ -56,9 +59,16 @@ def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Flax `nn.Dropout(rate=1 - keep_prob)` in train mode: keep each
-    element with probability keep_prob and scale it by 1 / keep_prob."""
+    element with probability keep_prob and scale it by 1 / keep_prob.
+
+    `rows` (start, total): x holds rows [start, start + len(x)) of a batch
+    of `total` rows spread over data-parallel ranks; the mask is drawn for
+    the whole batch and this slice kept, so the ranks together drop what
+    one process would on the whole batch (`bn_sync="global"`, as the JAX
+    package draws one mask over the global batch)."""
     if keep_prob >= 1.0:
         return x
     if keep_prob <= 0.0:
@@ -66,8 +76,10 @@ def dropout(x: torch.Tensor, keep_prob: float,
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator "
                          "(forward(x, generator=...))")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < keep_prob
+    start, total = rows or (0, x.shape[0])
+    keep = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device, dtype=torch.float32) < keep_prob
+    keep = keep[start:start + x.shape[0]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -149,9 +161,18 @@ class ViewModel(nn.Module):
         xf = x.reshape((B * V,) + tuple(x.shape[2:]))
         return xf.to(self.compute_dtype).contiguous(), B, V
 
-    def _logits(self, net, generator):
+    def sync_batch_norm_(self, group) -> "ViewModel":
+        """In place: every BatchNorm's train-mode statistics are summed over
+        the ranks of `group` (None: each rank's own batch)."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.sync_group = group
+        return self
+
+    def _logits(self, net, generator, dropout_rows=None):
         if self.training:
-            net = dropout(net, self.config.dropout_keep_prob, generator)
+            net = dropout(net, self.config.dropout_keep_prob, generator,
+                          dropout_rows)
         return self.Logits(net)
 
 
@@ -168,9 +189,10 @@ class GVCNN(ViewModel):
         self._set_bn_momentum()
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None):
         """x (B, V, H, W, 3) -> (logits, end_points); `generator` draws the
-        dropout mask in train mode."""
+        dropout mask in train mode (`dropout_rows`: see `dropout`)."""
         cfg = self.config
         xf, B, V = self._fold(x)
         feats, endpoints = self.backbone(xf)
@@ -182,7 +204,7 @@ class GVCNN(ViewModel):
         fused, weights, scheme = group_and_fuse(
             scores.contiguous(), descs.contiguous(), cfg.num_group,
             cfg.group_weight)
-        logits = self._logits(fused, generator)
+        logits = self._logits(fused, generator, dropout_rows)
 
         end_points: Dict[str, torch.Tensor] = {
             "view_descriptors": descs,
@@ -209,12 +231,13 @@ class MVCNN(ViewModel):
         self._set_bn_momentum()
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None):
         xf, B, V = self._fold(x)
         feats, _ = self.backbone(xf)
         descs = _global_avg_pool(feats.float()).reshape(B, V, -1)
         pooled = descs.amax(dim=1)                          # view pooling
-        logits = self._logits(pooled, generator)
+        logits = self._logits(pooled, generator, dropout_rows)
         return logits, {
             "view_descriptors": descs,
             "shape_descriptor": pooled,
@@ -236,14 +259,16 @@ class SingleViewClassifier(ViewModel):
         self._set_bn_momentum()
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None):
         if x.dim() == 5:
             if x.shape[1] != 1:
                 raise ValueError(f"the single-view classifier takes one "
                                  f"view, got {tuple(x.shape)}")
             x = x[:, 0]
         feats, _ = self.backbone(x.to(self.compute_dtype).contiguous())
-        logits = self._logits(_global_avg_pool(feats.float()), generator)
+        logits = self._logits(_global_avg_pool(feats.float()), generator,
+                              dropout_rows)
         return logits, {"Logits": logits,
                         "Predictions": torch.softmax(logits, dim=-1)}
 
@@ -292,11 +317,9 @@ def build_model(config: GVCNNConfig) -> ViewModel:
     (uninitialised: see `init_weights` and `bridge.jax_to_state_dict`), as
     the JAX package's `build_model` picks them.
 
-    Refuses what the port does not run yet instead of ignoring it."""
-    if (config.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: multi-GPU data parallelism "
-            "is not ported yet (ROADMAP §1 item 10)")
+    The data-parallel degree (`num_devices`) does not change the model:
+    every rank builds the same one.  Refuses what the port does not run
+    instead of ignoring it."""
     if config.stem_space_to_depth:
         raise NotImplementedError(
             "--stem_space_to_depth is a TPU layout trick the port does not "

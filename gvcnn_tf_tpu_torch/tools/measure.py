@@ -4,6 +4,7 @@
     python gvcnn_tf_tpu_torch/tools/measure.py profile [--train] [--config C]
     python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
+    python gvcnn_tf_tpu_torch/tools/measure.py dp-drift [--config C]    # CPU
 
 `wrappers`: each kernel wrapper at the main path's shapes (the stem at 96
 and 12 views of 224x224; the grouping head at B = 8 and 1, 12 views,
@@ -42,15 +43,24 @@ TF32-rounded conv inputs (`tf32_convs`) instead.  `--size N` runs seeds
 the train step from these numbers.
 
 `serve-drift` (on the CPU, no device measurement): the serving forward of
-`--config` (seeded weights, folded BN, eval mode), B = 2, in the config's
+`--config` (seeded weights, folded BN, eval mode; `--calibrate`: BN
+statistics calibrated to the views first), B = 2, in the config's
 compute dtype against fp32 (for an fp32 config: with TF32-rounded conv
 inputs), at 96x96 (`--size`) for seeds 0-2: max|dlogit| over max|logit|,
 max|dscore| where the model has scores, and whether the argmaxes agree;
 `chip_smoke.py`'s card-vs-CPU serving bounds come from these.
 
+`dp-drift` (on the CPU, no device measurement): one `bn_sync="global"`
+train step of `--config` (default mn40_12view, mn40_12view_dp8's model;
+its compute dtype, dropout on) over 2 gloo ranks of B = 2, 4 views, 64x64 (`--size`),
+against one process's step on the B = 4 batch, seeds 0-2: loss and
+grad_norm relative gaps and the `Logits` gradient's cosine, the numbers
+`chip_smoke.py` phase 12's global-mode bounds come from.
+
 Each result is one line of JSON (after the card's name and power limit);
-TF32 as PyTorch's defaults, as the port runs.  Except for `train-drift` and
-`serve-drift`, it needs a card: without one it exits non-zero.
+TF32 as PyTorch's defaults, as the port runs.  Except for `train-drift`,
+`serve-drift` and `dp-drift`, it needs a card: without one it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -409,21 +419,59 @@ def train_step_drift(cfg, dev, ref_dev="cpu", seed=0, first=None):
     return out
 
 
-def serve_drift(cfg, seed=0):
+@torch.no_grad()
+def calibrate_bn(model, x):
+    """In place: each BatchNorm's running statistics from its input, layer
+    after layer, in one eval-mode forward of x (the views, unfolded BN):
+    mean 0, var the input's mean square floored at the layer's average, as
+    `tests/test_torch_backbones.py::calibrate_bn` sets them (without its
+    random weights), so that a seeded network keeps O(1) activations.
+    Inception-v1's stem runs its BatchNorm as the conv's epilogue, so its
+    statistics come from the plain conv's output."""
+    from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import Stem
+    from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv_plain
+
+    def hook(bn, args):
+        sq = args[0].float().square().mean(dim=(0, 2, 3))
+        bn.running_mean.zero_()
+        bn.running_var.copy_(sq + sq.mean())
+
+    def stem_hook(stem, args):
+        y = stem_conv_plain(args[0], stem.conv.weight)
+        hook(stem.BatchNorm, (y.permute(0, 3, 1, 2),))
+
+    handles = [m.register_forward_pre_hook(
+        stem_hook if isinstance(m, Stem) else hook)
+        for m in model.modules() if isinstance(m, (BatchNorm, Stem))]
+    try:
+        model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return model
+
+
+def serve_drift(cfg, seed=0, calibrate=False):
     """The serving forward of `cfg` (seeded, folded, eval) on the CPU, B =
     2, in its compute dtype (fp32 with TF32-rounded conv inputs for an fp32
-    config) against fp32 -> {logit_rel, score_abs, argmax_equal}."""
+    config) against fp32 -> {logit_rel, score_abs, argmax_equal}.  With
+    `calibrate`, the BatchNorm statistics are first calibrated to the
+    views (`calibrate_bn`)."""
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
     from gvcnn_tf_tpu_torch.utils import fold_batch_norm
 
     d = cfg.data
-    ref = fold_batch_norm(init_weights(build_model(
-        cfg.replace(compute_dtype="float32")), cfg.train.seed)).eval()
+    x = torch.from_numpy(np.random.RandomState(seed).uniform(
+        -1, 1, (2, d.num_views, d.height, d.width, 3)).astype(np.float32))
+    ref = init_weights(build_model(cfg.replace(compute_dtype="float32")),
+                       cfg.train.seed)
+    if calibrate:
+        calibrate_bn(ref, x)
+    ref = fold_batch_norm(ref).eval()
     model = build_model(cfg).eval()
     model.load_state_dict(ref.state_dict())
     model.cast_convs_()
-    x = torch.from_numpy(np.random.RandomState(seed).uniform(
-        -1, 1, (2, d.num_views, d.height, d.width, 3)).astype(np.float32))
     fp32 = cfg.compute_dtype == "float32"
     with torch.no_grad():
         want, wep = ref(x)
@@ -431,6 +479,7 @@ def serve_drift(cfg, seed=0):
             got, gep = model(x)
     got = got.float()
     out = dict(logit_rel=float((got - want).abs().max() / want.abs().max()),
+               max_logit=float(want.abs().max()),
                argmax_equal=bool(torch.equal(got.argmax(-1),
                                              want.argmax(-1))))
     if "view_discrimination_scores" in wep:
@@ -438,6 +487,64 @@ def serve_drift(cfg, seed=0):
                                   - wep["view_discrimination_scores"])
                                  .abs().max())
     return out
+
+
+def dp_drift_rank(init_method, out_dir, cfg, batch):
+    """One rank of `dp_drift`: one global-mode step on its rows of batch."""
+    from gvcnn_tf_tpu_torch.parallel import (
+        initialize_distributed,
+        rank_rows,
+        shutdown,
+    )
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    import datetime
+
+    world = initialize_distributed("gloo", datetime.timedelta(seconds=120),
+                                   device="cpu", init_method=init_method)
+    state = create_train_state(cfg, "cpu", world)
+    rows = {k: torch.from_numpy(v) for k, v in
+            rank_rows(batch, world).items()}
+    mets = train_step(state, rows, cfg)
+    torch.save({"mets": {k: float(v) for k, v in mets.items()},
+                "logits_grad": state.model.Logits.weight.grad.clone()},
+               f"{out_dir}/rank{world.rank}.pt")
+    shutdown(world)
+
+
+def dp_drift(cfg, seed=0):
+    """`cfg`'s global-mode step over 2 gloo ranks on the CPU (in its
+    compute dtype, dropout as configured) against one process's step on the
+    whole batch -> {loss_rel, grad_norm_rel, logits_grad_cosine}: what
+    the BatchNorm statistics' other rounding (Flax's fast variance over the
+    ranks, PyTorch's Welford pass in one process) and the convs' other
+    batch size change in one step."""
+    import tempfile
+
+    from gvcnn_tf_tpu_torch.parallel import spawn
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    d = cfg.data
+    rs = np.random.RandomState(seed)
+    batch = {"views": rs.uniform(-1, 1, (d.batch_size, d.num_views,
+                                         d.height, d.width, 3))
+             .astype(np.float32),
+             "label": rs.randint(0, d.num_classes, d.batch_size)}
+    with tempfile.TemporaryDirectory() as out:
+        spawn(dp_drift_rank, 2, args=(out, cfg, batch), timeout=600)
+        ranks = [torch.load(f"{out}/rank{r}.pt") for r in range(2)]
+    state = create_train_state(cfg, "cpu")
+    want = train_step(state, {k: torch.from_numpy(v)
+                              for k, v in batch.items()}, cfg)
+    got, g = ranks[0]["mets"], ranks[0]["logits_grad"]
+    w = state.model.Logits.weight.grad
+    return dict(
+        loss_rel=abs(got["loss"] - float(want["loss"]))
+        / float(want["loss"]),
+        grad_norm_rel=abs(got["grad_norm"] - float(want["grad_norm"]))
+        / float(want["grad_norm"]),
+        logits_grad_cosine=float((g * w).sum() / (g.norm() * w.norm())),
+        replicas_equal=ranks[0]["mets"] == ranks[1]["mets"])
 
 
 def profile_train(dev, config="mn40_12view", top=25):
@@ -478,7 +585,7 @@ def profile_train(dev, config="mn40_12view", top=25):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("wrappers", "profile", "train-drift",
-                                     "serve-drift"))
+                                     "serve-drift", "dp-drift"))
     ap.add_argument("--root", default=None,
                     help="checkout whose gvcnn_tf_tpu_torch to measure "
                     "(default: the one holding this file)")
@@ -490,7 +597,11 @@ def main(argv=None):
     ap.add_argument("--backbone", default=None,
                     help="serve-drift: swap the config's backbone")
     ap.add_argument("--size", type=int, default=None,
-                    help="train-drift, serve-drift: the views' size")
+                    help="train-drift, serve-drift, dp-drift: the views' "
+                    "size")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="serve-drift: BatchNorm statistics calibrated to "
+                    "the views (`calibrate_bn`)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
     if args.what == "serve-drift":
@@ -504,11 +615,28 @@ def main(argv=None):
         size = args.size or 96
         cfg = base.replace(data=dataclasses.replace(
             base.data, height=size, width=size, batch_size=2))
+        calibrated = ", calibrated BN" if args.calibrate else ""
         for seed in range(3):
             print(json.dumps(dict(
                 run=f"serve-drift of {args.config} ({base.backbone}) on the "
-                    f"CPU, {size}x{size}, seed {seed}",
-                **serve_drift(cfg, seed))), flush=True)
+                    f"CPU, {size}x{size}, seed {seed}{calibrated}",
+                **serve_drift(cfg, seed, args.calibrate))), flush=True)
+        return 0
+    if args.what == "dp-drift":
+        from gvcnn_tf_tpu_torch import get_config
+
+        import dataclasses
+
+        base = get_config(args.config)
+        size = args.size or 64
+        cfg = base.replace(num_devices=2, data=dataclasses.replace(
+            base.data, height=size, width=size, num_views=4, batch_size=4))
+        for seed in range(3):
+            print(json.dumps(dict(
+                run=f"dp-drift of {args.config} on the CPU ({cfg.compute_dtype}"
+                    f", 2 gloo ranks of B=2 vs one process at B=4), "
+                    f"{size}x{size}, 4 views, seed {seed}",
+                **dp_drift(cfg, seed))), flush=True)
         return 0
     if args.what == "train-drift":
         from gvcnn_tf_tpu_torch import get_config

@@ -28,6 +28,12 @@ config differs in more than its length, cadence and directory.  Dropout
 masks come from a `torch.Generator` on the model's device, reseeded from
 (`train.seed`, step, microbatch) every step, so they need no saved state.
 
+Data parallelism (the JAX package's `data` mesh and `bn_sync`, as one
+process per card, `parallel/`): every rank holds a replica, trains on its
+shard of the split and joins one all-reduce a step (`train_step`); rank 0
+writes the metrics and checkpoints.  `--num_devices k` without a launcher
+spawns k ranks on this host; under torchrun each process joins its world.
+
 CLI (`--train_logdir` is required):
     python -m gvcnn_tf_tpu_torch.train --config mn40_12view \
         --how_many_training_steps 100 --train_logdir runs/mn40
@@ -35,6 +41,8 @@ CLI (`--train_logdir` is required):
     python -m gvcnn_tf_tpu_torch.train --config mn40_12view \
         --checkpoint_path ckpts/imagenet_v1 --train_logdir runs/mn40_ft
         # warm start; --checkpoint_exclude_scopes Logits,GroupingModule
+    python -m gvcnn_tf_tpu_torch.train --config mn40_12view_dp8 \
+        --train_logdir runs/dp8      # 8 ranks, one per card (or torchrun)
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import dataclasses
 import json
 import math
 import signal
+import sys
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -72,6 +81,16 @@ from gvcnn_tf_tpu_torch.models.gvcnn import (
     init_weights,
     to_device,
 )
+from gvcnn_tf_tpu_torch.parallel import (
+    World,
+    check_num_devices,
+    initialize_distributed,
+    launch_env,
+    shutdown,
+    spawn,
+)
+from gvcnn_tf_tpu_torch.parallel import collectives
+from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
 from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
 
 # ---------------------------------------------------------------------------
@@ -233,14 +252,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 @dataclasses.dataclass
 class TrainState:
     """The model (fp32 parameters and BatchNorm statistics, on the device,
-    in train mode), its optimizer, the step count and the dropout
-    generator."""
+    in train mode), its optimizer, the step count, the dropout generator
+    and the data-parallel world this replica belongs to."""
 
     step: int
     model: ViewModel
     optimizer: Optimizer
     generator: torch.Generator
     kernels: List[torch.Tensor]        # the parameters the L2 term covers
+    world: World = World()
 
     def state_dict(self, data_state=None, config=None) -> dict:
         """Checkpoint payload (CPU tensors): step, model, optimizer, the
@@ -260,25 +280,41 @@ class TrainState:
         return payload.get("data")
 
 
-def create_train_state(config: GVCNNConfig, device="cuda") -> TrainState:
+def create_train_state(config: GVCNNConfig, device="cuda",
+                       world: Optional[World] = None) -> TrainState:
     """Seeded model (`init_weights(train.seed)`) on the device in train
-    mode (channels-last on a card), its optimizer, step 0."""
-    dev = resolve_device(device)
+    mode (channels-last on a card), its optimizer, step 0.  With a `world`
+    its device is the world's, every rank's replica starts from the same
+    seed, and with more than one rank and `bn_sync="global"` every
+    BatchNorm takes its statistics over all ranks."""
+    world = world or World(device=resolve_device(device))
+    dev = world.device
     model = to_device(init_weights(build_model(config), config.train.seed),
                       dev)
     model.train()
+    if world.size > 1 and config.bn_sync == "global":
+        model.sync_batch_norm_(world.group)
     named = list(model.named_parameters())
     return TrainState(
         step=0, model=model,
         optimizer=Optimizer([p for _, p in named], config.train),
         generator=torch.Generator(device=dev),
-        kernels=kernel_params(named))
+        kernels=kernel_params(named), world=world)
 
 
-def dropout_seed(seed: int, step: int, micro: int) -> int:
-    """The dropout generator's seed for one microbatch of one step."""
-    state = np.random.SeedSequence([seed, step, micro]).generate_state(
-        2, np.uint32)
+def bn_statistics(model: ViewModel) -> List[torch.Tensor]:
+    """Every BatchNorm's running mean and variance."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
+def dropout_seed(seed: int, step: int, micro: int,
+                 rank: Optional[int] = None) -> int:
+    """The dropout generator's seed for one microbatch of one step (and,
+    with `bn_sync="local"` over several ranks, of one rank: the JAX step
+    folds the device's index into its key there)."""
+    entropy = [seed, step, micro] + ([] if rank is None else [rank])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return (int(state[0]) << 31) | (int(state[1]) >> 1)
 
 
@@ -292,9 +328,34 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     `accumulate_steps` = k: the batch is cut into k microbatches run one
     after another (BatchNorm statistics chained through them, as the JAX
-    step's scan does), and their gradients averaged before one update."""
+    step's scan does), and their gradients averaged before one update.
+
+    Data parallelism (`state.world` with a process group): `batch` is this
+    rank's rows of the global batch and each rank backpropagates its own
+    loss; then ONE all-reduce of one flat buffer averages the gradients,
+    loss and accuracy over the ranks (and, with `bn_sync="local"`, every
+    BatchNorm's running statistics), the JAX step's one `pmean`.  Every rank
+    then applies the same update, so the replicas stay bitwise equal;
+    grad_norm is the combined gradient's.
+
+      bn_sync "global"  BatchNorm statistics over all ranks' rows
+                        (`create_train_state` syncs the model), and one
+                        dropout mask drawn for the global batch, of which
+                        the rank keeps its rows: the single-process step on
+                        the global batch.  With k > 1 the global microbatch
+                        i is every rank's microbatch i in rank order, so
+                        for the JAX step's layout (microbatch i = global
+                        rows [i B/k, (i+1) B/k)) a rank's batch holds its
+                        share of each microbatch in turn
+                        (`parallel.rank_rows(..., microbatches=k)`).
+      bn_sync "local"   each rank normalizes by its own rows' statistics
+                        (the reference's towers) and draws its own dropout
+                        mask (the rank folded into the seed); with k > 1
+                        its contiguous rows are cut into microbatches.
+
+    With one rank both modes are the single-process step."""
     tc = config.train
-    model, opt = state.model, state.optimizer
+    model, opt, world = state.model, state.optimizer, state.world
     if not model.training:
         model.train()
     views = normalize_views(batch["views"])
@@ -306,16 +367,20 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                          f"{k}")
     for p in opt.params:
         p.grad = None
+    local_bn = config.bn_sync == "local" and world.size > 1
     use_dropout = config.dropout_keep_prob < 1.0
     losses, accs = [], []
     for i in range(k):
         v, lab = views[i * b // k:(i + 1) * b // k], labels[i * b // k:
                                                               (i + 1) * b // k]
-        gen = None
+        gen, rows = None, None
         if use_dropout:
             gen = state.generator
-            gen.manual_seed(dropout_seed(tc.seed, state.step, i))
-        logits, _ = model(v, generator=gen)
+            gen.manual_seed(dropout_seed(tc.seed, state.step, i,
+                                         world.rank if local_bn else None))
+            if world.size > 1 and not local_bn:
+                rows = (world.rank * len(v), world.size * len(v))
+        logits, _ = model(v, generator=gen, dropout_rows=rows)
         ce = cross_entropy(logits, lab, tc.label_smoothing)
         ce.backward()
         losses.append(ce.detach())
@@ -324,6 +389,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         grads = [p.grad for p in opt.params]
         if k > 1:
             torch._foreach_div_(grads, float(k))
+        loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
+        if world.distributed:
+            collectives.mean_across_ranks_(
+                grads + [loss, acc]
+                + (bn_statistics(model) if local_bn else []), world)
         l2 = l2_regularization(state.kernels, tc.weight_decay).to(
             views.device)
         if tc.weight_decay > 0:
@@ -332,9 +402,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         grad_norm = global_norm(grads)
         opt.step(grads)
     state.step += 1
-    return {"loss": torch.stack(losses).mean() + l2,
-            "accuracy": torch.stack(accs).mean(),
-            "grad_norm": grad_norm}
+    return {"loss": loss + l2, "accuracy": acc, "grad_norm": grad_norm}
 
 
 # ---------------------------------------------------------------------------
@@ -342,14 +410,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(config: GVCNNConfig, profile_steps):
-    # bn_sync "local" on one device is the "global" step, as in the JAX
-    # package, whose local path needs a mesh of more than one device.
-    if (config.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"multi-GPU training (num_devices={config.num_devices}, "
-            f"bn_sync={config.bn_sync!r}) is not ported yet (ROADMAP §1 "
-            "item 10, multi-GPU data parallelism)")
+def _refuse_unported(profile_steps):
     if profile_steps is not None:
         raise NotImplementedError(
             "profile_steps: the port profiles a train step with "
@@ -391,15 +452,68 @@ def _check_resumable(saved: Optional[Dict[str, object]],
         f"in {', '.join(diff)}); give this run its own --train_logdir")
 
 
+def _stream_state(saved, world: World):
+    """This rank's data stream state from a checkpoint's `data` entry (a
+    list of every rank's with more than one rank), or None (the stream
+    starts from its seed) when it was saved by a world of another size."""
+    if world.size == 1 and not isinstance(saved, list):
+        return saved
+    if isinstance(saved, list) and len(saved) == world.size:
+        return saved[world.rank]
+    if saved is not None:
+        metrics_lib.log(f"the checkpoint's data streams are of another world "
+                        f"size; this world's {world.size} stream(s) start "
+                        "from their seeds")
+    return None
+
+
+def _rank_stream(config: GVCNNConfig, world: World):
+    """This rank's shard of the train split at its local batch size (the
+    global batch over the world's size)."""
+    d, w = config.data, world.size
+    if d.batch_size % w:
+        raise ValueError(f"global batch {d.batch_size} not divisible by "
+                         f"{w} ranks")
+    return make_dataset(dataclasses.replace(d, batch_size=d.batch_size // w),
+                        train=True, seed=config.train.seed,
+                        shard_index=world.rank, num_shards=w)
+
+
 def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
           dataset_iter=None, writer: Optional[metrics_lib.MetricWriter] = None,
           profile_steps: Optional[Tuple[int, int]] = None,
-          device="cuda") -> Tuple[TrainState, Dict[str, float]]:
-    """The training loop (the JAX package's `train` without its TPU and
-    multi-host parts).  Returns (final TrainState, last metrics as floats).
-    `dataset_iter` injects a host-batch iterator (tests)."""
-    _refuse_unported(config, profile_steps)
-    dev = resolve_device(device)
+          device="cuda", world: Optional[World] = None
+          ) -> Tuple[TrainState, Dict[str, float]]:
+    """The training loop (the JAX package's `train` without its TPU
+    parts).  Returns (final TrainState, last metrics as floats).
+    `dataset_iter` injects a host-batch iterator (tests; with several
+    ranks, this rank's).
+
+    Data parallelism: `world` (default: `initialize_distributed(device=)`,
+    which reads a launcher's environment and is a no-op in a single process,
+    and is left again at the end) is one rank of several.  `num_devices`
+    must be its size (None: any).  Every rank streams its own shard of the
+    split at the global batch over the world's size, runs the same step on
+    its replica and takes part in the step's all-reduce; rank 0 alone writes
+    the metrics and the checkpoints, which hold every rank's stream state
+    (a resume at the same world size restarts every stream where it was).
+    The ranks meet before the first step, agree every step on whether any
+    of them got SIGTERM (so all stop after the same step), and
+    `eval_every` scores the split over all ranks."""
+    _refuse_unported(profile_steps)
+    own_world = world is None
+    if own_world:
+        world = initialize_distributed(device=device)
+    try:
+        return _train(config, num_steps, dataset_iter, writer, world)
+    finally:
+        if own_world:
+            shutdown(world)
+
+
+def _train(config, num_steps, dataset_iter, writer, world: World):
+    check_num_devices(config.num_devices, world)
+    dev = world.device
     tc = config.train
     num_steps = num_steps if num_steps is not None else tc.num_steps
     steps_per_epoch = tc.steps_per_epoch
@@ -415,9 +529,10 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
         num_steps = max(int(round(tc.epochs * steps_per_epoch)), 1)
     own_writer = writer is None
     if own_writer:
-        writer = metrics_lib.MetricWriter(tc.train_logdir)
+        writer = (metrics_lib.MetricWriter(tc.train_logdir) if world.is_main
+                  else metrics_lib.NullWriter())
 
-    state = create_train_state(config, dev)
+    state = create_train_state(config, dev, world)
     if tc.checkpoint_path:
         # Warm start (slim's assign_from_checkpoint_fn with
         # checkpoint_exclude_scopes): parameters and BatchNorm statistics
@@ -429,19 +544,29 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
         metrics_lib.log(f"warm-started from {tc.checkpoint_path}")
     identity = run_identity(config)
     ckpt = Checkpointer(tc.train_logdir) if tc.checkpoint_every > 0 else None
-    data_state = None
+    data_state = saved_step = None
     if ckpt is not None and ckpt.latest_step() is not None:
         payload = ckpt.restore(map_location="cpu")
         _check_resumable(payload.get("config"), config, tc.train_logdir)
-        data_state = state.load_state_dict(payload)
+        data_state = _stream_state(state.load_state_dict(payload), world)
+        saved_step = state.step
         metrics_lib.log(f"resumed from step {state.step}")
     if dataset_iter is None:
-        dataset_iter = make_dataset(config.data, train=True, seed=tc.seed)
+        dataset_iter = _rank_stream(config, world)
         if data_state is not None:
             dataset_iter.load_state_dict(data_state)
     prefetch = DevicePrefetcher(dataset_iter, dev,
                                 resolve_transfer_dtype(config),
                                 depth=config.data.prefetch_to_device)
+    # The stream's state after the last batch a step has taken.
+    trained = {"data": data_state}
+
+    def save(step):
+        data = trained["data"]
+        if world.size > 1:              # collective: every rank calls it
+            data = collectives.gather_objects(data, world)
+        if world.is_main:
+            ckpt.save(step, state.state_dict(data, identity))
 
     # SIGTERM (preemption) sets a flag: the loop finishes the step in
     # flight, saves and returns; the next launch resumes.  SIGINT keeps
@@ -462,14 +587,20 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
     mets: Dict[str, torch.Tensor] = {}
     start = state.step
     try:
+        collectives.barrier(world)
         for step in range(start, num_steps):
-            if preempted.is_set():
+            batch = next(prefetch, None)
+            # 1: a rank was preempted, 2: a rank's stream ended; every rank
+            # learns it, so all leave after the same step.
+            stop = collectives.agree_max(
+                1 if preempted.is_set() else 2 if batch is None else 0,
+                world)
+            if stop == 1:
                 metrics_lib.log(f"stopping at step {state.step} for "
                                 "preemption; the next run resumes from the "
                                 "saved checkpoint")
                 break
-            batch = next(prefetch, None)
-            if batch is None:
+            if stop == 2:
                 metrics_lib.log("dataset exhausted")
                 break
             if step == start:
@@ -480,8 +611,10 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
                         f"labels [{lo}, {hi}] out of range for num_classes="
                         f"{config.data.num_classes}")
             mets = train_step(state, batch, config)
+            trained["data"] = prefetch.data_state
             timer.tick()
-            if (step + 1) % tc.log_every == 0 or step + 1 == num_steps:
+            if world.is_main and ((step + 1) % tc.log_every == 0
+                                  or step + 1 == num_steps):
                 vals = {k: float(v) for k, v in mets.items()}
                 vals["steps_per_sec"] = timer.rate()
                 vals["shapes_per_sec"] = (timer.rate()
@@ -495,19 +628,20 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
                 writer.scalars(step + 1, vals)
                 timer.reset()
             if ckpt is not None and (step + 1) % tc.checkpoint_every == 0:
-                ckpt.save(step + 1, state.state_dict(prefetch.data_state,
-                                                     identity))
+                save(step + 1)
+                saved_step = step + 1
             if tc.eval_every > 0 and (step + 1) % tc.eval_every == 0:
-                res = evaluate(config, state=state)
+                res = evaluate(config, state=state, world=world)
                 writer.scalars(step + 1, {"val_accuracy": res["accuracy"],
                                           "val_count": res["count"]})
                 metrics_lib.log(
                     f"step {step + 1} val accuracy {res['accuracy']:.4f} "
                     f"({res['correct']}/{res['count']})")
                 timer.reset()       # the eval's time is not a step's
-        if ckpt is not None and ckpt.latest_step() != state.step:
-            ckpt.save(state.step, state.state_dict(prefetch.data_state,
-                                                   identity))
+        if ckpt is not None and saved_step != state.step:
+            save(state.step)
+        # The next run of any rank reads what rank 0 has written.
+        collectives.barrier(world)
         writer.flush()
         return state, {k: float(v) for k, v in mets.items()}
     finally:
@@ -518,27 +652,64 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
             writer.close()
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(description="gvcnn_tf_tpu_torch trainer "
                                             "(PyTorch + CUDA)")
     add_flags(p)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) raises when no card "
-                        "is present, it never falls back to the CPU")
+                        "is present, it never falls back to the CPU; with "
+                        "several ranks 'cuda' is each rank's own card")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks, one per card (default: the "
+                        "config's); k > 1 without a launcher spawns k ranks "
+                        "on this host")
     args = p.parse_args(argv)
     if args.train_logdir is None:
         p.error("--train_logdir is required: a run resumes from the newest "
                 "checkpoint in it, so each run names its own directory")
     config = config_from_flags(args)
+    if args.num_devices is not None:
+        config = config.replace(num_devices=args.num_devices)
+    return args, config
+
+
+def _run(args, config, init_method=None):
+    """One rank of the CLI's run (a single process, a launcher's rank or a
+    spawned one)."""
+    try:
+        world = initialize_distributed(device=args.device,
+                                       init_method=init_method)
+    except RuntimeError as e:
+        raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
+    try:
+        train(config, device=args.device, world=world)
+    except (NotImplementedError, FileNotFoundError, ImportError,
+            ValueError) as e:
+        raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
+    finally:
+        shutdown(world)
+
+
+def _spawned_rank(init_method, argv):
+    _run(*_parse(argv), init_method)
+
+
+def main(argv=None):
+    args, config = _parse(argv)
     metrics_lib.log(f"training config {config.name}: {config}")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
-    try:
-        train(config, device=args.device)
-    except (NotImplementedError, FileNotFoundError, ImportError) as e:
-        raise SystemExit(f"gvcnn_tf_tpu_torch.train: {e}") from e
+    k = config.num_devices or 1
+    if k > 1 and launch_env() is None:
+        # One command for a data-parallel config: its ranks on this host.
+        metrics_lib.log(f"spawning {k} ranks on this host")
+        spawn(_spawned_rank, k,
+              args=(list(sys.argv[1:] if argv is None else argv),))
+        return
+    _run(args, config)
 
 
 if __name__ == "__main__":

@@ -142,7 +142,9 @@ def test_port_never_imports_jax(tmp_path):
             "gvcnn_tf_tpu_torch.predict, gvcnn_tf_tpu_torch.data.procedural, "
             "gvcnn_tf_tpu_torch.tools.render_meshes, "
             "gvcnn_tf_tpu_torch.tools.make_demo_meshes, "
-            "gvcnn_tf_tpu_torch.tools.import_slim_checkpoint; "
+            "gvcnn_tf_tpu_torch.tools.import_slim_checkpoint, "
+            "gvcnn_tf_tpu_torch.parallel, "
+            "gvcnn_tf_tpu_torch.parallel.collectives; "
             "from gvcnn_tf_tpu_torch.checkpoint import read_orbax; "
             f"t = read_orbax({str(tmp_path / 'orbax')!r}); "
             "assert t['params']['Logits']['kernel'].sum() == 8, t; "

@@ -24,6 +24,9 @@ B = 2, bf16 on the card against the same step in fp32 on the CPU: loss within
 
 Evaluation: `--eval_every` on a 10-shape procedural split at 64x64, 4
 views, B = 4 (`test_eval_on_the_card`, its bounds in its docstring).
+
+Data parallelism: a world of one rank over NCCL takes three steps equal to
+the plain step's bit for bit (`test_world_of_one_over_nccl_is_the_plain_step`).
 """
 
 import numpy as np
@@ -482,3 +485,49 @@ def test_eval_on_the_card(cuda, tmp_path):
     v = (w._version, bn._version)
     state.model.load_state_dict(state.model.state_dict())
     assert w._version > v[0] and bn._version > v[1]
+
+
+def test_world_of_one_over_nccl_is_the_plain_step(cuda, tmp_path):
+    """Three mn40_12view steps at 64x64, 4 views, B = 2, bf16, dropout on,
+    through the data-parallel path (a world of one rank over NCCL: the
+    gradient, loss and accuracy all-reduce each step) equal the plain
+    step's bit for bit, cuDNN deterministic on both sides; one launch of
+    each kernel a step on each side."""
+    import dataclasses
+    import datetime
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.parallel import initialize_distributed, shutdown
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    base = get_config("mn40_12view")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, height=64, width=64, num_views=4, batch_size=2))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    world = initialize_distributed(
+        timeout=datetime.timedelta(seconds=120), device="cuda:0",
+        init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        assert (world.backend, world.size, world.distributed) == (
+            "nccl", 1, True)
+        plain = create_train_state(cfg, cuda)
+        dp = create_train_state(cfg, world=world)
+        rs = np.random.RandomState(4)
+        for _ in range(3):
+            batch = {"views": torch.from_numpy(rs.uniform(
+                -1, 1, (2, 4, 64, 64, 3)).astype(np.float32)).to(cuda),
+                "label": torch.from_numpy(rs.randint(0, 40, 2)).to(cuda)}
+            want = train_step(plain, batch, cfg)
+            launches = (stem_conv.launches, group_and_fuse.launches)
+            got = train_step(dp, batch, cfg)
+            assert (stem_conv.launches - launches[0],
+                    group_and_fuse.launches - launches[1]) == (1, 1)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+        a, b = plain.model.state_dict(), dp.model.state_dict()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    finally:
+        shutdown(world)
+        torch.backends.cudnn.deterministic = deterministic

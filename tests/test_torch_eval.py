@@ -222,7 +222,10 @@ def test_load_model_refuses_what_it_cannot_read(tmp_path):
 
 
 def test_evaluate_refuses_more_than_one_device(shared):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """num_devices is the world's size: 2 in a single process is refused
+    with the command that launches 2 ranks (multi-process evaluation is
+    `tests/test_torch_parallel.py`'s)."""
+    with pytest.raises(ValueError, match="launch 2 ranks, one per card"):
         port_eval.evaluate(_config(port_configs).replace(num_devices=2),
                            state=shared[0], device="cpu")
 

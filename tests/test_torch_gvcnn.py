@@ -185,10 +185,14 @@ def test_unsupported_configs_are_refused():
     for bad, what in [
         (cfg.replace(stem_space_to_depth=True), "stem_space_to_depth"),
         (cfg.replace(remat_until="MaxPool_3a_3x3"), "remat"),
-        (port_configs.get_config("mn40_12view_dp8"), "item 10"),
     ]:
         with pytest.raises(NotImplementedError, match=what):
             build_model(bad)
+    # The data-parallel config builds every rank's replica, the same model.
+    dp8 = port_configs.get_config("mn40_12view_dp8")
+    assert dp8.num_devices == 8
+    with torch.device("meta"):
+        assert type(build_model(dp8)) is type(build_model(cfg))
 
 
 def test_bn_training_mode_raises():

@@ -117,16 +117,13 @@ def test_backbone_flag_resolves_endpoints_as_jax(backbone):
 
 FAMILY = {"mn10_single_view": SingleViewClassifier, "mn10_8view": GVCNN,
           "mn40_12view": GVCNN, "mn40_12view_inception_v4": GVCNN,
-          "mn40_12view_resnet50": GVCNN, "mn40_12view_mvcnn": MVCNN}
+          "mn40_12view_resnet50": GVCNN, "mn40_12view_mvcnn": MVCNN,
+          "mn40_12view_dp8": GVCNN}
 
 
 @pytest.mark.parametrize("name", sorted(port_configs.CONFIGS))
 def test_build_model_builds_every_config(name):
     cfg = port_configs.get_config(name)
-    if name == "mn40_12view_dp8":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            build_model(cfg)
-        return
     with torch.device("meta"):
         model = build_model(cfg)
     assert type(model) is FAMILY[name]

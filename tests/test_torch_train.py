@@ -23,7 +23,9 @@ JAX package's, on the CPU.
 - A run interrupted by a checkpoint and resumed equals an uninterrupted
   one bit for bit (dropout on, synthetic stream); SIGTERM saves and stops;
   `bn_sync="local"` on one device trains as "global" does; the CLI refuses
-  what is not ported and exits non-zero without a card.
+  what is not ported and exits non-zero without a card; `num_devices`
+  other than the world's size is refused with the command that launches
+  that many ranks.
 """
 
 import dataclasses
@@ -345,20 +347,22 @@ def test_sigterm_saves_and_stops(tmp_path):
     assert Checkpointer(str(tmp_path)).latest_step() == state.step
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(data=dict(loader="decoded")), "item 7"),
-    (dict(bn_sync="local", num_devices=2), "item 10"),
-    (dict(num_devices=2), "item 10"),
-    (dict(data=dict(loader="tfrecord")), "item 7"),
-    (dict(data=dict(device_resident="on")), "item 15"),
+@pytest.mark.parametrize("change,item,error", [
+    (dict(data=dict(loader="decoded")), "item 7", NotImplementedError),
+    # num_devices is the world's size: 2 in a single process names how to
+    # launch 2 ranks, in both BatchNorm modes.
+    (dict(bn_sync="local", num_devices=2), "nproc_per_node 2", ValueError),
+    (dict(num_devices=2), "`--num_devices 2` on the train", ValueError),
+    (dict(data=dict(loader="tfrecord")), "item 7", NotImplementedError),
+    (dict(data=dict(device_resident="on")), "item 15", NotImplementedError),
 ])
-def test_train_refuses_what_is_not_ported(tmp_path, change, item):
+def test_train_refuses_what_is_not_ported(tmp_path, change, item, error):
     cfg = _loop_cfg(tmp_path)
     for part in ("train", "data"):
         if part in change:
             change[part] = dataclasses.replace(getattr(cfg, part),
                                                **change[part])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         port_train.train(cfg.replace(**change), num_steps=1, device="cpu")
 
 

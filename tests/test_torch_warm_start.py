@@ -136,8 +136,8 @@ def jax_init_in_port(monkeypatch):
     `init_rng`), so every tensor can be compared after the warm start."""
     real = port_train.create_train_state
 
-    def create(config, device="cuda"):
-        state = real(config, device)
+    def create(config, device="cuda", world=None):
+        state = real(config, device, world)
         init_rng, _ = jax.random.split(jax.random.key(config.train.seed))
         jcfg = _config(jax_configs, num_classes=config.data.num_classes)
         _, _, jstate = jax_train.create_train_state(jcfg, init_rng)
