@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port's serving, training, evaluation,
-prediction and data-parallel paths on one NVIDIA GPU.
+prediction and data-parallel paths and its tools on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -108,6 +108,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    kernel launched once a step on each rank; each rank's step time (CUDA
    events) and the gradient all-reduce's (host clock).  A world of 2 on one
    card over gloo: none of these times measures scaling across cards.
+13. The tools (`phase_tools`).  (a) Export: mn40_12view at full width
+   (seeded weights, folded BN, bf16, B = EXPORT_B) through
+   `tools/export_model.export_model`, its wall time and size; the bytes
+   loaded and run on a B = 8 float32 request in a child process that
+   imports only the export module, the logits within EXPORT_LOGIT_REL_TOL
+   of the inference engine's for the same views; loaded in this process,
+   one launch of each bf16 kernel a forward and no call of their plain
+   versions; the artifact's B = 8 forward and the eager model's (CUDA
+   events, median of EXPORT_TIMED_RUNS, in turns) and the device kernels
+   each launches (torch.profiler); mn40_12view_mvcnn exported and checked
+   the same way (the stem, no grouping head).  (b) `tools/loadgen.run_load`
+   on the mn40_12view engine: LOAD_CLIENTS clients, sizes LOAD_SIZES,
+   closed loop for LOAD_S s after LOAD_WARMUP_S s, then open loop at half
+   the closed loop's achieved request rate (p50/p99 overall and per size,
+   views/s, offered and achieved rates).  (c) `tools/retrieval`: descriptors
+   of phase 9's step-10 checkpoint over its val split on the card, norms 1,
+   the first CPU_SHAPES against fp32 on the CPU per shape (cosine at least
+   RETRIEVAL_COS_MIN), mAP and p@1/5/10.  (d) `tools/proc_benchmark.run_one`
+   for GVCNN and MVCNN, seed 0, at the study's 64x64, 8 views, hard,
+   cut to STUDY_ARGV's few steps: the JAX tool's keys, and every forward
+   through the kernels.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -197,6 +218,27 @@ STEM_F32_REL_TOL = 1e-5
 # (TF32 would round the inputs to 10 bits, ~1e-3).
 STEM_F32_GRAD_REL_TOL = 1e-4
 WIDE_C = (1536, 2048)            # K1: Inception-v4 Mixed_7d, ResNet-50 block4
+# Phase 13.  The artifact and the engine run the same kernels and the same
+# cuDNN convs on the same inputs, in bf16: predicted equal, and at worst a
+# few bf16 roundings apart (2^-8 of max|logit| each).
+EXPORT_B = 8
+EXPORT_LOGIT_REL_TOL = 1e-2
+EXPORT_TIMED_RUNS = 20
+# run_load on the mn40_12view engine: closed loop, then open loop at half
+# the closed loop's achieved request rate.
+LOAD_CLIENTS, LOAD_SIZES, LOAD_S, LOAD_WARMUP_S = 4, (1, 8), 5.0, 1.0
+# Descriptors card (bf16) vs CPU (fp32), per shape.  `measure.py
+# retrieval-drift` (bf16 vs fp32 on the CPU, seeded weights at init BN
+# statistics, 8 procedural val shapes, 12 views; 64, 96 and 160 square,
+# seeds 0-2) read at worst 1 - cos = 1.36e-5; the bound leaves 7x room.
+RETRIEVAL_COS_MIN = 1 - 1e-4
+# The study tool at the study's shape (64x64, 8 views, hard), cut to a
+# few steps on 16 shapes a split: one forward each for evaluate and
+# extract_descriptors at B = 16.
+STUDY_ARGV = ["--height", "64", "--num_views", "8", "--hard",
+              "--train_shapes", "16", "--eval_shapes", "16", "--steps", "4"]
+STUDY_KEYS = ["model", "seed", "top1", "count", "retrieval_mAP",
+              "precision@5", "final_train_acc", "train_seconds", "steps"]
 FAMILY_REQUESTS = 10
 # (bf16 stem, fp32 stem, grouping) launches a forward.
 FAMILY_LAUNCHES = {"mn40_12view_resnet50": (0, 0, 1),
@@ -1065,8 +1107,9 @@ def phase_eval(card, dev):
         f"{train_vps:.1f} views/s end to end (start-up included), "
         f"{steady_vps:.1f} views/s over its last {EVAL_EVERY} steps (the "
         f"loop's clock); last {rmets} [{card}]")
-    shutil.rmtree(root, ignore_errors=True)
-    return dict(eval_launches=eval_launches,
+    # The split cache and the step-10 checkpoint stay for phase 13, which
+    # removes them.
+    return dict(logdir=str(logdir), eval_launches=eval_launches,
                 train_eval_launches=train_eval_launches,
                 eval_views_per_s=eval_vps,
                 eval_device_views_per_s=views_per_eval / eval_ms * 1e3,
@@ -1878,6 +1921,306 @@ def phase_parallel(card, dev):
         seconds=seconds)
 
 
+_EXPORT_CHILD = """
+import sys
+import numpy as np
+import torch
+from gvcnn_tf_tpu_torch.tools.export_model import deserialize_and_call
+with open(sys.argv[1], "rb") as f:
+    blob = f.read()
+x = torch.from_numpy(np.load(sys.argv[2])).to("cuda")
+logits, probs = deserialize_and_call(blob, x)
+np.save(sys.argv[3], logits.float().cpu().numpy())
+assert "jax" not in sys.modules and "gvcnn_tf_tpu" not in sys.modules
+print("child: artifact of", len(blob), "bytes run on", torch.cuda.get_device_name(0))
+"""
+
+
+@contextlib.contextmanager
+def _plain_calls():
+    """{"stem", "grouping"}: calls of the kernels' plain versions while the
+    context is open (the wrappers' module globals, counted)."""
+    from gvcnn_tf_tpu_torch.ops import grouping_kernel, stem_kernel
+
+    calls = {"stem": 0, "grouping": 0}
+    real = (stem_kernel.stem_conv_plain, grouping_kernel.group_and_fuse_plain)
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    stem_kernel.stem_conv_plain = counted("stem", real[0])
+    grouping_kernel.group_and_fuse_plain = counted("grouping", real[1])
+    try:
+        yield calls
+    finally:
+        stem_kernel.stem_conv_plain, grouping_kernel.group_and_fuse_plain = \
+            real
+
+
+def _artifact_forward_checked(module, x, want_counts, what):
+    """One forward of a loaded artifact -> its logits on the host; the
+    kernels' launches in it equal `want_counts` (bf16 stem, fp32 stem,
+    grouping) and their plain versions run no time."""
+    _zero_counts()
+    with _plain_calls() as plain, torch.inference_mode():
+        logits, probs = module(x)
+        torch.cuda.synchronize()
+    launches = _counts()
+    log(f"{what}: one artifact forward launched (bf16 stem, fp32 stem, "
+        f"grouping) {launches}, plain versions {plain}")
+    if launches != want_counts or any(plain.values()):
+        raise AssertionError(f"{what}: expected launches {want_counts} and "
+                             f"no plain call, got {launches}, {plain}")
+    if tuple(probs.shape) != tuple(logits.shape):
+        raise AssertionError(f"{what}: outputs {tuple(logits.shape)}, "
+                             f"{tuple(probs.shape)}")
+    return logits.float().cpu().numpy(), launches
+
+
+def _check_same(got, want, what):
+    """Logits of the artifact against the engine's: max|dlogit| within
+    EXPORT_LOGIT_REL_TOL of max|logit|, argmax equal where the margin is
+    above it."""
+    scale = float(np.abs(want).max())
+    d = float(np.abs(got - want).max())
+    top2 = np.sort(want, -1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > EXPORT_LOGIT_REL_TOL * scale
+    agree = got.argmax(-1) == want.argmax(-1)
+    log(f"{what}: max|dlogit| {d:.4g} of max|logit| {scale:.4g} (rel "
+        f"{d / scale:.3g}, bound {EXPORT_LOGIT_REL_TOL}); argmax equal on "
+        f"{int(agree.sum())} of {len(agree)}")
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"{what}: non-finite logits")
+    if d > EXPORT_LOGIT_REL_TOL * scale or not agree[clear].all():
+        raise AssertionError(f"{what}: the artifact and the engine disagree")
+    return d / scale
+
+
+def _phase_export(card, dev, root):
+    """Phase 13 (a): export mn40_12view and its MVCNN, load, check, time.
+    Returns (the results, the mn40_12view engine, left open)."""
+    import os
+    import subprocess
+
+    from gvcnn_tf_tpu_torch import InferenceEngine, get_config
+    from gvcnn_tf_tpu_torch.tools.export_model import export_model
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_durations_us
+
+    out = {}
+    cfg = get_config("mn40_12view")
+    d = cfg.data
+    rs = np.random.RandomState(13)
+    u8 = rs.randint(0, 256, (EXPORT_B, d.num_views, d.height, d.width, 3))
+    # uint8 views normalized as the engine does it, in float32 on the host:
+    # the artifact and the engine get the same floats.
+    x = (u8.astype(np.float32) / np.float32(255.0) * np.float32(2.0)
+         - np.float32(1.0)).astype(np.float32)
+    t0 = time.perf_counter()
+    blob = export_model(cfg, batch_size=EXPORT_B, device="cuda")
+    out["export_s"] = time.perf_counter() - t0
+    out["artifact_bytes"] = len(blob)
+    log(f"exported mn40_12view (seeded weights, folded BN, bf16, B="
+        f"{EXPORT_B}) in {out['export_s']:.2f} s: {len(blob)} bytes")
+    engine = InferenceEngine(cfg, device="cuda")
+    try:
+        want, _ = engine.logits_and_scores(x)
+        # The artifact loaded and run in a child process that imports only
+        # the export module.
+        art, xin, got_path = (root / "gvcnn.pt2", root / "x.npy",
+                              root / "child_logits.npy")
+        art.write_bytes(blob)
+        np.save(xin, x)
+        repo = str(root.parents[1])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXPORT_CHILD, str(art), str(xin),
+             str(got_path)], cwd=repo, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+        log(f"child process ({time.perf_counter() - t0:.1f} s, rc "
+            f"{proc.returncode}): {proc.stdout.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the artifact failed in a child process:\n"
+                                 f"{proc.stderr[-4000:]}")
+        child = np.load(got_path)
+        out["child_logit_rel"] = _check_same(child, want,
+                                             "artifact in a child process vs "
+                                             "the engine, B=8")
+        module = torch.export.load(io.BytesIO(blob)).module()
+        xd = torch.from_numpy(x).to(dev)
+        got, launches = _artifact_forward_checked(
+            module, xd, (1, 0, 1), "mn40_12view artifact")
+        out["launches_per_forward"] = launches
+        if not np.array_equal(got, child):
+            log("note: the in-process artifact's logits differ from the "
+                f"child's by {float(np.abs(got - child).max()):.3g}")
+        _check_same(got, want, "artifact in this process vs the engine")
+        with torch.inference_mode():
+            fwd_art = lambda: module(xd)               # noqa: E731
+            fwd_eager = lambda: engine.model(xd)       # noqa: E731
+            times = {}
+            for name, fn in (("artifact", fwd_art), ("eager", fwd_eager),
+                             ("eager2", fwd_eager), ("artifact2", fwd_art)):
+                times[name] = cuda_ms(fn, runs=EXPORT_TIMED_RUNS, warmup=5)
+            kernels = {name: sum(len(v) for v in kernel_durations_us(
+                fn, calls=3).values()) / 3
+                for name, fn in (("artifact", fwd_art), ("eager", fwd_eager))}
+        out.update(artifact_ms=min(times["artifact"], times["artifact2"]),
+                   eager_ms=min(times["eager"], times["eager2"]),
+                   times_ms=times, device_kernels_per_forward=kernels)
+        log(f"B={EXPORT_B} forward, CUDA events, median of "
+            f"{EXPORT_TIMED_RUNS} (artifact, eager, eager, artifact): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + f"; device kernels a forward: {kernels} [{card}]")
+
+        mv = get_config("mn40_12view_mvcnn")
+        t0 = time.perf_counter()
+        blob_mv = export_model(mv, batch_size=EXPORT_B, device="cuda")
+        out["mvcnn_export_s"] = time.perf_counter() - t0
+        out["mvcnn_artifact_bytes"] = len(blob_mv)
+        log(f"exported mn40_12view_mvcnn in {out['mvcnn_export_s']:.2f} s: "
+            f"{len(blob_mv)} bytes")
+        mv_engine = InferenceEngine(mv, device="cuda", buckets=[EXPORT_B])
+        try:
+            want_mv, _ = mv_engine.logits_and_scores(x)
+        finally:
+            mv_engine.close()
+        got_mv, mv_launches = _artifact_forward_checked(
+            torch.export.load(io.BytesIO(blob_mv)).module(), xd, (1, 0, 0),
+            "mn40_12view_mvcnn artifact")
+        out["mvcnn_launches_per_forward"] = mv_launches
+        out["mvcnn_logit_rel"] = _check_same(got_mv, want_mv,
+                                             "MVCNN artifact vs its engine")
+    except BaseException:
+        engine.close()
+        raise
+    return out, engine
+
+
+def _phase_loadgen(card, engine):
+    """Phase 13 (b): run_load on the engine, closed then open loop."""
+    from gvcnn_tf_tpu_torch.tools.loadgen import run_load
+
+    closed = run_load(engine, num_clients=LOAD_CLIENTS, duration_s=LOAD_S,
+                      request_sizes=LOAD_SIZES, warmup_s=LOAD_WARMUP_S)
+    log(f"loadgen closed loop: {json.dumps(closed)} [{card}]")
+    rate = 0.5 * closed["requests"] / LOAD_S
+    opened = run_load(engine, num_clients=LOAD_CLIENTS, duration_s=LOAD_S,
+                      request_sizes=LOAD_SIZES, warmup_s=LOAD_WARMUP_S,
+                      rate_rps=rate)
+    log(f"loadgen open loop at {rate:.2f} requests/s: {json.dumps(opened)} "
+        f"[{card}]")
+    for rep in (closed, opened):
+        sizes = [f"b{n}_p99_ms" for n in LOAD_SIZES]
+        if not (rep["requests"] > 0 and all(k in rep for k in sizes)
+                and 0 < rep["p50_ms"] <= rep["p99_ms"]):
+            raise AssertionError(f"loadgen report {rep}")
+    return {"closed": closed, "open": opened}
+
+
+def _phase_retrieval(card, dev, logdir):
+    """Phase 13 (c): descriptors of phase 9's step-10 checkpoint on the
+    procedural val split, card against CPU, and the retrieval metrics."""
+    import dataclasses
+    import itertools
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.data import make_dataset
+    from gvcnn_tf_tpu_torch.tools.retrieval import (
+        extract_descriptors,
+        retrieval_metrics,
+    )
+
+    base = get_config("mn40_12view")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, dataset="procedural", transfer_dtype="uint8",
+        synthetic_num_shapes=PROC_SHAPES))
+    d, seed = cfg.data, cfg.train.seed
+    _zero_counts()
+    t0 = time.perf_counter()
+    descs, labels = extract_descriptors(cfg, logdir, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    first = itertools.islice(make_dataset(d, train=False, seed=seed),
+                             CPU_SHAPES // d.batch_size)
+    cpu, cpu_labels = extract_descriptors(
+        cfg.replace(compute_dtype="float32"), logdir, dataset_iter=first,
+        device="cpu")
+    norms = np.linalg.norm(descs, axis=1)
+    cos = (descs[:CPU_SHAPES] * cpu).sum(-1)
+    others = cpu @ cpu.T
+    metrics = retrieval_metrics(descs, labels)
+    log(f"retrieval of the step-10 checkpoint, {len(labels)} val shapes on "
+        f"the card in {wall:.2f} s, launches {launches}: norms "
+        f"{norms.min():.7f}-{norms.max():.7f}; card vs CPU per-shape cosine "
+        f"min {cos.min():.7f} (bound {RETRIEVAL_COS_MIN}), mean "
+        f"{cos.mean():.7f}; the CPU's cosine between different shapes min "
+        f"{others[~np.eye(len(cpu), dtype=bool)].min():.5f}; {metrics} "
+        f"[{card}]")
+    if (len(labels) != PROC_SHAPES
+            or not np.array_equal(labels[:CPU_SHAPES], cpu_labels)):
+        raise AssertionError("retrieval labels disagree")
+    if not np.allclose(norms, 1.0, atol=1e-5) or cos.min() < (
+            RETRIEVAL_COS_MIN):
+        raise AssertionError("card and CPU descriptors disagree")
+    if launches != (EVAL_FORWARDS, 0, EVAL_FORWARDS):
+        raise AssertionError(f"retrieval launches {launches}")
+    return dict(metrics, cos_min=float(cos.min()), seconds=wall,
+                launches=launches)
+
+
+def _phase_study(card):
+    """Phase 13 (d): the study tool, both families, seed 0, cut short."""
+    from gvcnn_tf_tpu_torch.tools import proc_benchmark
+
+    a = proc_benchmark._parser().parse_args(STUDY_ARGV)
+    a.width = a.height
+    out = {}
+    for model in ("gvcnn", "mvcnn"):
+        _zero_counts()
+        r = proc_benchmark.run_one(model, a, 0)
+        launches = _counts()
+        forwards = a.steps + 2          # the steps, evaluate, descriptors
+        want = (forwards, 0, forwards if model == "gvcnn" else 0)
+        log(f"study smoke, {model}: {json.dumps(r)}; launches {launches} "
+            f"[{card}]")
+        if list(r) != STUDY_KEYS or r["count"] != 16 or launches != want:
+            raise AssertionError(f"study smoke {model}: {r}, launches "
+                                 f"{launches} (expected {want})")
+        if not all(np.isfinite(r[k]) for k in STUDY_KEYS[2:]):
+            raise AssertionError(f"study smoke {model}: {r}")
+        out[model] = r
+    return out
+
+
+def phase_tools(card, dev, eval_logdir):
+    """Phase 13: export, the load generator, retrieval, the study."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        export, engine = _phase_export(card, dev, root)
+        try:
+            load = _phase_loadgen(card, engine)
+        finally:
+            engine.close()
+        retrieval = _phase_retrieval(card, dev, eval_logdir)
+        study = _phase_study(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(Path(eval_logdir).parent, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 13 in {seconds:.1f} s")
+    return dict(export=export, loadgen=load, retrieval=retrieval,
+                study=study, seconds=seconds)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -1936,6 +2279,9 @@ def main():
     log("phase 11 summary: " + json.dumps(warm))
     dp = phase_parallel(card, dev)
     log("phase 12 summary: " + json.dumps(dp))
+    tools = phase_tools(card, dev, ev["logdir"])
+    log("phase 13 summary: " + json.dumps(tools))
+    per_fwd = tools["export"]["launches_per_forward"]
     dp_per_step = dp["world2"]["launches_per_step"][0]
     kernels = [
         dict(name="stem_conv7x7s2_bf16", route="cuda",
@@ -1949,6 +2295,7 @@ def main():
              warm_start_launches=warm["launches"][0],
              dp_launches_per_step=dp_per_step[0],
              dp_world1_launches=dp["world1"]["launches"][0],
+             export_launches_per_forward=per_fwd[0],
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -1961,6 +2308,7 @@ def main():
              warm_start_launches=warm["launches"][2],
              dp_launches_per_step=dp_per_step[2],
              dp_world1_launches=dp["world1"]["launches"][2],
+             export_launches_per_forward=per_fwd[2],
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}

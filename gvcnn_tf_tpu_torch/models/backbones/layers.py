@@ -174,10 +174,13 @@ class BatchNorm(nn.Module):
 
         With grad mode off they are kept until a parameter or statistic
         changes (storage or version counter), so serving computes them
-        once."""
+        once.  While tracing (`torch.export`) they are computed, not looked
+        up: a traced tensor has no storage to key on, so an exported graph
+        computes them on every call."""
         self._check_eval()
         tensors = self._params()
-        if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+        if (torch.is_grad_enabled() or torch.compiler.is_compiling()
+                or any(t.is_inference() for t in tensors)):
             return self._scale_shift()
         key = tuple((t.data_ptr(), t._version) for t in tensors)
         if self._affine is None or self._affine[0] != key:

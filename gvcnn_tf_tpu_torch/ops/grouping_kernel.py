@@ -19,9 +19,20 @@ CPU tensor), and a backward that replays the plain version's VJP from the
 saved scores and descriptors.  That VJP keeps the scheme detached and the
 straight-through ceil of `ceil_sum`; the scheme's cotangent is accepted
 and is zero by construction.
+
+As an operator: `gvcnn::group_and_fuse` (`torch.ops.gvcnn.group_and_fuse`)
+is the same forward as a `torch.library` custom op, so that `torch.export`
+can trace it (a traced tensor has no data pointer to launch with) and an
+exported artifact calls it: its CPU and CUDA implementation is `_forward`,
+its fake (shape-only) implementation gives three contiguous fp32 tensors
+(B, C), (B, M), (B, M, V).  `group_and_fuse` reaches the op only while
+tracing (`torch.compiler.is_compiling()`); an eager call goes to `_forward`
+directly and pays no dispatch.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -69,27 +80,28 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
                                     or descs.requires_grad):
         return GroupAndFuseFunction.apply(scores, descs, num_group,
                                           weight_mode)
+    if torch.compiler.is_compiling():
+        return torch.ops.gvcnn.group_and_fuse(scores, descs, num_group,
+                                              weight_mode)
     return _forward(scores, descs, num_group, weight_mode)
 
 
 def _forward(scores, descs, num_group, weight_mode):
-    """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
+    """The forward with no autograd: plain on the CPU, the kernel on CUDA;
+    three contiguous outputs that share no memory."""
     if scores.device.type in ("cpu", "meta"):
-        return group_and_fuse_plain(scores, descs, num_group, weight_mode)
+        fused, weights, scheme = group_and_fuse_plain(scores, descs,
+                                                      num_group, weight_mode)
+        return fused, weights, scheme.contiguous()
     if scores.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {scores.device}")
     if scores.device.index != torch.cuda.current_device():
         with torch.cuda.device(scores.device):
             return _forward(scores, descs, num_group, weight_mode)
     _check_cuda_args(scores, descs, num_group, weight_mode)
+    fused, weights, scheme = _empty_outputs(scores, descs, num_group)
     b, v, c = descs.shape
     m = num_group
-    # One allocation holds the three contiguous outputs back to back.
-    out = torch.empty(b * (c + m + m * v), dtype=torch.float32,
-                      device=descs.device)
-    fused = out.as_strided((b, c), (c, 1))
-    weights = out.as_strided((b, m), (m, 1), b * c)
-    scheme = out.as_strided((b, m, v), (m * v, v, 1), b * (c + m))
     if b == 0:
         return fused, weights, scheme
     code = _build.library().group_and_fuse_f32(
@@ -102,6 +114,28 @@ def _forward(scores, descs, num_group, weight_mode):
 
 
 group_and_fuse.launches = 0
+
+
+def _empty_outputs(scores, descs, num_group):
+    """fused (B, C), weights (B, M), scheme (B, M, V): fp32, contiguous,
+    each its own allocation (an operator's outputs may not alias)."""
+    b, v, c = descs.shape
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=descs.device)
+    return new(b, c), new(b, num_group), new(b, num_group, v)
+
+
+@torch.library.custom_op("gvcnn::group_and_fuse", mutates_args=())
+def group_and_fuse_op(scores: torch.Tensor, descs: torch.Tensor,
+                      num_group: int, weight_mode: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`gvcnn::group_and_fuse`: `_forward` as an operator (no autograd)."""
+    return _forward(scores, descs, num_group, weight_mode)
+
+
+@group_and_fuse_op.register_fake
+def _group_and_fuse_fake(scores, descs, num_group, weight_mode):
+    return _empty_outputs(scores, descs, num_group)
 
 
 class GroupAndFuseFunction(torch.autograd.Function):

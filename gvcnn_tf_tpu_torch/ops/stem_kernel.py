@@ -41,6 +41,18 @@ reads is the incoming gradient, used in place as a channels-last NCHW view
 of the NHWC output; the padded copy of x is the input's size (3 channels).
 The epilogue is eval-only: a call with scale/shift that needs a gradient
 raises (`Stem` runs its train-mode BatchNorm as its own pass).
+
+As an operator: `gvcnn::stem_conv7x7s2` (`torch.ops.gvcnn.stem_conv7x7s2`)
+is the same forward as a `torch.library` custom op, so that `torch.export`
+can trace it (a traced tensor has no data pointer to launch with) and an
+exported artifact calls it: its CPU and CUDA implementation is
+`_stem_forward`, its fake (shape-only) implementation gives a contiguous
+(N, ceil(H/2), ceil(W/2), 64) tensor in x's dtype.  `stem_conv` reaches the
+op only while tracing (`torch.compiler.is_compiling()`); an eager call goes
+to `_stem_forward` directly and pays no dispatch.  The packed weight is
+made inside the implementation, so an artifact packs it at its first call
+and keeps it as an eager forward does (`_packed_weight`) when run with grad
+mode off.
 """
 
 from __future__ import annotations
@@ -185,6 +197,8 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
                 "and has no gradient; run the conv alone and BatchNorm after "
                 "it (Stem does so in train mode)")
         return StemConvFunction.apply(x, weight)
+    if torch.compiler.is_compiling():
+        return torch.ops.gvcnn.stem_conv7x7s2(x, weight, scale, shift, relu)
     return _stem_forward(x, weight, scale, shift, relu)
 
 
@@ -200,7 +214,7 @@ def _stem_forward(x, weight, scale=None, shift=None, relu=False):
     name = _check_cuda_args(x, weight, scale, shift)
     n, h, w, _ = x.shape
     ho, wo = -(-h // _STRIDE), -(-w // _STRIDE)
-    out = torch.empty((n, ho, wo, _COUT), dtype=x.dtype, device=x.device)
+    out = _empty_output(x)
     if out.numel() == 0:
         return out
     packed = _packed_weight(weight)
@@ -220,6 +234,27 @@ def _stem_forward(x, weight, scale=None, shift=None, relu=False):
 
 stem_conv.launches = 0
 stem_conv.launches_f32 = 0
+
+
+def _empty_output(x: torch.Tensor) -> torch.Tensor:
+    """The (N, ceil(H/2), ceil(W/2), 64) NHWC output in x's dtype."""
+    n, h, w, _ = x.shape
+    return x.new_empty((n, -(-h // _STRIDE), -(-w // _STRIDE), _COUT))
+
+
+@torch.library.custom_op("gvcnn::stem_conv7x7s2", mutates_args=())
+def stem_conv_op(x: torch.Tensor, weight: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None,
+                 shift: Optional[torch.Tensor] = None,
+                 relu: bool = False) -> torch.Tensor:
+    """`gvcnn::stem_conv7x7s2`: `_stem_forward` as an operator (no
+    autograd)."""
+    return _stem_forward(x, weight, scale, shift, relu)
+
+
+@stem_conv_op.register_fake
+def _stem_conv_fake(x, weight, scale=None, shift=None, relu=False):
+    return _empty_output(x)
 
 
 def stem_conv_backward(x: torch.Tensor, weight: torch.Tensor,

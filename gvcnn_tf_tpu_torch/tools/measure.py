@@ -5,6 +5,7 @@
     python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py dp-drift [--config C]    # CPU
+    python gvcnn_tf_tpu_torch/tools/measure.py retrieval-drift [--size N] # CPU
 
 `wrappers`: each kernel wrapper at the main path's shapes (the stem at 96
 and 12 views of 224x224; the grouping head at B = 8 and 1, 12 views,
@@ -57,16 +58,23 @@ against one process's step on the B = 4 batch, seeds 0-2: loss and
 grad_norm relative gaps and the `Logits` gradient's cosine, the numbers
 `chip_smoke.py` phase 12's global-mode bounds come from.
 
+`retrieval-drift` (on the CPU, no device measurement): `extract_descriptors`
+of `--config` (seeded weights, BatchNorm at its init statistics) over the
+first 8 procedural validation shapes at 96x96 (`--size`), seeds 0-2, in the
+config's compute dtype against fp32: the smallest and the mean per-shape
+cosine of the descriptors, the numbers `chip_smoke.py` phase 13's
+card-vs-CPU retrieval bound comes from.
+
 Each result is one line of JSON (after the card's name and power limit);
-TF32 as PyTorch's defaults, as the port runs.  Except for `train-drift`,
-`serve-drift` and `dp-drift`, it needs a card: without one it exits
-non-zero.
+TF32 as PyTorch's defaults, as the port runs.  Except for the four
+`-drift` runs, it needs a card: without one it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -85,6 +93,7 @@ DRIFT_RUNS_75 = ((80, 0), (80, 1), (80, 2), (96, 0))
 # A parameter's gradient norm below this share of the global norm, on both
 # sides of a drift comparison, is rounding noise (`train_step_drift`).
 NOISE_REL = 1e-6
+PROFILE_TRIES = 3
 
 
 def cuda_ms(fn, runs=30, warmup=5):
@@ -151,12 +160,18 @@ def kernel_durations_us(fn, calls=20):
 
 def kernel_us(fn, name_part, calls=20):
     """Mean device duration in us of the launches of the kernel whose name
-    contains `name_part`, and their count per fn() call."""
-    durs = [d for name, ds in kernel_durations_us(fn, calls).items()
-            if name_part in name for d in ds]
-    if not durs:
-        raise RuntimeError(f"the profiler saw no kernel named *{name_part}*")
-    return statistics.fmean(durs), len(durs) / calls
+    contains `name_part`, and their count per fn() call.  A window in
+    which the profiler saw none of them is profiled again, up to
+    PROFILE_TRIES windows: on the card's machine the profiler once returned
+    no activity for a window of 20 grouping-kernel launches that the same
+    script profiled in every other run."""
+    for _ in range(PROFILE_TRIES):
+        durs = [d for name, ds in kernel_durations_us(fn, calls).items()
+                if name_part in name for d in ds]
+        if durs:
+            return statistics.fmean(durs), len(durs) / calls
+    raise RuntimeError(f"the profiler saw no kernel named *{name_part}* in "
+                       f"{PROFILE_TRIES} windows")
 
 
 def card_line():
@@ -489,6 +504,31 @@ def serve_drift(cfg, seed=0, calibrate=False):
     return out
 
 
+def retrieval_drift(cfg, seed=0, shapes=8):
+    """`extract_descriptors` of `cfg` (seeded weights, BatchNorm at its
+    init statistics, as a short run leaves them) on the CPU over the first
+    `shapes` shapes of the procedural validation split, in its compute
+    dtype against fp32 -> {cos_min, cos_mean}: the per-shape cosine of the
+    two L2-normalized descriptors."""
+    from gvcnn_tf_tpu_torch.bridge import state_dict_to_jax
+    from gvcnn_tf_tpu_torch.data import make_dataset
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.tools.retrieval import extract_descriptors
+
+    ref = init_weights(build_model(cfg.replace(compute_dtype="float32")),
+                       seed)
+    variables = state_dict_to_jax(ref.state_dict())
+    data = dataclasses.replace(cfg.data, dataset="procedural",
+                               transfer_dtype="uint8", batch_size=shapes,
+                               synthetic_num_shapes=shapes)
+    batch = next(make_dataset(data, train=False, seed=seed, num_epochs=1))
+    got, want = (extract_descriptors(
+        c.replace(data=data), state=variables, dataset_iter=[batch],
+        device="cpu")[0] for c in (cfg, cfg.replace(compute_dtype="float32")))
+    cos = (got * want).sum(-1)
+    return dict(cos_min=float(cos.min()), cos_mean=float(cos.mean()))
+
+
 def dp_drift_rank(init_method, out_dir, cfg, batch):
     """One rank of `dp_drift`: one global-mode step on its rows of batch."""
     from gvcnn_tf_tpu_torch.parallel import (
@@ -585,7 +625,8 @@ def profile_train(dev, config="mn40_12view", top=25):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("wrappers", "profile", "train-drift",
-                                     "serve-drift", "dp-drift"))
+                                     "serve-drift", "dp-drift",
+                                     "retrieval-drift"))
     ap.add_argument("--root", default=None,
                     help="checkout whose gvcnn_tf_tpu_torch to measure "
                     "(default: the one holding this file)")
@@ -597,8 +638,8 @@ def main(argv=None):
     ap.add_argument("--backbone", default=None,
                     help="serve-drift: swap the config's backbone")
     ap.add_argument("--size", type=int, default=None,
-                    help="train-drift, serve-drift, dp-drift: the views' "
-                    "size")
+                    help="train-drift, serve-drift, dp-drift, "
+                    "retrieval-drift: the views' size")
     ap.add_argument("--calibrate", action="store_true",
                     help="serve-drift: BatchNorm statistics calibrated to "
                     "the views (`calibrate_bn`)")
@@ -606,8 +647,6 @@ def main(argv=None):
     sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
     if args.what == "serve-drift":
         from gvcnn_tf_tpu_torch import get_config
-
-        import dataclasses
 
         base = get_config(args.config)
         if args.backbone:
@@ -622,10 +661,23 @@ def main(argv=None):
                     f"CPU, {size}x{size}, seed {seed}{calibrated}",
                 **serve_drift(cfg, seed, args.calibrate))), flush=True)
         return 0
-    if args.what == "dp-drift":
+    if args.what == "retrieval-drift":
         from gvcnn_tf_tpu_torch import get_config
 
-        import dataclasses
+        base = get_config(args.config)
+        size = args.size or 96
+        cfg = base.replace(data=dataclasses.replace(
+            base.data, height=size, width=size))
+        for seed in range(3):
+            print(json.dumps(dict(
+                run=f"retrieval-drift of {args.config} on the CPU "
+                    f"({cfg.compute_dtype} vs fp32), {size}x{size}, "
+                    f"{cfg.data.num_views} views, 8 procedural val shapes, "
+                    f"seed {seed}", **retrieval_drift(cfg, seed))),
+                flush=True)
+        return 0
+    if args.what == "dp-drift":
+        from gvcnn_tf_tpu_torch import get_config
 
         base = get_config(args.config)
         size = args.size or 64
@@ -640,8 +692,6 @@ def main(argv=None):
         return 0
     if args.what == "train-drift":
         from gvcnn_tf_tpu_torch import get_config
-
-        import dataclasses
 
         base = get_config(args.config)
         runs = (DRIFT_RUNS_75 if base.backbone in ("inception_v3",

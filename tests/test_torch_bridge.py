@@ -128,8 +128,9 @@ def test_config_from_flags_equal_jax(argv):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port, and reading an Orbax checkpoint of the JAX
-    package with it, imports neither JAX, Orbax nor the JAX package."""
+    """Importing the port (its tools too), and reading an Orbax checkpoint
+    of the JAX package with it, imports neither JAX, Orbax nor the JAX
+    package."""
     import orbax.checkpoint as ocp
 
     with ocp.StandardCheckpointer() as ckptr:
@@ -143,6 +144,10 @@ def test_port_never_imports_jax(tmp_path):
             "gvcnn_tf_tpu_torch.tools.render_meshes, "
             "gvcnn_tf_tpu_torch.tools.make_demo_meshes, "
             "gvcnn_tf_tpu_torch.tools.import_slim_checkpoint, "
+            "gvcnn_tf_tpu_torch.tools.export_model, "
+            "gvcnn_tf_tpu_torch.tools.loadgen, "
+            "gvcnn_tf_tpu_torch.tools.retrieval, "
+            "gvcnn_tf_tpu_torch.tools.proc_benchmark, "
             "gvcnn_tf_tpu_torch.parallel, "
             "gvcnn_tf_tpu_torch.parallel.collectives; "
             "from gvcnn_tf_tpu_torch.checkpoint import read_orbax; "

@@ -27,6 +27,11 @@ views, B = 4 (`test_eval_on_the_card`, its bounds in its docstring).
 
 Data parallelism: a world of one rank over NCCL takes three steps equal to
 the plain step's bit for bit (`test_world_of_one_over_nccl_is_the_plain_step`).
+
+Export: `torch.library.opcheck` of both ops on CUDA tensors, and an
+mn40_12view artifact exported on the card (64x64, 4 views, B = 2, bf16):
+one launch of each kernel a forward, logits within 1e-2 of max|logit| of
+the eager model's (expected equal: the same kernels and convs).
 """
 
 import numpy as np
@@ -531,3 +536,88 @@ def test_world_of_one_over_nccl_is_the_plain_step(cuda, tmp_path):
     finally:
         shutdown(world)
         torch.backends.cudnn.deterministic = deterministic
+
+
+OPCHECK_CASES = ["stem_bf16", "stem_bf16_epilogue", "stem_f32_epilogue",
+                 "grouping_mean", "grouping_ceil_sum"]
+
+
+@pytest.mark.parametrize("case", OPCHECK_CASES)
+def test_ops_opcheck_on_the_card(cuda, case):
+    """`torch.library.opcheck` of `gvcnn::stem_conv7x7s2` and
+    `gvcnn::group_and_fuse` on CUDA tensors (the kernels' implementation)."""
+    rs = np.random.RandomState(len(case))
+    if case.startswith("stem"):
+        dtype = torch.float32 if "f32" in case else torch.bfloat16
+        x = torch.from_numpy(rs.randn(2, 30, 34, 3).astype(np.float32))
+        w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+            np.float32))
+        affine = ((torch.rand(64, device=cuda) + 0.5,
+                   torch.randn(64, device=cuda)) if "epilogue" in case
+                  else (None, None))
+        torch.library.opcheck(torch.ops.gvcnn.stem_conv7x7s2.default, (
+            x.to(cuda, dtype), w.to(cuda, dtype), *affine,
+            "epilogue" in case))
+    else:
+        scores = torch.softmax(torch.from_numpy(
+            rs.randn(3, 12).astype(np.float32)), -1).to(cuda)
+        descs = torch.from_numpy(rs.randn(3, 12, 1024).astype(
+            np.float32)).to(cuda)
+        torch.library.opcheck(torch.ops.gvcnn.group_and_fuse.default,
+                              (scores, descs, 8, case.split("_", 1)[1]))
+
+
+@pytest.fixture(scope="module")
+def small_artifact():
+    """mn40_12view at 64x64, 4 views, bf16, exported on the card at B = 2
+    (seeded weights, folded BN) -> (loaded module, the eager model, x)."""
+    import dataclasses
+    import io
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.models.gvcnn import (
+        build_model,
+        init_weights,
+        to_device,
+    )
+    from gvcnn_tf_tpu_torch.tools.export_model import export_model
+    from gvcnn_tf_tpu_torch.utils import fold_batch_norm
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    base = get_config("mn40_12view")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, height=64, width=64, num_views=4, batch_size=2))
+    module = torch.export.load(io.BytesIO(export_model(
+        cfg, device="cuda"))).module()
+    eager = fold_batch_norm(init_weights(build_model(cfg), cfg.train.seed))
+    eager = to_device(eager.cast_convs_(), dev).eval()
+    x = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, (2, 4, 64, 64, 3)).astype(np.float32)).to(dev)
+    return module, eager, x
+
+
+def test_artifact_launches_each_kernel_once_a_forward(cuda, small_artifact):
+    module, _, x = small_artifact
+    before = (stem_conv.launches, group_and_fuse.launches)
+    with torch.inference_mode():
+        module(x)
+        module(x)
+    torch.cuda.synchronize()
+    assert (stem_conv.launches - before[0],
+            group_and_fuse.launches - before[1]) == (2, 2)
+
+
+def test_artifact_equals_the_eager_forward(cuda, small_artifact):
+    """The artifact and the eager model run the same kernels and cuDNN
+    convs in bf16: within 1e-2 of max|logit| (a few bf16 roundings; they
+    are expected equal), argmax equal."""
+    module, eager, x = small_artifact
+    with torch.inference_mode():
+        got, probs = module(x)
+        want, ep = eager(x)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-2 * scale
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(probs, ep["Predictions"], rtol=0, atol=1e-2)

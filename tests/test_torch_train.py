@@ -34,6 +34,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -328,13 +329,26 @@ def test_train_step_drift_of_a_step_against_itself_is_zero():
     assert grad_group("Logits.weight") == "Logits/kernel"
 
 
-def test_sigterm_saves_and_stops(tmp_path):
+def test_sigterm_saves_and_stops(tmp_path, monkeypatch):
     cfg = _loop_cfg(tmp_path, checkpoint_every=100)
     from gvcnn_tf_tpu_torch.data import make_dataset
+
+    # The prefetcher's thread reads the stream ahead of the loop; on a busy
+    # host it could reach the third batch before step 1 has begun.  The
+    # signal waits for step 1 to start, so it lands during step 1 or 2.
+    started = threading.Event()
+    real_step = port_train.train_step
+
+    def train_step(*args, **kw):
+        started.set()
+        return real_step(*args, **kw)
+
+    monkeypatch.setattr(port_train, "train_step", train_step)
 
     def stream():
         for i, batch in enumerate(make_dataset(cfg.data, train=True)):
             if i == 2:
+                assert started.wait(timeout=120)
                 os.kill(os.getpid(), signal.SIGTERM)
             yield batch
 
