@@ -1,5 +1,7 @@
 """Input pipeline of the port: the synthetic stream, the procedural split,
-the dataset dispatch and the host-to-device prefetcher."""
+the file loaders (the native decode pool, the decode-once cache, the
+TFRecord reader; imported where used), the dataset dispatch and the
+host-to-device prefetcher."""
 
 from gvcnn_tf_tpu_torch.data.pipeline import (  # noqa: F401
     dataset_size,

@@ -1,29 +1,36 @@
 """Dataset dispatch: config -> iterator of host batches (counterpart of
 `gvcnn_tf_tpu/data/pipeline.py`).
 
-The port has the synthetic stream (what the JAX package picks when no
-`dataset_dir` is given) and the procedural split (`dataset="procedural"` or
-`"procedural_hard"`), which can yield raw uint8 views for the uint8 wire.
-Every other loader, and `device_resident="on"`, is refused with the ROADMAP
-item that ports it.  `device_resident="auto"` streams every split through
-the prefetcher, where the JAX package stages a procedural train split on
-the device under `auto` when the uint8 wire is on.  The batches are the
-same either way: the JAX package's staged split draws the same per-epoch
-permutation as its stream (`RandomState(seed + 7 + shard_index)`), so the
-port's streamed batches match the reference's batch for batch.
+Every loader of the JAX package, dispatched by its rule: the synthetic
+stream (no `dataset_dir`), the procedural split (`dataset="procedural"` or
+`"procedural_hard"`), and over a rendered-view tree or the TFRecords built
+from one the native decode pool (`native`), the decode-once cache
+(`decoded`) and the TFRecord reader (`tfrecord`), none of which needs
+TensorFlow.  A loader that cannot run here raises with the reason (the
+native pool needs a C++ compiler, libjpeg and libpng); nothing falls back
+to another loader.  Where the pool cannot be built, the decoded cache and
+the TFRecord reader decode with PIL if it imports, and say so in the log.
+`device_resident="on"` is refused with the ROADMAP item that ports it;
+`"auto"` streams every split through the prefetcher, where
+the JAX package stages a procedural train split on the device under `auto`
+when the uint8 wire is on.  The batches are the same either way: the JAX
+package's staged split draws the same per-epoch permutation as its stream
+(`RandomState(seed + 7 + shard_index)`).
+
+The synthetic and procedural streams save their position (`state_dict`),
+so a resumed run continues them; the file loaders restart from their seed,
+as every loader does in the JAX package.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Optional, Union
+from typing import Iterator, Optional
 
 from gvcnn_tf_tpu_torch.configs import DataConfig
 from gvcnn_tf_tpu_torch.data.procedural import ProceduralStream
 from gvcnn_tf_tpu_torch.data.synthetic import SyntheticStream
-
-_PORTED = ("synthetic", "procedural")
 
 
 def _resolve_loader(data_cfg: DataConfig) -> str:
@@ -41,33 +48,52 @@ def _resolve_loader(data_cfg: DataConfig) -> str:
     return loader
 
 
-def dataset_size(data_cfg: DataConfig) -> Optional[int]:
-    """Number of shapes in the split (the synthetic or procedural one), or
-    None."""
-    if _resolve_loader(data_cfg) in _PORTED:
+def _split_files(data_cfg: DataConfig, train: bool):
+    split = "train" if train else "validation"
+    pattern = os.path.join(data_cfg.dataset_dir, f"{split}-*.tfrecord")
+    return pattern, glob.glob(pattern)
+
+
+def dataset_size(data_cfg: DataConfig, *, train: bool = True,
+                 cheap_only: bool = False) -> Optional[int]:
+    """Number of shapes in the split, or None if unknown (the JAX rule).
+
+    Used for epoch accounting.  Counting TFRecords reads every frame
+    header of the split's files, so it is skipped under `cheap_only`
+    (synthetic, procedural and image-tree counts are free)."""
+    loader = _resolve_loader(data_cfg)
+    if loader in ("synthetic", "procedural"):
         return data_cfg.synthetic_num_shapes
-    return None
+    if loader in ("native", "decoded"):
+        from gvcnn_tf_tpu_torch.data.tfrecord import discover_shapes
+
+        shapes, _ = discover_shapes(data_cfg.dataset_dir)
+        return sum(1 for _, _, v in shapes if len(v) >= data_cfg.num_views)
+    if cheap_only:
+        return None
+    from gvcnn_tf_tpu_torch.data.tfrecord import count_records
+
+    _, files = _split_files(data_cfg, train)
+    if not files:
+        return None
+    return sum(count_records(f) for f in files)
 
 
 def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
                  num_epochs: Optional[int] = None, shard_index: int = 0,
-                 num_shards: int = 1
-                 ) -> Union[SyntheticStream, ProceduralStream]:
-    """The split's stream for a config (`num_epochs` None: endless);
-    refuses what is not ported.
+                 num_shards: int = 1) -> Iterator[dict]:
+    """The split's iterator of numpy batches for a config (`num_epochs`
+    None: endless; the TFRecord reader repeats in train mode and reads once
+    in eval, as the JAX one does).
 
     `shard_index`/`num_shards`: data-parallel input sharding, as in the JAX
-    package: each rank streams a disjoint subset of the split (every
-    num_shards-th shape, its own shuffle) at its local batch size
-    (`data_cfg.batch_size` here is the rank's; `train` divides the global
-    batch by the world's size before calling)."""
+    package: each rank streams a disjoint subset of the split at its local
+    batch size (`data_cfg.batch_size` here is the rank's; `train` divides
+    the global batch by the world's size before calling)."""
     loader = _resolve_loader(data_cfg)
-    if loader not in _PORTED:
-        raise NotImplementedError(
-            f"loader {loader!r} is not ported yet (ROADMAP §1 item 7, the "
-            "other loaders: tfrecord, native, decoded); with no "
-            "--dataset_dir the synthetic stream is used, and "
-            "--dataset procedural renders the procedural split")
+    if loader not in ("synthetic", "procedural", "native", "decoded",
+                      "tfrecord"):
+        raise ValueError(f"unknown loader {loader!r}")
     if data_cfg.device_resident == "on":
         raise NotImplementedError(
             "device_resident='on' is not ported (ROADMAP §1 item 15, "
@@ -78,12 +104,50 @@ def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
             f"transfer_dtype='uint8' requires a loader that yields raw "
             f"uint8 views (procedural, native, tfrecord, decoded); got "
             f"loader={loader!r}. Use 'auto'/'bfloat16'/'float32' here.")
+    geometry = dict(num_views=data_cfg.num_views, height=data_cfg.height,
+                    width=data_cfg.width, batch_size=data_cfg.batch_size)
+    shards = dict(shard_index=shard_index, num_shards=num_shards)
+
+    if loader == "decoded":
+        from gvcnn_tf_tpu_torch.data.decoded_cache import decoded_dataset
+
+        return decoded_dataset(
+            data_cfg.dataset_dir, train=train, num_epochs=num_epochs,
+            seed=seed, raw_uint8=uint8,
+            # device_flip moves the random flip into the train step
+            # (train.py): the host must then stream VERBATIM batches or
+            # views would be flipped twice.
+            augment=data_cfg.augment and not data_cfg.device_flip,
+            **geometry, **shards)
+
+    if loader == "native":
+        from gvcnn_tf_tpu_torch.data import native_loader
+
+        native_loader.library()         # raises with what is missing
+        return native_loader.native_dataset(
+            data_cfg.dataset_dir, train=train, num_epochs=num_epochs,
+            seed=seed, raw_uint8=uint8, **geometry, **shards)
+
+    if loader == "tfrecord":
+        from gvcnn_tf_tpu_torch.data.tfrecord import tfrecord_dataset
+
+        pattern, files = _split_files(data_cfg, train)
+        if not files:
+            raise FileNotFoundError(
+                f"no TFRecords matching {pattern}; build them with "
+                "`python -m gvcnn_tf_tpu_torch.data.build_tfrecords`")
+        return tfrecord_dataset(
+            pattern, train=train, augment=data_cfg.augment,
+            shuffle_buffer=data_cfg.shuffle_buffer,
+            crop_fraction=data_cfg.crop_fraction, seed=seed,
+            # Eval scores the FULL split: the ragged tail batch is kept and
+            # the eval loop pads and masks it.
+            drop_remainder=train, preprocessing=data_cfg.preprocessing,
+            raw_uint8=uint8, **geometry, **shards)
+
     kw = dict(num_classes=data_cfg.num_classes,
-              num_views=data_cfg.num_views, height=data_cfg.height,
-              width=data_cfg.width, batch_size=data_cfg.batch_size,
               num_shapes=data_cfg.synthetic_num_shapes, seed=seed,
-              train=train, num_epochs=num_epochs, shard_index=shard_index,
-              num_shards=num_shards)
+              train=train, num_epochs=num_epochs, **geometry, **shards)
     if loader == "procedural":
         return ProceduralStream(hard=data_cfg.dataset == "procedural_hard",
                                 raw_uint8=uint8, **kw)

@@ -1,23 +1,34 @@
-"""Mesh readers for OFF/OBJ trees in the ModelNet layout (a copy of
-`gvcnn_tf_tpu/tools/render_meshes.py:35-137`, numpy only).
+"""Render OFF/OBJ mesh trees (ModelNet layout) into multi-view images (a
+copy of `gvcnn_tf_tpu/tools/render_meshes.py`, numpy only).
 
 `load_off`, `load_obj` and `load_mesh` parse a mesh into (verts, faces);
-`discover_meshes` lists a tree's meshes.  `predict.py --mesh_file` renders
-meshes read here with `data/procedural.py::render_views`.  The JAX
-package's `render_tree`, which writes the rendered views as PNG trees for
-the image-tree loaders, is not ported yet (ROADMAP §1 item 7, the other
-loaders).
+`discover_meshes` lists a tree's meshes; `render_tree` renders each mesh's
+MVCNN-style V-view orbit (`data/procedural.py::render_views`, the NumPy
+z-buffer rasterizer) and writes the views as PNG (`utils/png.py`, no PIL:
+the same pixels as the JAX tool's PIL-written files), so a user holding
+only mesh archives can go mesh -> views -> TFRecords -> train.
+`predict.py --mesh_file` renders meshes read here too.
+
+    python -m gvcnn_tf_tpu_torch.tools.render_meshes \
+        --mesh_dir /data/ModelNet40 --split train \
+        --output_dir /data/modelnet40_views/train --num_views 12 --res 224
+    python -m gvcnn_tf_tpu_torch.data.build_tfrecords \
+        --image_dir /data/modelnet40_views/train --output_dir ... --num_views 12
 
 ModelNet mesh layout: `<root>/<class>/<train|test>/<shape>.off`; flat
-`<root>/<class>/*.off` trees are also accepted.
+`<root>/<class>/*.off` trees are also accepted (then --split is ignored).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import List, Tuple
 
 import numpy as np
+
+from gvcnn_tf_tpu_torch.data.procedural import render_views
+from gvcnn_tf_tpu_torch.utils.png import write_png
 
 
 def load_off(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -123,3 +134,58 @@ def discover_meshes(mesh_dir: str, split: str) -> List[Tuple[str, str, str]]:
                     (cls, os.path.splitext(fn)[0], os.path.join(scan, fn))
                 )
     return out
+
+
+def render_tree(
+    mesh_dir: str,
+    output_dir: str,
+    *,
+    split: str = "train",
+    num_views: int = 12,
+    res: int = 224,
+    limit: int = 0,
+) -> int:
+    """Render every mesh into `<output_dir>/<class>/<shape>/view_##.png`
+    (layout 1 of data/tfrecord.py::discover_shapes). -> #shapes rendered."""
+    meshes = discover_meshes(mesh_dir, split)
+    if limit:
+        meshes = meshes[:limit]
+    for n, (cls, shape_id, path) in enumerate(meshes):
+        verts, faces = load_mesh(path)
+        if len(verts) == 0 or len(faces) == 0:
+            print(f"[render_meshes] skipping empty mesh {path}")
+            continue
+        imgs = render_views(verts, faces, num_views, res)
+        odir = os.path.join(output_dir, cls, shape_id)
+        os.makedirs(odir, exist_ok=True)
+        for i in range(num_views):
+            arr = np.repeat(
+                (imgs[i] * 255).astype(np.uint8)[..., None], 3, axis=-1
+            )
+            write_png(os.path.join(odir, f"view_{i:02d}.png"), arr)
+        if (n + 1) % 50 == 0:
+            print(f"[render_meshes] {n + 1}/{len(meshes)} shapes",
+                  flush=True)
+    return len(meshes)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--mesh_dir", required=True,
+                   help="ModelNet-style root: <class>/<split>/<shape>.off")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--split", default="train", help="train | test")
+    p.add_argument("--num_views", type=int, default=12)
+    p.add_argument("--res", type=int, default=224)
+    p.add_argument("--limit", type=int, default=0,
+                   help="render at most N shapes (0 = all)")
+    args = p.parse_args(argv)
+    n = render_tree(
+        args.mesh_dir, args.output_dir, split=args.split,
+        num_views=args.num_views, res=args.res, limit=args.limit,
+    )
+    print(f"[render_meshes] rendered {n} shapes -> {args.output_dir}")
+
+
+if __name__ == "__main__":
+    main()

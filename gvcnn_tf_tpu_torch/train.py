@@ -13,16 +13,19 @@ through autograd (the same sum, without ~250 small ops a step).
 `train(config)` is the training loop: an optional warm start from
 `checkpoint_path` (`checkpoint.warm_start_model`: an Orbax directory of the
 JAX package, one of the port's training runs, or the slim importer's
-output, without `checkpoint_exclude_scopes`), then the synthetic or
-procedural stream through a pinned, one-batch-ahead host-to-device
-prefetcher (uint8 views are normalized on the device), a JSON metrics line
+output, without `checkpoint_exclude_scopes`), then the config's loader
+(the synthetic or procedural stream, or a rendered tree through the native,
+decoded or TFRecord loader, `data/pipeline.py`) through a pinned,
+one-batch-ahead host-to-device prefetcher (uint8 views are normalized on
+the device; the decoded loader's flip runs on the card), a JSON metrics line
 every `log_every` steps, a checkpoint (`checkpoint.py`) every
 `checkpoint_every` steps and at the end, with `eval_every` the validation
 split scored every that many steps (`eval.evaluate` on the training model,
 put back in train mode after), a final save on SIGTERM, and resume from the
 latest checkpoint in `train_logdir`.  A checkpoint also holds the data
 stream's generator state, so a resumed run continues the stream where it
-stopped (the JAX package restarts the stream from its seed), and the run's
+stopped (the JAX package restarts the stream from its seed; so do the
+port's file loaders), and the run's
 config (`run_identity`): a run refuses to resume from a checkpoint whose
 config differs in more than its length, cadence and directory.  Dropout
 masks come from a `torch.Generator` on the model's device, reseeded from
@@ -91,7 +94,11 @@ from gvcnn_tf_tpu_torch.parallel import (
 )
 from gvcnn_tf_tpu_torch.parallel import collectives
 from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
-from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
+from gvcnn_tf_tpu_torch.utils import (
+    device_flip,
+    normalize_views,
+    resolve_device,
+)
 
 # ---------------------------------------------------------------------------
 # Schedule and optimizer (optax's semantics)
@@ -318,6 +325,26 @@ def dropout_seed(seed: int, step: int, micro: int,
     return (int(state[0]) << 31) | (int(state[1]) >> 1)
 
 
+def flip_mask(state: TrainState, config: GVCNNConfig,
+              shape: Tuple[int, int]) -> torch.Tensor:
+    """The on-card flip's Bernoulli(0.5) mask of one step, (B, V) bool on
+    the model's device, drawn from the step's generator reseeded from
+    (`train.seed`, step, "FLP").  Over several ranks it is cut from one
+    mask of the global batch, or with `bn_sync="local"` drawn per rank, as
+    the dropout masks are."""
+    world = state.world
+    local_bn = config.bn_sync == "local" and world.size > 1
+    entropy = [config.train.seed, state.step, 0x464C50] + (
+        [world.rank] if local_bn else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    state.generator.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
+    b, v = shape
+    ranks = world.size if world.size > 1 and not local_bn else 1
+    mask = torch.rand((ranks * b, v), generator=state.generator,
+                      device=state.generator.device) < 0.5
+    return mask[world.rank * b:(world.rank + 1) * b] if ranks > 1 else mask
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                config: GVCNNConfig) -> Dict[str, torch.Tensor]:
     """One optimizer step on `batch` {'views' (B, V, H, W, 3) float or
@@ -353,12 +380,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                         mask (the rank folded into the seed); with k > 1
                         its contiguous rows are cut into microbatches.
 
-    With one rank both modes are the single-process step."""
+    With one rank both modes are the single-process step.
+
+    The decoded loader's on-card flip (the JAX step's `device_flip`): with
+    `loader="decoded"`, `augment` and `device_flip`, each (shape, view) of
+    a 5-D batch is mirrored along W with probability 0.5 (`flip_mask`),
+    on the card, before normalization; the host streamed the batch
+    verbatim."""
     tc = config.train
     model, opt, world = state.model, state.optimizer, state.world
     if not model.training:
         model.train()
-    views = normalize_views(batch["views"])
+    views = batch["views"]
+    if (config.data.loader == "decoded" and config.data.augment
+            and config.data.device_flip and views.ndim == 5):
+        views = device_flip(views, flip_mask(state, config, views.shape[:2]))
+    views = normalize_views(views)
     labels = batch["label"]
     k = max(tc.accumulate_steps, 1)
     b = views.shape[0]
@@ -518,7 +555,9 @@ def _train(config, num_steps, dataset_iter, writer, world: World):
     num_steps = num_steps if num_steps is not None else tc.num_steps
     steps_per_epoch = tc.steps_per_epoch
     if steps_per_epoch <= 0:
-        n = dataset_size(config.data)
+        # A TFRecord count reads every frame header: only pay it when the
+        # run is epoch-denominated.
+        n = dataset_size(config.data, train=True, cheap_only=tc.epochs <= 0)
         if n:
             steps_per_epoch = max(n // config.data.batch_size, 1)
     if tc.epochs > 0:

@@ -1,7 +1,7 @@
 """The port's input pipeline and metrics against the JAX package's copies:
 the synthetic stream byte for byte, its saved position, the loader
-dispatch and its refusals, the host-to-device prefetcher on the CPU, the
-transfer-dtype rule and the metric writer."""
+dispatch (the image-tree loaders too) and its refusals, the host-to-device
+prefetcher on the CPU, the transfer-dtype rule and the metric writer."""
 
 import dataclasses
 import importlib
@@ -86,15 +86,47 @@ def test_make_dataset_matches_jax_for_the_synthetic_loader():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(loader="native"), "item 7"),
-    (dict(dataset_dir="/nonexistent"), "item 7"),
-    (dict(loader="decoded"), "item 7"),
     (dict(device_resident="on"), "item 15"),
 ])
 def test_make_dataset_refuses_what_is_not_ported(change, match):
     cfg = dataclasses.replace(port_configs.DataConfig(), **change)
     with pytest.raises(NotImplementedError, match=match):
         make_dataset(cfg, train=True)
+
+
+@pytest.fixture(scope="module")
+def view_tree(tmp_path_factory):
+    from test_torch_loaders import procedural_tree
+
+    return procedural_tree(tmp_path_factory.mktemp("views"))
+
+
+@pytest.mark.parametrize("loader", ["native", "decoded", "auto"])
+def test_make_dataset_runs_the_image_tree_loaders(view_tree, loader):
+    """The loaders a tree on disk selects run, batch for batch the JAX
+    package's (`auto` over a tree without TFRecords is `native`)."""
+    kw = dict(dataset_dir=view_tree, loader=loader, height=16, width=16,
+              num_views=3, batch_size=4)
+    got = make_dataset(dataclasses.replace(port_configs.DataConfig(), **kw),
+                       train=True, seed=1)
+    want = jax_pipeline.make_dataset(
+        dataclasses.replace(jax_configs.DataConfig(), **kw), train=True,
+        seed=1)
+    for _ in range(3):
+        a, b = next(got), next(want)
+        assert a["views"].tobytes() == b["views"].tobytes()
+        assert a["label"].tobytes() == b["label"].tobytes()
+
+
+def test_make_dataset_on_a_missing_directory_raises_as_jax_does():
+    """`dataset_dir="/nonexistent"`: `auto` picks the native loader, whose
+    tree walk raises on the first batch, in both packages."""
+    kw = dict(dataset_dir="/nonexistent", height=16, width=16)
+    for make, mod in ((make_dataset, port_configs),
+                      (jax_pipeline.make_dataset, jax_configs)):
+        it = make(dataclasses.replace(mod.DataConfig(), **kw), train=True)
+        with pytest.raises(FileNotFoundError, match="/nonexistent"):
+            next(it)
 
 
 def test_make_dataset_refuses_a_uint8_wire_for_float_views():

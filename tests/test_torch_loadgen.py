@@ -60,14 +60,21 @@ def test_pct_nearest_rank():
 
 def test_report_shape_and_mixed_sizes(engine):
     """Closed loop, 3 clients mixing B=1 and B=2: both sizes run, the
-    per-size counts add up, and the engine's own stats saw the traffic."""
+    per-size counts add up, and the engine's own stats saw the traffic.
+
+    At any speed: with no warm-up every client's first request is
+    recorded, and clients 0 and 1 start on different sizes, so each size
+    completes at least once however long a request takes on a loaded CPU
+    (after a 0.2 s warm-up a 1 s window could close before a request of
+    one size was sent).  The report rounds shapes/s and views/s to 0.01,
+    so they agree to V + 1 half-granules, not to a relative bound."""
     before = engine.latency_stats().get("count", 0)
     rep = run_load(engine, num_clients=3, duration_s=1.0,
-                   request_sizes=(1, 2), warmup_s=0.2)
+                   request_sizes=(1, 2), warmup_s=0.0)
     assert (rep["clients"], rep["request_sizes"]) == (3, [1, 2])
     assert rep["requests"] > 0 and rep["shapes_per_sec"] > 0
     assert rep["views_per_sec"] == pytest.approx(rep["shapes_per_sec"] * V,
-                                                 rel=1e-3)
+                                                 rel=0, abs=0.005 * (V + 1))
     assert 0 < rep["p50_ms"] <= rep["p99_ms"]
     assert rep["b1_requests"] > 0 and rep["b2_requests"] > 0
     assert rep["b1_requests"] + rep["b2_requests"] == rep["requests"]

@@ -362,12 +362,10 @@ def test_sigterm_saves_and_stops(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,item,error", [
-    (dict(data=dict(loader="decoded")), "item 7", NotImplementedError),
     # num_devices is the world's size: 2 in a single process names how to
     # launch 2 ranks, in both BatchNorm modes.
     (dict(bn_sync="local", num_devices=2), "nproc_per_node 2", ValueError),
     (dict(num_devices=2), "`--num_devices 2` on the train", ValueError),
-    (dict(data=dict(loader="tfrecord")), "item 7", NotImplementedError),
     (dict(data=dict(device_resident="on")), "item 15", NotImplementedError),
 ])
 def test_train_refuses_what_is_not_ported(tmp_path, change, item, error):
@@ -378,6 +376,64 @@ def test_train_refuses_what_is_not_ported(tmp_path, change, item, error):
                                                **change[part])
     with pytest.raises(error, match=item):
         port_train.train(cfg.replace(**change), num_steps=1, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def view_tree(tmp_path_factory):
+    """A rendered-view tree (14 procedural shapes, 3 views of 40x40 PNG)
+    and its TFRecords (train and validation, 2 views)."""
+    from test_torch_loaders import procedural_tree
+
+    from gvcnn_tf_tpu_torch.data.tfrecord import build_tfrecords
+
+    root = tmp_path_factory.mktemp("trees")
+    tree = procedural_tree(root / "views")
+    for split in ("train", "validation"):
+        build_tfrecords(tree, str(root / "tfr"), 2, split_name=split,
+                        num_shards=2)
+    return tree, str(root / "tfr")
+
+
+@pytest.mark.parametrize("loader", ["native", "decoded", "tfrecord"])
+def test_train_runs_the_file_loaders(tmp_path, view_tree, loader):
+    """train() from a rendered tree (or its TFRecords) on the uint8 wire;
+    `epochs=1` takes its length from the split's size (14 shapes at B = 2:
+    7 steps; the TFRecord count reads the frames)."""
+    tree, records = view_tree
+    cfg = _loop_cfg(tmp_path, epochs=1.0)
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, loader=loader, transfer_dtype="uint8",
+        dataset_dir=records if loader == "tfrecord" else tree))
+    state, mets = port_train.train(cfg, device="cpu")
+    assert state.step == 7
+    assert np.isfinite(mets["loss"])
+    assert Checkpointer(str(tmp_path)).latest_step() == 7
+
+
+def test_cli_train_then_eval_and_retrieval_on_tfrecords(tmp_path, view_tree,
+                                                        capsys):
+    """The CLIs round trip on the TFRecords of a tiny tree: train a few
+    steps, then eval and retrieval of its checkpoint with --loader
+    tfrecord (the ragged last batch of 14 validation shapes included)."""
+    from gvcnn_tf_tpu_torch.tools import retrieval
+
+    port_eval = importlib.import_module("gvcnn_tf_tpu_torch.eval")
+    _, records = view_tree
+    flags = ["--config", "mn40_12view", "--device", "cpu", "--num_views",
+             "2", "--height", "32", "--width", "32", "--batch_size", "4",
+             "--loader", "tfrecord", "--dataset_dir", records,
+             "--transfer_dtype", "uint8"]
+    port_train.main(flags + ["--how_many_training_steps", "3",
+                             "--train_logdir", str(tmp_path)])
+    assert Checkpointer(str(tmp_path)).latest_step() == 3
+    port_eval.main(flags + ["--checkpoint_dir", str(tmp_path)])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    result = eval(out, {"__builtins__": {}})
+    assert result["count"] == 14 and 0 <= result["correct"] <= 14
+    retrieval.main(flags + ["--checkpoint_dir", str(tmp_path)])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    metrics = eval(out, {"__builtins__": {}})
+    assert metrics["num_queries"] == 14 and 0 <= metrics["mAP"] <= 1
 
 
 def test_bn_sync_local_on_one_device_is_the_global_step(tmp_path):
