@@ -64,10 +64,13 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 10. The other families and backbones (`phase_families`), at full width
    (224x224, B = 8, 12 views, 1 for mn10_single_view, the config's compute
-   dtype): the fp32 stem kernel against its plain version (TF32 off for the
-   reference), without and with its epilogue, at mn10_single_view's
-   (8, 224, 224, 3) and one odd shape, timed against cuDNN's fp32 conv;
-   its autograd Function's dw (and dx at the odd shape) against autograd
+   dtype): the fp32 stem kernel (3xTF32 on the tensor cores) against its
+   plain version (TF32 off for the reference), without and with its
+   epilogue, at mn10_single_view's (8, 224, 224, 3), an odd shape, an
+   unaligned width with a ragged band, 96 images and a row of two strips,
+   timed against cuDNN's fp32 and TF32 convs, with its bound on the tensor
+   cores and on the CUDA cores;
+   its autograd Function's dw (and dx at the other shapes) against autograd
    through the plain version with TF32 off, and its forward + backward,
    backward alone and cuDNN's fp32 weight gradient timed;
    the grouping kernel at C = 1536 (Inception-v4) and 2048 (ResNet-50)
@@ -159,8 +162,8 @@ runs (kernels; `ms`), torch.profiler kernel durations (`device_ms`), or
 host-clock medians of 20 requests (serving; 10 in phase 10).  `bound_ms`
 is the larger of the bytes the function must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations over the peak rate
-for their type (bf16 tensor cores 989 TFLOP/s; fp32 67 TFLOP/s), from this
-run's shapes.
+for their type (bf16 tensor cores 989 TFLOP/s; fp32 67 TFLOP/s; the fp32
+stem's three TF32 products at 495 TFLOP/s), from this run's shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or outside a
@@ -190,6 +193,7 @@ STEM_TOL = dict(rtol=1e-2, atol=1e-2)      # bf16 out: one rounding apart
 FORWARDS = 4                               # B=1, 8, 11: 1 + 1 + 2 chunks
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS, FP32_FLOPS = 989e12, 67e12     # dense peaks, the same sheet
+TF32_FLOPS = 495e12
 # Slice on the card (bf16 through ~60 conv layers) vs the CPU in fp32.
 # Predicted from a bf16-vs-fp32 run on the CPU at 112x112: logits drift
 # ~0.6% of max|logit|, scores ~3e-4.  The bounds leave 5x / 15x room.
@@ -229,10 +233,13 @@ PROC_SHAPES, EVAL_EVERY, EVAL_TRAIN_STEPS = 44, 5, 10
 EVAL_FORWARDS = -(-PROC_SHAPES // 8)
 CPU_SHAPES = 16
 STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
-# Phase 10.  The fp32 stem at mn10_single_view's B = 8 and one odd shape
-# (a ragged last strip and row pair); fp32 against fp32, 147 products
-# summed in another order.
-STEM_F32_SHAPES = [(8, 224, 224, 3), (3, 31, 45, 3)]
+# Phase 10.  The fp32 stem at mn10_single_view's B = 8, one odd shape, an
+# unaligned width (W % 4 != 0: the kernel's 4-byte copy path) with a ragged
+# band, 96 images (many tiles a block) and a row wider than one strip; the
+# kernel's 3xTF32 against cuDNN's fp32 conv, 147 products summed in another
+# order (one TF32 product misses this bound, tests/test_torch_stem.py).
+STEM_F32_SHAPES = [(8, 224, 224, 3), (3, 31, 45, 3), (1, 18, 226, 3),
+                   (96, 224, 224, 3), (2, 20, 300, 3)]
 STEM_F32_REL_TOL = 1e-5
 # The fp32 Function's dw (and dx) against the plain version's, both cuDNN
 # fp32 conv gradients with TF32 off, summed in whatever order cuDNN picks
@@ -1211,15 +1218,20 @@ def phase_stem_f32(dev):
                                         "stem_conv_f32")[0] / 1e3)
             timed["library_tf32_ms"] = cuda_ms(
                 lambda: F.conv2d(xn, w, stride=2))
+        # The kernel's work: three TF32 products on the tensor cores; the
+        # same conv once in fp32 on the CUDA cores beside it.
+        nbytes = (x.numel() + w.numel() + y.numel()) * 4
         timed["bound_ms"], timed["bound_by"] = bound(
-            (x.numel() + w.numel() + y.numel()) * 4, 2 * y.numel() * 147,
-            FP32_FLOPS)
+            nbytes, 3 * 2 * y.numel() * 147, TF32_FLOPS)
+        timed["bound_fp32_cores_ms"] = bound(
+            nbytes, 2 * y.numel() * 147, FP32_FLOPS)[0]
         log(f"fp32 stem {shape}: kernel {timed['ms']:.4f} ms (with epilogue "
             f"{timed['epilogue_ms']:.4f}, device {timed['device_ms']:.4f}), "
             f"plain {timed['plain_ms']:.4f} ms, cuDNN fp32 conv on pre-padded "
             f"input {timed['library_ms']:.4f} ms (TF32 "
             f"{timed['library_tf32_ms']:.4f}), bound {timed['bound_ms']:.4f} "
-            f"ms ({timed['bound_by']})")
+            f"ms ({timed['bound_by']}, 3xTF32; "
+            f"{timed['bound_fp32_cores_ms']:.4f} ms on the CUDA cores)")
     return dict(max_abs_err=max_err, **timed, **stem_f32_backward(dev, w))
 
 
@@ -1227,7 +1239,7 @@ def stem_f32_backward(dev, w32):
     """The fp32 stem's autograd Function (fp32 kernel forward, cuDNN's fp32
     weight gradient) against autograd through the plain version, TF32 off
     on both sides: dw at mn10_single_view's (8, 224, 224, 3), dw and dx at
-    (3, 31, 45, 3); then its times, TF32 off."""
+    the other STEM_F32_SHAPES; then its times at the first, TF32 off."""
     import torch.nn.functional as F
 
     from gvcnn_tf_tpu_torch.ops.pool import same_pads

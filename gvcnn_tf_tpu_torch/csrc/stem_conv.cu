@@ -4,9 +4,9 @@
 // BatchNorm and the ReLU that follows it).  Two kernels:
 //   * stem_conv7x7s2_bf16: an implicit GEMM on the tensor cores, bf16 NHWC
 //     in, fp32 accumulation, bf16 NHWC out (the bf16 configs);
-//   * stem_conv7x7s2_f32: a direct conv on the CUDA cores, fp32 NHWC in,
-//     fp32 FMAs, fp32 NHWC out, no TF32 rounding of the inputs (the fp32
-//     configs, e.g. mn10_single_view); described before its code below.
+//   * stem_conv7x7s2_f32: an implicit GEMM on the tensor cores in 3xTF32,
+//     fp32 NHWC in, fp32 accuracy, fp32 NHWC out (the fp32 configs, e.g.
+//     mn10_single_view); described before its code below.
 //
 // Replaces the TPU kernel gvcnn_tf_tpu/ops/pallas_stem.py::_stem_fwd
 // (_stem_kernel + _pack_weights).  That kernel built the im2col matrix in
@@ -318,137 +318,392 @@ stem_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // The fp32 kernel.  What bounds it on the H100: operations.  At N = 8,
-// 224x224 (mn10_single_view's B = 8) it does 1.89 GFLOP (147 multiply-adds
-// per output), 28.2 us at the 67 TFLOP/s fp32 peak, against 30.5 MB of
-// input and output, 9.1 us at 3.35 TB/s.  Tensor cores would take the
-// inputs in TF32 (10-bit mantissa); fp32 configs keep fp32 numerics, so the
-// multiply-adds run on the CUDA cores.
+// 224x224 (mn10_single_view's B = 8) the conv is 1.89 GFLOP (147
+// multiply-adds per output); it runs as three TF32 products, 5.67 GFLOP,
+// 11.4 us at the 495 TFLOP/s TF32 tensor-core peak, against 4.82 MB in and
+// 25.69 MB out, 9.1 us at 3.35 TB/s.  (On the CUDA cores the same work is
+// 1.89 GFLOP at 67 TFLOP/s: 28.2 us.)
 //
-// Design (the direct conv the bf16 path first shipped with, in fp32): one
-// block of 4 warps per (image, strip of F_TILE_W output columns, F_ROWS
-// output rows).  The block stages the (147, 64) weight matrix in shared
-// memory once, then for each output row the 7 input rows of its strip,
-// zero padded and split by column parity, so that the 32 lanes of a warp
-// read 32 consecutive words for every tap (no bank conflicts).  Warp w
-// computes channels [16 w, 16 w + 16) of two output pixels a lane (lane,
-// lane + 32); the 16 weights of a tap are a broadcast read shared by the
-// warp.  The epilogue applies scale / shift / ReLU to the accumulators and
-// writes each pixel's 16 channels as four 16-byte stores.
-constexpr int F_TAPS = 7 * 7 * 3;                        // 147
-constexpr int F_TILE_W = 64;                             // output columns
-constexpr int F_ROWS = 2;                                // output rows
-constexpr int F_THREADS = 128;                           // 4 warps
-constexpr int F_CH = COUT / (F_THREADS / 32);            // 16 a warp
-constexpr int F_IN_COLS = (F_TILE_W - 1) * 2 + 7;        // 133
-constexpr int F_HALF_COLS = (F_IN_COLS + 1) / 2;         // 67 a parity
+// Why 3xTF32.  A TF32 operand keeps 10 of fp32's 23 mantissa bits, and one
+// TF32 product misses the fp32 configs' bound of 1e-5 x max|ref| by an
+// order of magnitude (about 3e-4 x max|ref|).  Each operand v is split
+// into big = rna(v) and small = rna(v - big) (rna: round to nearest TF32,
+// ties away, the `cvt.rna.tf32.f32` below; v - big is exact in fp32), and
+// small_a big_b + big_a small_b + big_a big_b, the small terms first, is
+// accumulated in fp32: that keeps 21-22 bits of each operand and errs like
+// an fp32 conv (tests/test_torch_stem.py emulates it against the fp32 XLA
+// conv).  The tensor core ignores an operand's low 13 bits, so raw fp32
+// would be truncated, not rounded, and big + small would not be v.
+//
+// Design.  GEMM with M = output pixels, N = 64 channels and K = 7 x 24 =
+// 168, k = kh * 24 + m, m = 3 * kw + c; m = 21..23 carry zero weights, so
+// K is 21 k-steps of mma.m16n8k8 (tf32) and every 8-wide k block lies in
+// one kernel row.  As in the bf16 kernel, the taps (kw, c) of output pixel
+// p for a kernel row are consecutive floats of the padded NHWC input row
+// from element 6 p, so the A fragments are read straight from the staged
+// rows (no im2col buffer); the extra taps read a neighbour's values times
+// zero weights.
+//   * Persistent grid, one block of 8 warps per SM, walking (image, band of
+//     `band` output rows, strip of `sw` output columns) tiles.  The packed
+//     (168, 64) weight is split once per block into big and small B
+//     fragments in shared memory (2 x 43,008 bytes).  The launcher picks
+//     the band that fills the card best for this N and H (at N = 8,
+//     224x224: 7 rows, 128 tiles, one a block); strips only cut rows wider
+//     than 128 outputs, which would not fit in shared memory.
+//   * A tile needs 2 band + 5 input rows.  They are staged with 16-byte
+//     cp.async into a double-buffered ring, so the next tile's rows arrive
+//     while this tile's MMAs run; rows whose global address is not 16-byte
+//     aligned (W % 4 != 0) take a 4-byte cp.async path.
+//   * Each warp owns a contiguous share of the tile's m16 tiles (6 or 7 at
+//     224x224) and runs them in chunks of up to 4 (4 m-tiles x 8 n-tiles =
+//     128 fp32 accumulators a thread): per k-step it loads and splits its A
+//     values once (one split serves 8 n-tiles x 3 MMAs) and reads each B
+//     fragment pair once for the chunk's m-tiles.  The chunk's m-tile count
+//     is a template argument: a predicated-off mma.sync costs what an
+//     executed one does, so a short chunk must not issue 4 m-tiles' MMAs.
+//     The short chunk runs last in the first half of the warps and first in
+//     the second half, so the two warps of a sub-partition store at
+//     different times and one computes while the other stores.
+//   * `measure.py stem-probe` times variants of this file (one product
+//     only, no MMAs, other bands) to show where the time goes; PERF.md
+//     keeps its readings.
+//   * Bank conflicts: neighbouring pixels start 6 words apart, so 8
+//     consecutive pixels' fragment loads (words 6 p + tig) collide two by
+//     two.  Fragment row r of an m-tile holds pixel 2 r (r < 8) or 2 (r - 8)
+//     + 1 instead, so one load reads words 12 g + tig (+ 6): 32 distinct
+//     banks wherever the m-tile lies in one output row (always when the
+//     strip width is a multiple of 16, as at 224x224).
+//   * The epilogue applies scale / shift / ReLU to the accumulators and
+//     stores float2 straight from them: each warp store writes whole
+//     32-byte sectors (4 lanes cover channels 8 j .. 8 j + 7 of a pixel).
+constexpr int F_WARPS = 8;
+constexpr int F_THREADS = F_WARPS * 32;
+constexpr int F_KSTEPS = 21;                 // K = 168 = 21 x 8
+constexpr int F_MT = 4;                      // m16 tiles a chunk (max)
+constexpr int F_LEAD = 2;                    // words before padded element 0
+constexpr int F_MAX_BAND = 16;
+constexpr int F_MAX_STRIP = 128;             // output columns a strip (max)
+// Shared memory: big B fragments | small B fragments | scale, shift | ring.
+constexpr int F_WFRAG_BYTES = F_KSTEPS * 4 * 32 * 16;      // 43,008
+constexpr int F_FIXED_BYTES = 2 * F_WFRAG_BYTES + AFFINE_BYTES;
 
-__global__ void __launch_bounds__(F_THREADS)
-stem_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ shift, float* __restrict__ out,
-                     int h, int wdt, int ho, int wo, int pad_top,
-                     int pad_left, int relu) {
-  // 37,632 + 11,256 bytes: under the 48 KB of static shared memory.
-  __shared__ __align__(16) float w_s[F_TAPS * COUT];
-  __shared__ float strip[7][3][2][F_HALF_COLS];
+struct ShapeF32 {
+  int h, w, ho, wo, pad_top, pad_left, band, bands, sw, strips, rsw, in_rows;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int cg = tid >> 5;                  // channel group of this warp
-  const int ox0 = blockIdx.x * F_TILE_W;    // first output column
-  const int oy0 = blockIdx.y * F_ROWS;      // first output row
-  const long long n = blockIdx.z;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  for (int i = tid; i < F_TAPS * COUT; i += F_THREADS) w_s[i] = w[i];
+// v rounded to the nearest TF32 (ties away from zero), low 13 bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
 
-  float sc[F_CH], sh[F_CH];
-#pragma unroll
-  for (int k = 0; k < F_CH; ++k) {
-    sc[k] = scale ? scale[cg * F_CH + k] : 1.0f;
-    sh[k] = shift ? shift[cg * F_CH + k] : 0.0f;
-  }
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
 
-  const int ix0 = ox0 * 2 - pad_left;       // input column of strip col 0
-  const float* xn = x + n * h * wdt * 3;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  for (int r = 0; r < F_ROWS; ++r) {
-    const int oy = oy0 + r;
-    if (oy >= ho) break;                    // uniform across the block
-    const int iy0 = oy * 2 - pad_top;
+struct TileF32 {
+  int img, oy0, sx0, nc, npix;
+};
 
-    __syncthreads();                        // previous row done with strip
-    for (int i = tid; i < 7 * F_IN_COLS * 3; i += F_THREADS) {
-      const int c = i % 3;
-      const int lc = (i / 3) % F_IN_COLS;
-      const int kh = i / (3 * F_IN_COLS);
-      const int iy = iy0 + kh;
-      const int ix = ix0 + lc;
-      float v = 0.0f;
-      if (iy >= 0 && iy < h && ix >= 0 && ix < wdt) {
-        v = xn[(static_cast<long long>(iy) * wdt + ix) * 3 + c];
+__device__ __forceinline__ TileF32 tile_f32(int tile, const ShapeF32& s) {
+  TileF32 t;
+  const int per_img = s.bands * s.strips;
+  t.img = tile / per_img;
+  const int rem = tile - t.img * per_img;
+  const int bi = rem / s.strips;
+  t.oy0 = bi * s.band;
+  t.sx0 = (rem - bi * s.strips) * s.sw;
+  t.nc = min(s.sw, s.wo - t.sx0);
+  t.npix = min(s.band, s.ho - t.oy0) * t.nc;
+  return t;
+}
+
+// Stage the 2 band + 5 input rows of `tile` into `buf`, zero padded: word
+// F_LEAD + f of a staged row holds element f of the strip's padded row
+// (padded column 2 sx0 + f / 3, channel f % 3), which is element
+// 3 (2 sx0 - pad_left) + f of the input row; rows outside the image are
+// zeros.
+__device__ __forceinline__ void stage_rows_f32(const float* __restrict__ x,
+                                               float* buf, int tile,
+                                               const ShapeF32& s,
+                                               bool aligned) {
+  const TileF32 t = tile_f32(tile, s);
+  const int iy0 = t.oy0 * 2 - s.pad_top;
+  const long long row_elems = 3LL * s.w;
+  const float* xi = x + t.img * (row_elems * s.h);
+  const int e0 = 3 * (2 * t.sx0 - s.pad_left) - F_LEAD;   // word 0
+  if (aligned) {
+    // pad_left == 2 and sx0 even, so e0 % 4 == 0, and 3 W % 4 == 0: every
+    // 16-byte chunk is all data or all zeros.
+    const int chunks = s.rsw >> 2;
+    for (int i = threadIdx.x; i < s.in_rows * chunks; i += F_THREADS) {
+      const int r = i / chunks;
+      const int wd = (i - r * chunks) << 2;
+      const int iy = iy0 + r;
+      const int e = e0 + wd;
+      float* dst = buf + r * s.rsw + wd;
+      if (iy >= 0 && iy < s.h && e >= 0 && e < row_elems) {
+        cp_async16(dst, xi + iy * row_elems + e);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      strip[kh][c][lc & 1][lc >> 1] = v;
     }
-    __syncthreads();
-
-    float acc0[F_CH], acc1[F_CH];
-#pragma unroll
-    for (int k = 0; k < F_CH; ++k) {
-      acc0[k] = 0.0f;
-      acc1[k] = 0.0f;
-    }
-    for (int kh = 0; kh < 7; ++kh) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-#pragma unroll
-        for (int kw = 0; kw < 7; ++kw) {
-          // Output pixel p reads strip column 2 p + kw: parity kw & 1,
-          // index p + kw / 2.
-          const float* srow = strip[kh][c][kw & 1];
-          const float a0 = srow[lane + (kw >> 1)];
-          const float a1 = srow[lane + 32 + (kw >> 1)];
-          const float4* wv = reinterpret_cast<const float4*>(
-              w_s + ((kh * 7 + kw) * 3 + c) * COUT + cg * F_CH);
-#pragma unroll
-          for (int q = 0; q < F_CH / 4; ++q) {
-            const float4 wq = wv[q];
-            acc0[4 * q + 0] = fmaf(a0, wq.x, acc0[4 * q + 0]);
-            acc0[4 * q + 1] = fmaf(a0, wq.y, acc0[4 * q + 1]);
-            acc0[4 * q + 2] = fmaf(a0, wq.z, acc0[4 * q + 2]);
-            acc0[4 * q + 3] = fmaf(a0, wq.w, acc0[4 * q + 3]);
-            acc1[4 * q + 0] = fmaf(a1, wq.x, acc1[4 * q + 0]);
-            acc1[4 * q + 1] = fmaf(a1, wq.y, acc1[4 * q + 1]);
-            acc1[4 * q + 2] = fmaf(a1, wq.z, acc1[4 * q + 2]);
-            acc1[4 * q + 3] = fmaf(a1, wq.w, acc1[4 * q + 3]);
-          }
-        }
-      }
-    }
-
-    const long long row = (n * ho + oy) * wo;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ox = ox0 + lane + 32 * half;
-      if (ox >= wo) continue;
-      float v[F_CH];
-#pragma unroll
-      for (int k = 0; k < F_CH; ++k) {
-        v[k] = fmaf(half ? acc1[k] : acc0[k], sc[k], sh[k]);
-        if (relu) v[k] = fmaxf(v[k], 0.0f);
-      }
-      float4* dst = reinterpret_cast<float4*>(out + (row + ox) * COUT +
-                                              cg * F_CH);
-#pragma unroll
-      for (int q = 0; q < F_CH / 4; ++q) {
-        dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                             v[4 * q + 3]);
+  } else {
+    for (int i = threadIdx.x; i < s.in_rows * s.rsw; i += F_THREADS) {
+      const int r = i / s.rsw;
+      const int wd = i - r * s.rsw;
+      const int iy = iy0 + r;
+      const int e = e0 + wd;
+      float* dst = buf + i;
+      if (iy >= 0 && iy < s.h && e >= 0 && e < row_elems) {
+        cp_async4(dst, xi + iy * row_elems + e);
+      } else {
+        *dst = 0.f;
       }
     }
   }
 }
 
+// One chunk of a warp's share: m16 tiles c .. c + CNT - 1 of tile t, all 64
+// channels.  CNT is a template argument so that a short chunk issues only
+// its own MMAs (a predicated-off mma.sync still takes its turn).
+template <int CNT>
+__device__ __forceinline__ void f32_chunk(const float* cur, const uint4* wbig,
+                                          const uint4* wsmall,
+                                          const float2* scale2,
+                                          const float2* shift2,
+                                          float* __restrict__ out,
+                                          const ShapeF32& s, const TileF32& t,
+                                          int c, int relu) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;     // fragment row / column group
+  const int tig = lane & 3;      // thread in group
+  // Word offset in a staged row pair of tap (kh = 0, m = tig) of the
+  // pixels of fragment rows gid (pixel 2 gid of the m-tile) and gid + 8
+  // (pixel 2 gid + 1); a pixel past the tile reads pixel 0 and is not
+  // stored.
+  int abase[CNT][2];
+#pragma unroll
+  for (int mi = 0; mi < CNT; ++mi) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      int q = 16 * (c + mi) + 2 * gid + hh;
+      q = q < t.npix ? q : 0;
+      const int r = q / t.nc;
+      abase[mi][hh] = 2 * r * s.rsw + F_LEAD + 6 * (q - r * t.nc) + tig;
+    }
+  }
+
+  float acc[CNT][8][4];
+#pragma unroll
+  for (int mi = 0; mi < CNT; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.0f;
+
+#pragma unroll 1
+  for (int kh = 0; kh < 7; ++kh) {
+    const float* arow = cur + kh * s.rsw;
+    const uint4* bbig = wbig + kh * 3 * 128 + lane;
+    const uint4* bsmall = wsmall + kh * 3 * 128 + lane;
+#pragma unroll
+    for (int sub = 0; sub < 3; ++sub) {
+      // A: register hh + 2 kq holds tap m = 8 sub + 4 kq + tig of the
+      // pixel of fragment row gid + 8 hh, split into big and small.
+      uint32_t ab[CNT][4], as[CNT][4];
+#pragma unroll
+      for (int mi = 0; mi < CNT; ++mi) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split_tf32(arow[abase[mi][r & 1] + 8 * sub + 4 * (r >> 1)],
+                     ab[mi][r], as[mi][r]);
+        }
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        const uint4 bb = bbig[(sub * 4 + jp) * 32];
+        const uint4 bs = bsmall[(sub * 4 + jp) * 32];
+#pragma unroll
+        for (int mi = 0; mi < CNT; ++mi) {
+          mma_tf32(acc[mi][2 * jp], as[mi], bb.x, bb.y);
+          mma_tf32(acc[mi][2 * jp + 1], as[mi], bb.z, bb.w);
+        }
+#pragma unroll
+        for (int mi = 0; mi < CNT; ++mi) {
+          mma_tf32(acc[mi][2 * jp], ab[mi], bs.x, bs.y);
+          mma_tf32(acc[mi][2 * jp + 1], ab[mi], bs.z, bs.w);
+        }
+#pragma unroll
+        for (int mi = 0; mi < CNT; ++mi) {
+          mma_tf32(acc[mi][2 * jp], ab[mi], bb.x, bb.y);
+          mma_tf32(acc[mi][2 * jp + 1], ab[mi], bb.z, bb.w);
+        }
+      }
+    }
+  }
+
+  // Epilogue.  Accumulator (mi, j) holds channels 8 j + 2 tig (+1) of
+  // the pixels of fragment rows gid (registers 0, 1) and gid + 8 (2, 3).
+#pragma unroll
+  for (int mi = 0; mi < CNT; ++mi) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = 16 * (c + mi) + 2 * gid + hh;
+      if (q >= t.npix) continue;
+      const int r = q / t.nc;
+      float* dst = out + ((static_cast<long long>(t.img) * s.ho + t.oy0 +
+                           r) * s.wo + t.sx0 + (q - r * t.nc)) * COUT +
+                   2 * tig;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 sc = scale2[4 * j + tig];
+        const float2 sh = shift2[4 * j + tig];
+        float2 v = make_float2(fmaf(acc[mi][j][2 * hh], sc.x, sh.x),
+                               fmaf(acc[mi][j][2 * hh + 1], sc.y, sh.y));
+        if (relu) {
+          v.x = fmaxf(v.x, 0.0f);
+          v.y = fmaxf(v.y, 0.0f);
+        }
+        *reinterpret_cast<float2*>(dst + 8 * j) = v;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+stem_conv_f32_mma_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ shift,
+                         float* __restrict__ out, int n_img, ShapeF32 s,
+                         int aligned, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* wbig = reinterpret_cast<uint4*>(smem);
+  uint4* wsmall = wbig + F_KSTEPS * 4 * 32;
+  float2* scale2 = reinterpret_cast<float2*>(smem + 2 * F_WFRAG_BYTES);
+  float2* shift2 = scale2 + 32;
+  float* ring = reinterpret_cast<float*>(smem + F_FIXED_BYTES);
+  const int ring_words = s.in_rows * s.rsw;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int tiles = n_img * s.bands * s.strips;
+
+  int tile = blockIdx.x;
+  if (tile < tiles) stage_rows_f32(x, ring, tile, s, aligned);
+  cp_async_commit();
+
+  // B fragments of mma.m16n8k8 (k x n, "col"): for k-step ks and n-tile j
+  // the thread holds W[k][n] and W[k + 4][n], k = 8 ks + tig, n = 8 j +
+  // gid.  Entry (ks, jp, lane) is a uint4 holding n-tiles 2 jp and 2 jp + 1,
+  // read with one 16-byte load; `wbig` holds the big parts, `wsmall` the
+  // small ones.
+  for (int e = tid; e < F_KSTEPS * 4 * 32; e += F_THREADS) {
+    const int l = e & 31, jp = (e >> 5) & 3, ks = e >> 7;
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 8 * ks + (l & 3) + 4 * (q & 1);
+      const int nn = 8 * (2 * jp + (q >> 1)) + (l >> 2);
+      split_tf32(w[k * COUT + nn], big[q], small[q]);
+    }
+    wbig[e] = make_uint4(big[0], big[1], big[2], big[3]);
+    wsmall[e] = make_uint4(small[0], small[1], small[2], small[3]);
+  }
+  if (tid < 32) {
+    scale2[tid] = scale ? make_float2(scale[2 * tid], scale[2 * tid + 1])
+                        : make_float2(1.0f, 1.0f);
+    shift2[tid] = shift ? make_float2(shift[2 * tid], shift[2 * tid + 1])
+                        : make_float2(0.0f, 0.0f);
+  }
+
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const float* cur = ring + (it & 1) * ring_words;
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      stage_rows_f32(x, ring + ((it + 1) & 1) * ring_words, next, s,
+                     aligned);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();          // this tile's rows have landed
+    __syncthreads();
+
+    // The warp's share: m16 tiles [c, t1), in chunks of F_MT and one
+    // shorter chunk, which the first half of the warps runs last and the
+    // second half first, so that the two warps of a sub-partition store
+    // their results at different times.
+    const TileF32 t = tile_f32(tile, s);
+    const int mtiles = (t.npix + 15) >> 4;
+    const int t1 = (warp + 1) * mtiles / F_WARPS;
+    int c = warp * mtiles / F_WARPS;
+    int cnt = (t1 - c) % F_MT;
+    if (cnt == 0 || warp < F_WARPS / 2) cnt = min(F_MT, t1 - c);
+    for (; c < t1; c += cnt, cnt = min(F_MT, t1 - c)) {
+      switch (cnt) {
+        case 4:
+          f32_chunk<4>(cur, wbig, wsmall, scale2, shift2, out, s, t, c, relu);
+          break;
+        case 3:
+          f32_chunk<3>(cur, wbig, wsmall, scale2, shift2, out, s, t, c, relu);
+          break;
+        case 2:
+          f32_chunk<2>(cur, wbig, wsmall, scale2, shift2, out, s, t, c, relu);
+          break;
+        default:
+          f32_chunk<1>(cur, wbig, wsmall, scale2, shift2, out, s, t, c, relu);
+      }
+    }
+    __syncthreads();             // everyone is done with `cur`
+  }
+  cp_async_wait<0>();
+}
+
 int g_sms[MAX_DEVICES];
 int g_max_smem[MAX_DEVICES];
+
+// The current device in `dev`; the first call on a device reads its SM
+// count and shared memory and lets both kernels use all of it.
+cudaError_t init_device(int& dev) {
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (g_sms[dev] != 0) return cudaSuccess;
+  cudaDeviceGetAttribute(&g_max_smem[dev],
+                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (const void* kernel :
+       {reinterpret_cast<const void*>(stem_conv_mma_kernel),
+        reinterpret_cast<const void*>(stem_conv_f32_mma_kernel)}) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g_max_smem[dev]);
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  g_sms[dev] = sms;
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -462,20 +717,8 @@ extern "C" int stem_conv7x7s2_bf16(const void* x, const void* w,
                                    int wo, int pad_top, int pad_left, int relu,
                                    void* stream) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = init_device(dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_sms[dev] == 0) {
-    cudaDeviceGetAttribute(&g_max_smem[dev],
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    err = cudaFuncSetAttribute(stem_conv_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               g_max_smem[dev]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    g_sms[dev] = sms;
-  }
   Shape s;
   s.h = h;
   s.w = wdt;
@@ -509,20 +752,68 @@ extern "C" int stem_conv7x7s2_bf16(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (n, h, w, 3) fp32, contiguous.  w: (147, 64) fp32, row (kh * 7 + kw) *
-// 3 + c (pack_stem_weight_f32).  scale, shift: 64 fp32 each, or both null
-// for no affine.  out: (n, ho, wo, 64) fp32, contiguous, 16-byte aligned.
+// x: (n, h, w, 3) fp32, contiguous.  w: (168, 64) fp32, row kh * 24 + 3 kw
+// + c, zero rows kh * 24 + 21..23 (pack_stem_weight_f32).  scale, shift: 64
+// fp32 each, or both null for no affine.  out: (n, ho, wo, 64) fp32,
+// contiguous, 8-byte aligned.  pad_left is 2 or 3 (TF-'SAME').
 extern "C" int stem_conv7x7s2_f32(const void* x, const void* w,
                                   const void* scale, const void* shift,
                                   void* out, int n, int h, int wdt, int ho,
                                   int wo, int pad_top, int pad_left, int relu,
                                   void* stream) {
-  const dim3 grid((wo + F_TILE_W - 1) / F_TILE_W,
-                  (ho + F_ROWS - 1) / F_ROWS, n);
-  stem_conv_f32_kernel<<<grid, F_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0;
+  const cudaError_t err = init_device(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sms = g_sms[dev];
+  ShapeF32 s;
+  s.h = h;
+  s.w = wdt;
+  s.ho = ho;
+  s.wo = wo;
+  s.pad_top = pad_top;
+  s.pad_left = pad_left;
+  // Strips of equal width, even where there are several (16-byte staging).
+  s.strips = (wo + F_MAX_STRIP - 1) / F_MAX_STRIP;
+  s.sw = (wo + s.strips - 1) / s.strips;
+  if (s.strips > 1) {
+    s.sw += s.sw & 1;
+    s.strips = (wo + s.sw - 1) / s.sw;
+  }
+  // Words of a staged row: up to padded element 6 (sw - 1) + 23, rounded
+  // to 4 (16 bytes).
+  s.rsw = (F_LEAD + 6 * s.sw + 18 + 3) & ~3;
+  // The band with the least estimated time: waves of tiles over the SMs,
+  // times the m16 tiles of the busiest warp plus one a chunk for its loads
+  // and splits (a tie keeps the smaller band, whose staging waits less).
+  s.band = 0;
+  long long best = 0;
+  for (int band = 1; band <= F_MAX_BAND; ++band) {
+    if (F_FIXED_BYTES + 2 * (2 * band + 5) * s.rsw * 4 > g_max_smem[dev]) {
+      break;
+    }
+    const long long tiles =
+        static_cast<long long>(n) * ((ho + band - 1) / band) * s.strips;
+    const int share = ((band * s.sw + 15) / 16 + F_WARPS - 1) / F_WARPS;
+    const long long cost =
+        (tiles + sms - 1) / sms * (share + (share + F_MT - 1) / F_MT);
+    if (s.band == 0 || cost < best) {
+      s.band = band;
+      best = cost;
+    }
+  }
+  if (s.band == 0) return static_cast<int>(cudaErrorInvalidValue);
+  s.in_rows = 2 * s.band + 5;
+  s.bands = (ho + s.band - 1) / s.band;
+  const long long tiles = static_cast<long long>(n) * s.bands * s.strips;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = F_FIXED_BYTES + 2 * s.in_rows * s.rsw * 4;
+  const int aligned =
+      wdt % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
+  stem_conv_f32_mma_kernel<<<grid, F_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<float*>(out), h, wdt, ho, wo, pad_top, pad_left, relu);
+      static_cast<float*>(out), n, s, aligned, relu);
   return static_cast<int>(cudaGetLastError());
 }

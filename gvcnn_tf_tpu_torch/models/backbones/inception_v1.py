@@ -47,8 +47,8 @@ class Stem(nn.Module):
     NHWC (N, H, W, 3) in, NCHW out.  In eval mode with no gradient to
     take, the BatchNorm and the ReLU run as the kernel's epilogue
     (`BatchNorm.scale_shift`), so on the card the conv output is written
-    once, in the compute dtype (the bf16 kernel on the tensor cores, the
-    fp32 kernel on the CUDA cores); on the CPU the plain version applies
+    once, in the compute dtype (both kernels on the tensor cores, the fp32
+    one in 3xTF32); on the CPU the plain version applies
     the same affine in fp32 after the conv.  Otherwise (train mode: batch statistics; or a
     gradient is needed) the kernel runs without its epilogue, through
     `StemConvFunction`, and BatchNorm and the ReLU follow as their own

@@ -8,8 +8,10 @@ dtype, picked by x's dtype:
 
   bfloat16  `stem_conv7x7s2_bf16`, an implicit GEMM on the tensor cores,
             bf16 NHWC in, fp32 accumulation, bf16 NHWC out;
-  float32   `stem_conv7x7s2_f32`, a direct conv on the CUDA cores, fp32
-            NHWC in, fp32 multiply-adds (no TF32 rounding), fp32 NHWC out.
+  float32   `stem_conv7x7s2_f32`, an implicit GEMM on the tensor cores in
+            3xTF32 (each operand split into two TF32 parts, three
+            products accumulated in fp32: fp32 accuracy), fp32 NHWC in,
+            fp32 NHWC out.
 
 Any other dtype raises; neither falls back to `F.conv2d` on a card.  Both
 functions take the input NHWC (N, H, W, 3) and the weight in the port's
@@ -68,11 +70,13 @@ from gvcnn_tf_tpu_torch.ops.pool import same_pads
 KERNEL_NAME = "stem_conv7x7s2_bf16"
 KERNEL_NAME_F32 = "stem_conv7x7s2_f32"
 _KSIZE, _STRIDE, _CIN, _COUT = 7, 2, 3, 64
-# The kernel's K layout: row kh * 24 + 3 * kw + c; rows kh * 24 + 21..23 and
-# 168..175 are zero, so K = 176 is 11 tensor-core k-steps of 16.
-K_ROW, K_PADDED = 24, 176
-# Widest output row the kernel's shared memory holds (csrc/stem_conv.cu:
-# two 7-row input buffers beside 80,384 fixed bytes, 227 KB a block).
+# The kernels' K layout: row kh * 24 + 3 * kw + c; rows kh * 24 + 21..23 are
+# zero, so K = 168 is 21 fp32 (TF32) k-steps of 8, and with 8 more zero
+# rows K = 176 is 11 bf16 k-steps of 16.
+K_ROW, K_F32, K_PADDED = 24, 168, 176
+# Widest output row the bf16 kernel's shared memory holds (csrc/stem_conv.cu:
+# two 7-row input buffers beside 80,384 fixed bytes, 227 KB a block); the
+# fp32 kernel cuts wider rows into strips.
 MAX_OUT_WIDTH = 900
 
 
@@ -87,9 +91,19 @@ def pack_stem_weight(weight: torch.Tensor) -> torch.Tensor:
 
 
 def pack_stem_weight_f32(weight: torch.Tensor) -> torch.Tensor:
-    """(64, 3, 7, 7) OIHW -> (147, 64), the fp32 kernel's weight matrix:
-    row (kh * 7 + kw) * 3 + c holds weight[:, c, kh, kw]."""
-    return weight.permute(2, 3, 1, 0).reshape(_KSIZE * _KSIZE * _CIN, _COUT)
+    """(64, 3, 7, 7) OIHW -> (168, 64), the fp32 kernel's B operand:
+    `pack_stem_weight`'s first 168 rows (row kh * 24 + 3 * kw + c holds
+    weight[:, c, kh, kw], the 3 rows after each kernel row's 21 taps are
+    zeros)."""
+    return pack_stem_weight(weight)[:K_F32]
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, the low 13 bits zero: the plain version of the fp32 kernel's
+    `cvt.rna.tf32.f32`.  Finite x only (the bits' carry rounds to the next
+    binade, as the hardware does)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -127,8 +141,6 @@ def stem_conv_plain(x: torch.Tensor, weight: torch.Tensor,
 
 # The kernel of each compute dtype: x's dtype picks it.
 KERNELS = {torch.bfloat16: KERNEL_NAME, torch.float32: KERNEL_NAME_F32}
-# gridDim.z of the fp32 kernel is the image count.
-_MAX_IMAGES_F32 = 65535
 
 
 def kernel_name(dtype: torch.dtype) -> str:
@@ -160,9 +172,6 @@ def _check_cuda_args(x, weight, scale, shift) -> str:
             MAX_OUT_WIDTH):
         raise ValueError(f"{name}: W = {x.shape[2]} is wider than "
                          f"the kernel takes ({2 * MAX_OUT_WIDTH})")
-    if x.dtype == torch.float32 and x.shape[0] > _MAX_IMAGES_F32:
-        raise ValueError(f"{name}: N = {x.shape[0]} is more images than the "
-                         f"kernel takes ({_MAX_IMAGES_F32})")
     affine = (scale, shift)
     if (scale is None) != (shift is None):
         raise ValueError(f"{name}: give both scale and shift, or neither")

@@ -1,6 +1,8 @@
 """Kernel and forward measurements of the port on one NVIDIA GPU.
 
     python gvcnn_tf_tpu_torch/tools/measure.py wrappers [--root DIR]
+    python gvcnn_tf_tpu_torch/tools/measure.py stem-f32 [--root DIR]
+    python gvcnn_tf_tpu_torch/tools/measure.py stem-probe
     python gvcnn_tf_tpu_torch/tools/measure.py profile [--train] [--config C]
     python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
@@ -16,6 +18,21 @@ launch (torch.profiler kernel durations, and one CUDA graph of K calls
 replayed, divided by K).  `--root DIR` measures the `gvcnn_tf_tpu_torch`
 of another checkout with this file's code, so that two versions are
 compared on one card in one call: parent, change, change, parent.
+
+`stem-f32` (`--root` as for `wrappers`): the fp32 stem kernel at
+mn10_single_view's (8, 224, 224, 3), without and with its epilogue: its
+max|err| against the plain version (cuDNN's fp32 conv, TF32 off) over
+max|ref|, CUDA-event time (median of 30), device time (torch.profiler,
+mean of 20 launches), and cuDNN's conv on the pre-padded input in fp32
+(TF32 off) and in TF32.
+
+`stem-probe`: where the fp32 stem kernel's time goes.  csrc/stem_conv.cu is
+built as it is and in the variants of `STEM_PROBE_EDITS` (textual edits of
+the source; one that no longer matches raises), one nvcc a variant, all
+started together, each into its own library under build/; each variant's
+fp32 kernel is timed on the device (torch.profiler, mean of 20 launches)
+at (8, 224, 224, 3) and (96, 224, 224, 3), the list in turns (in order,
+then reversed), and held against cuDNN's fp32 conv (TF32 off).
 
 `profile`: the serving model of `--config` (default mn40_12view; seeded
 weights, folded BN, the config's compute dtype, channels-last, uint8 views
@@ -218,6 +235,167 @@ def _measure_wrappers(dev, rs, w):
     return rows
 
 
+def measure_stem_f32(dev):
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv, stem_conv_plain
+
+    rs = np.random.RandomState(11)
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+        np.float32)).to(dev)
+    affine = tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                   for a in (rs.uniform(0.5, 2.0, 64),
+                             rs.uniform(-1.0, 1.0, 64)))
+    shape = (8, 224, 224, 3)
+    x = torch.from_numpy(rs.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+    ph, pw = same_pads(224, 7, 2), same_pads(224, 7, 2)
+    cudnn = torch.backends.cudnn
+
+    def tf32(allow):
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic,
+                           allow_tf32=allow)
+
+    row = dict(kernel="stem_f32", shape=list(shape))
+    with torch.inference_mode():
+        xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+        for tag, args in (("", ()), ("epilogue_", affine)):
+            fn = lambda: stem_conv(x, w, *args, relu=bool(args))  # noqa: E731
+            got = fn()
+            with tf32(False):
+                want = stem_conv_plain(x, w, *args, relu=bool(args))
+            row[f"{tag}max_rel_err"] = ((got - want).abs().max()
+                                        / want.abs().max()).item()
+            row[f"{tag}event_ms"] = cuda_ms(fn)
+            row[f"{tag}device_ms"] = kernel_us(fn, "stem_conv_f32")[0] / 1e3
+        for tag, allow in (("fp32", False), ("tf32", True)):
+            with tf32(allow):
+                row[f"cudnn_{tag}_ms"] = cuda_ms(
+                    lambda: F.conv2d(xn, w, stride=2))
+    return [row]
+
+
+# Variants of csrc/stem_conv.cu for `stem-probe`: name -> [(old, new)].
+_MMA = "mma_tf32(acc[mi][2 * jp{}], {}[mi], {}.{}, {}.{});"
+_SMALL_MMAS = [(_MMA.format(j, a, b, x, b, y), "")
+               for j, x, y in (("", "x", "y"), (" + 1", "z", "w"))
+               for a, b in (("as", "bb"), ("ab", "bs"))]
+_BIG_MMAS = [(_MMA.format(j, "ab", "bb", x, "bb", y), "")
+             for j, x, y in (("", "x", "y"), (" + 1", "z", "w"))]
+_FORCE_BAND = "  if (s.band == 0) return static_cast<int>(cudaErrorInvalidValue);"
+STEM_PROBE_EDITS = {
+    "kernel": [],
+    # big_a big_b alone: a single TF32 product (what the split costs).
+    "one_product": _SMALL_MMAS,
+    # No MMAs: staging, the weight split and the epilogue's stores.
+    "no_mma": _SMALL_MMAS + _BIG_MMAS,
+    # The launcher picks 7 rows at N = 8, 224x224 (one tile a block); 4
+    # (two tiles a block, the next one's rows staged during this one's
+    # MMAs) is the bf16 kernel's band.
+    "band_4": [(_FORCE_BAND, "  s.band = 4;\n" + _FORCE_BAND)],
+    # The A split by integer rounding (finite inputs only) instead of
+    # cvt.rna.
+    "int_rna_a": [(
+        "split_tf32(arow[abase[mi][r & 1] + 8 * sub + 4 * (r >> 1)],\n"
+        "                     ab[mi][r], as[mi][r]);",
+        "const float v = arow[abase[mi][r & 1] + 8 * sub + 4 * (r >> 1)];\n"
+        "ab[mi][r] = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+        "as[mi][r] = (__float_as_uint(v - __uint_as_float(ab[mi][r])) + "
+        "0x1000u) & 0xffffe000u;")],
+}
+
+
+def stem_probe_sources(src: str) -> dict:
+    """{variant: source}: `STEM_PROBE_EDITS` applied to the stem source."""
+    out = {}
+    for name, edits in STEM_PROBE_EDITS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"stem-probe {name}: the source no longer "
+                                 f"holds {old!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def stem_probe(dev):
+    import ctypes
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops import _build
+    from gvcnn_tf_tpu_torch.ops.pool import same_pads
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import (KERNEL_NAME_F32,
+                                                    pack_stem_weight_f32)
+
+    sources = stem_probe_sources((_build.CSRC / "stem_conv.cu").read_text())
+    _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="stem_probe_", dir=_build.BUILD_ROOT))
+    try:
+        for name, text in sources.items():
+            (tmp / f"{name}.cu").write_text(text)
+        procs = {name: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(tmp / f"{name}.so"), str(tmp / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in sources}
+        logs = {name: proc.communicate()[0] for name, proc in procs.items()}
+        fns = {}
+        for name, proc in procs.items():
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"stem-probe {name}: nvcc failed:\n{logs[name]}")
+            fn = getattr(ctypes.CDLL(str(tmp / f"{name}.so")),
+                         KERNEL_NAME_F32)
+            fn.argtypes = list(_build._SIGNATURES[KERNEL_NAME_F32])
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)   # loaded libraries stay
+
+    rs = np.random.RandomState(11)
+    w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
+        np.float32)).to(dev)
+    packed = pack_stem_weight_f32(w).contiguous()
+    cudnn = torch.backends.cudnn
+    cases = []
+    for n in (8, 96):
+        x = torch.from_numpy(rs.uniform(-1, 1, (n, 224, 224, 3)).astype(
+            np.float32)).to(dev)
+        xn = F.pad(x.permute(0, 3, 1, 2), (2, 3, 2, 3))
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            want = F.conv2d(xn, w, stride=2).permute(0, 2, 3, 1)
+        cases.append((n, x, x.new_empty(want.shape), want))
+
+    def launch(fn, x, out):
+        _build.check(fn(
+            x.data_ptr(), packed.data_ptr(), None, None, out.data_ptr(),
+            x.shape[0], 224, 224, 112, 112, same_pads(224, 7, 2)[0],
+            same_pads(224, 7, 2)[0], 0,
+            torch.cuda.current_stream().cuda_stream), KERNEL_NAME_F32)
+
+    rows = {name: dict(kernel="stem_f32_probe", variant=name,
+                       edits=len(STEM_PROBE_EDITS[name]))
+            for name in fns}
+    for name, fn in fns.items():
+        for n, x, out, want in cases:
+            launch(fn, x, out)
+            torch.cuda.synchronize()
+            rows[name][f"max_rel_err_{n}"] = ((out - want).abs().max()
+                                              / want.abs().max()).item()
+    for name in list(fns) + list(fns)[::-1]:
+        for n, x, out, _ in cases:
+            us = kernel_us(lambda: launch(fns[name], x, out), "stem_conv_f32")
+            rows[name].setdefault(f"device_ms_{n}", []).append(us[0] / 1e3)
+    return list(rows.values())
+
+
 def serving_model(dev, config="mn40_12view"):
     """The model of `config` as the inference engine holds it."""
     from gvcnn_tf_tpu_torch import get_config
@@ -336,9 +514,9 @@ def grad_group(name: str) -> str:
 def _tf32(t: torch.Tensor) -> torch.Tensor:
     """fp32 t rounded to TF32 (10 mantissa bits, to nearest), with the
     gradient passed straight through."""
-    r = ((t.detach().view(torch.int32) + 0x1000) & -0x2000).view(
-        torch.float32)
-    return t + (r - t).detach()
+    from gvcnn_tf_tpu_torch.ops.stem_kernel import tf32_rna
+
+    return t + (tf32_rna(t.detach()) - t).detach()
 
 
 @contextlib.contextmanager
@@ -346,7 +524,7 @@ def tf32_convs():
     """Within: every `layers.conv2d_tf` (the convs of `ConvBN`, every conv
     of an Inception-v1 model but the stem's) rounds its fp32 input and
     weight to TF32 before the conv, as cuDNN's default TF32 path on the
-    card does; the stem's fp32 kernel does not round."""
+    card does; the stem's fp32 kernel keeps fp32 accuracy (3xTF32)."""
     from gvcnn_tf_tpu_torch.models.backbones import layers
 
     real = layers.conv2d_tf
@@ -624,7 +802,9 @@ def profile_train(dev, config="mn40_12view", top=25):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("wrappers", "profile", "train-drift",
+    ap.add_argument("what", choices=("wrappers", "stem-f32", "stem-probe",
+                                     "profile",
+                                     "train-drift",
                                      "serve-drift", "dp-drift",
                                      "retrieval-drift"))
     ap.add_argument("--root", default=None,
@@ -720,6 +900,8 @@ def main(argv=None):
     print(card_line(), flush=True)
     print(f"package: {gvcnn_tf_tpu_torch.__file__}", flush=True)
     rows = (measure_wrappers(dev) if args.what == "wrappers"
+            else measure_stem_f32(dev) if args.what == "stem-f32"
+            else stem_probe(dev) if args.what == "stem-probe"
             else profile_train(dev, args.config) if args.train
             else profile_forward(dev, args.config))
     for row in rows:

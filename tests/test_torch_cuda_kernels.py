@@ -171,18 +171,21 @@ def test_stem_module_runs_the_epilogue_in_the_kernel(cuda):
                                atol=5e-2)
 
 
-# The fp32 kernel (mn10_single_view's stem, B = 8), a ragged strip and
-# odd sizes.
+# The fp32 kernel (mn10_single_view's stem, B = 8), odd sizes, an unaligned
+# width with a ragged band (1, 18, 226, 3: W % 4 != 0, 9 output rows), a
+# batch of many tiles a block (96 images), and rows wider than one strip
+# (150 and 151 outputs: two strips, aligned and not).
 STEM_F32_SHAPES = [(8, 224, 224, 3), (2, 30, 30, 3), (1, 31, 33, 3),
-                   (3, 8, 130, 3)]
+                   (3, 8, 130, 3), (1, 18, 226, 3), (96, 224, 224, 3),
+                   (2, 20, 300, 3), (1, 9, 301, 3)]
 
 
 @pytest.mark.parametrize("shape", STEM_F32_SHAPES)
 @pytest.mark.parametrize("epilogue", [None, "affine", "relu"])
 def test_stem_f32_kernel_matches_plain(cuda, shape, epilogue):
-    """fp32 in and out, fp32 multiply-adds on both sides (TF32 off for the
-    plain version's cuDNN conv): max|err| <= 1e-5 x max|ref|, 147 products
-    summed in another order."""
+    """fp32 in and out; the kernel in 3xTF32, the plain version's cuDNN
+    conv in fp32 (TF32 off): max|err| <= 1e-5 x max|ref|, which one TF32
+    product misses (tests/test_torch_stem.py)."""
     rs = np.random.RandomState(sum(shape) + len(epilogue or ""))
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
     w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(
