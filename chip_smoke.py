@@ -60,7 +60,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    clock, checkpoint load included, rendering excluded) and on the device
    (CUDA events over the 6 forwards of batches already on the card), and
    `train()` views/s on the procedural uint8 stream (10 resumed steps,
-   without evaluations).
+   without evaluations).  Its `train()` streams (`device_resident="off"`),
+   as in the runs before phase 15 existed, so its readings compare.
 
 10. The other families and backbones (`phase_families`), at full width
    (224x224, B = 8, 12 views, 1 for mn10_single_view, the config's compute
@@ -153,6 +154,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    margin is under LOGIT_REL_TOL of max|logit|; one launch of each kernel a
    batch); `tools/bench_input` views/s (LOADER_BENCH_BATCHES batches,
    num_threads 0) beside the views/s that phase 8's B=8 step consumes.
+15. The card-resident train split and the profiled window
+   (`phase_resident`, `phase_profiled`), mn40_12view at full width (B = 8,
+   12 views of 224x224, bf16, the uint8 wire) on the procedural train
+   split (the config's 128 shapes, or PROC_SHAPES if rendering them would
+   pass RESIDENT_RENDER_BUDGET_S; said in the log).  (a) The first
+   RESIDENT_CHECK_BATCHES resident batches out of the prefetcher (the
+   staged tensors by reference) gathered on the card equal the stream's
+   byte for byte; then `train()` for RESIDENT_STEPS steps streaming,
+   resident, resident, streaming: wall and views/s end to end, the loop's
+   views/s over its last RESIDENT_LOG_EVERY steps, staging time and bytes,
+   peak memory, one launch of each bf16 kernel a step; the trained weights
+   of the two transports within RESIDENT_GAP_ROOM x the spread of two runs
+   of one transport; a resident run resumed from the last streaming run's
+   checkpoint (step count, launches).  (b) `train(profile_steps=
+   PROFILE_WINDOW)` on the resident split, in a process of its own (as a
+   trainer runs it; see `phase_profiled`): the Chrome trace holds exactly
+   the spans `train_step 3` and `train_step 4`, and exactly 2 device
+   events of each kernel by its `__global__` name; its size and the
+   device's idle share over the window.  Phase 13's study smoke trains on
+   the resident split too (`device_resident="auto"`).
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -341,6 +362,33 @@ LOADER_TRAIN_SHAPES, LOADER_CUT_SHAPES, LOADER_VAL_SHAPES = 80, 48, 44
 LOADER_RENDER_BUDGET_S = 60
 LOADER_STEPS, LOADER_BENCH_BATCHES = 5, 20
 LOADER_EVAL_FORWARDS = -(-LOADER_VAL_SHAPES // 8)
+
+# Phase 15: the card-resident train split and the profiled window, on
+# mn40_12view at full width (B = 8, 12 views of 224x224, bf16, the uint8
+# wire) over the procedural train split: the config's own 128 shapes (231
+# MB), or phase 9's PROC_SHAPES if rendering 128 would pass
+# RESIDENT_RENDER_BUDGET_S (extrapolated from the first 8).  Four train()
+# runs of RESIDENT_STEPS steps in turns (streaming, resident, resident,
+# streaming), logging every RESIDENT_LOG_EVERY; then RESIDENT_RESUME_STEPS
+# resident steps resumed from the last streaming run's checkpoint.
+RESIDENT_STEPS, RESIDENT_LOG_EVERY, RESIDENT_RESUME_STEPS = 40, 10, 5
+RESIDENT_RENDER_BUDGET_S = 60
+RESIDENT_CHECK_BATCHES = 5
+# The trained parameters of the two transports: ||a - b|| over every
+# parameter and BatchNorm statistic, relative to how far training moved
+# them (||b - init||).  cuDNN's weight gradients and max-pool's backward
+# are not bitwise deterministic on the card, so two runs of one transport
+# already differ: every resident-vs-streaming gap must stay within
+# RESIDENT_GAP_ROOM x the larger same-transport gap, plus
+# RESIDENT_GAP_FLOOR (so that bit-for-bit runs pass).  A wrong batch moves
+# the weights elsewhere altogether: a gap of order 1.
+RESIDENT_GAP_ROOM, RESIDENT_GAP_FLOOR = 3.0, 1e-6
+# train(profile_steps=PROFILE_WINDOW) over PROFILE_WINDOW[1] + 1 steps.
+PROFILE_WINDOW = (3, 5)
+# The kernels' __global__ names (csrc/stem_conv.cu, csrc/grouping.cu).
+STEM_KERNEL_NAME, GROUPING_KERNEL_NAME = ("stem_conv_mma_kernel",
+                                          "group_and_fuse_kernel")
+
 
 def log(msg):
     print(msg, flush=True)
@@ -956,9 +1004,13 @@ def phase_eval(card, dev):
     logdir = root / "train"
     base = get_config("mn40_12view")
     cfg = base.replace(
+        # Streamed, as before phase 15 existed, so that its train()
+        # readings compare with the earlier ones; phase 15 times the
+        # card-resident split.
         data=dataclasses.replace(base.data, dataset="procedural",
                                  transfer_dtype="uint8",
-                                 synthetic_num_shapes=PROC_SHAPES),
+                                 synthetic_num_shapes=PROC_SHAPES,
+                                 device_resident="off"),
         train=dataclasses.replace(base.train, train_logdir=str(logdir),
                                   log_every=EVAL_EVERY,
                                   checkpoint_every=EVAL_EVERY,
@@ -2566,6 +2618,333 @@ def phase_loaders(card, dev, step_views_per_s):
                 seconds=seconds)
 
 
+def _param_vector(model_state):
+    return torch.cat([v.detach().float().flatten().cpu()
+                      for _, v in sorted(model_state.items())
+                      if v.is_floating_point()])
+
+
+def _resident_split(base):
+    """The procedural train split phase 15 trains on: (num_shapes, render
+    seconds)."""
+    from gvcnn_tf_tpu_torch.data.procedural import build_procedural_split
+
+    d = base.data
+
+    def render(n):
+        t0 = time.perf_counter()
+        build_procedural_split(num_views=d.num_views, height=d.height,
+                               width=d.width, num_shapes=n,
+                               seed=base.train.seed, train_split=True,
+                               hard=False, num_classes=d.num_classes)
+        return time.perf_counter() - t0
+
+    predicted = render(8) * d.synthetic_num_shapes / 8
+    n = (d.synthetic_num_shapes if predicted <= RESIDENT_RENDER_BUDGET_S
+         else PROC_SHAPES)
+    render_s = render(n)
+    whose = ("the config's own" if n == d.synthetic_num_shapes
+             else "phase 9's: rendering the config's would pass "
+                  f"{RESIDENT_RENDER_BUDGET_S} s")
+    log(f"phase 15 split: {n} shapes ({whose}), rendered in {render_s:.1f} "
+        f"s ({d.synthetic_num_shapes} predicted at {predicted:.1f} s from "
+        f"the first 8)")
+    return n, render_s
+
+
+def phase_resident(card, dev):
+    """Phase 15 (a): train() with the procedural uint8 split streamed and
+    resident on the card, in turns; the first batches byte for byte; a
+    resident run resumed from a streaming checkpoint."""
+    import dataclasses
+    import importlib
+    import shutil
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.configs import resolve_transfer_dtype
+    from gvcnn_tf_tpu_torch.data import DevicePrefetcher, make_dataset
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_resident"
+    shutil.rmtree(root, ignore_errors=True)
+    base = get_config("mn40_12view")
+    n_shapes, render_s = _resident_split(base)
+    views_per_step = base.data.batch_size * base.data.num_views
+
+    def config(mode, logdir):
+        return base.replace(
+            data=dataclasses.replace(base.data, dataset="procedural",
+                                     transfer_dtype="uint8",
+                                     synthetic_num_shapes=n_shapes,
+                                     device_resident=mode),
+            train=dataclasses.replace(
+                base.train, train_logdir=str(logdir),
+                log_every=RESIDENT_LOG_EVERY,
+                checkpoint_every=RESIDENT_STEPS))
+
+    # 1. The first batches through the prefetcher, resident against the
+    # stream, byte for byte; the staged split passed by reference.
+    cfg = config("on", root / "unused")
+    seed = cfg.train.seed
+    it = make_dataset(cfg.data, train=True, seed=seed, device=dev)
+    stream = make_dataset(dataclasses.replace(cfg.data,
+                                              device_resident="off"),
+                          train=True, seed=seed)
+    if type(it).__name__ != "DeviceResidentIter":
+        raise AssertionError(f"device_resident='on' gave {type(it)}")
+    with DevicePrefetcher(it, dev, resolve_transfer_dtype(cfg)) as pf:
+        for i in range(RESIDENT_CHECK_BATCHES):
+            b, want = next(pf), next(stream)
+            if (b["views"].data_ptr() != it.views.data_ptr()
+                    or b["label"].data_ptr() != it.labels.data_ptr()
+                    or b["idx"].device != it.views.device):
+                raise AssertionError("a resident batch left the prefetcher "
+                                     "without its staged tensors")
+            got = b["views"].index_select(0, b["idx"]).cpu().numpy()
+            lab = b["label"].index_select(0, b["idx"]).cpu().numpy()
+            if (got.tobytes() != want["views"].tobytes()
+                    or not np.array_equal(lab, want["label"])):
+                raise AssertionError(f"resident batch {i} differs from the "
+                                     "stream's")
+    log(f"the first {RESIDENT_CHECK_BATCHES} resident batches equal the "
+        f"stream's byte for byte (views and labels; staged "
+        f"{it.staged_bytes / 1e6:.1f} MB in {it.stage_seconds:.3f} s)")
+    del it, pf, b
+
+    # 2. Streaming and resident in turns.
+    def run(mode, logdir, steps):
+        staged = {"kind": None, "s": 0.0, "bytes": 0}
+        real = train_mod.make_dataset
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            staged.update(kind=type(out).__name__,
+                          s=getattr(out, "stage_seconds", 0.0),
+                          bytes=getattr(out, "staged_bytes", 0))
+            return out
+
+        train_mod.make_dataset = spy
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            state, mets = train_mod.train(config(mode, logdir),
+                                          num_steps=steps, device="cuda")
+        finally:
+            train_mod.make_dataset = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(logdir / "metrics.jsonl") as f:
+            last = [json.loads(line) for line in f][-1]
+        # Only the trained weights, on the host, outlive the run, so that
+        # each run's peak memory is its own.
+        return dict(step=state.step, mets=mets, wall=wall, launches=_counts(),
+                    params=_param_vector(state.model.state_dict()),
+                    staged=staged, peak=torch.cuda.max_memory_allocated(dev),
+                    loop_vps=last["shapes_per_sec"] * base.data.num_views)
+
+    runs = []
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        r = run(mode, root / f"run{i}_{mode}", RESIDENT_STEPS)
+        r["mode"] = mode
+        ran = r["step"]
+        want_kind = "DeviceResidentIter" if mode == "on" else (
+            "ProceduralStream")
+        vps = RESIDENT_STEPS * views_per_step / r["wall"]
+        log(f"train() {'resident' if mode == 'on' else 'streaming'} "
+            f"(device_resident={mode!r}), {RESIDENT_STEPS} steps: wall "
+            f"{r['wall']:.3f} s, {vps:.1f} views/s end to end, "
+            f"{r['loop_vps']:.1f} views/s over the loop's last "
+            f"{RESIDENT_LOG_EVERY} steps; staged {r['staged']['bytes']} B "
+            f"in {r['staged']['s']:.3f} s; peak memory "
+            f"{r['peak'] / 1e9:.3f} GB; launches {r['launches']}; last "
+            f"{r['mets']} [{card}]")
+        if r["staged"]["kind"] != want_kind or ran != RESIDENT_STEPS:
+            raise AssertionError(f"{mode}: {r['staged']['kind']}, {ran} "
+                                 "steps")
+        if r["launches"] != (RESIDENT_STEPS, 0, RESIDENT_STEPS):
+            raise AssertionError(f"{mode}: launches {r['launches']}, "
+                                 "expected one of each bf16 kernel a step")
+        if not all(np.isfinite(v) for v in r["mets"].values()):
+            raise AssertionError(f"{mode}: metrics {r['mets']}")
+        r["views_per_s"] = vps
+        runs.append(r)
+
+    # 3. The trained parameters: resident against streaming, beside two
+    # runs of one transport.
+    init = _param_vector(init_weights(build_model(base),
+                                      base.train.seed).state_dict())
+    vecs = [r["params"] for r in runs]
+
+    def gap(i, j):
+        return float((vecs[i] - vecs[j]).norm() / (vecs[j] - init).norm())
+
+    same = [gap(0, 3), gap(1, 2)]
+    cross = [gap(i, j) for i in (1, 2) for j in (0, 3)]
+    bound = RESIDENT_GAP_ROOM * max(same) + RESIDENT_GAP_FLOOR
+    log(f"trained parameters, ||a - b|| / ||b - init||: resident vs "
+        f"streaming {[f'{g:.3e}' for g in cross]}; streaming vs streaming "
+        f"{same[0]:.3e}, resident vs resident {same[1]:.3e}; bound "
+        f"{bound:.3e}")
+    if max(cross) > bound:
+        raise AssertionError("the transports trained different weights")
+
+    # 4. A resident run resumed from the last streaming run's checkpoint.
+    total = RESIDENT_STEPS + RESIDENT_RESUME_STEPS
+    r = run("on", root / "run3_off", total)
+    log(f"resident run resumed from a streaming checkpoint at step "
+        f"{RESIDENT_STEPS}: step {r['step']}, launches {r['launches']}, "
+        f"staged {r['staged']['bytes']} B")
+    if (r["step"] != total or r["staged"]["kind"] != "DeviceResidentIter"
+            or r["launches"] != (RESIDENT_RESUME_STEPS, 0,
+                                 RESIDENT_RESUME_STEPS)):
+        raise AssertionError(f"resume: step {r['step']}, "
+                             f"{r['staged']['kind']}, {r['launches']}")
+    shutil.rmtree(root, ignore_errors=True)
+    summary = [{k: r[k] for k in ("mode", "wall", "views_per_s", "loop_vps",
+                                  "peak", "launches")}
+               | {"stage_s": r["staged"]["s"],
+                  "staged_bytes": r["staged"]["bytes"]} for r in runs]
+    return dict(shapes=n_shapes, render_s=render_s, runs=summary,
+                gaps={"cross": cross, "same": same, "bound": bound},
+                launches_per_step=(runs[1]["launches"][0] / RESIDENT_STEPS,
+                                   runs[1]["launches"][2] / RESIDENT_STEPS))
+
+
+def _busy_us(intervals, lo, hi):
+    """Length of the union of [start, end) intervals clipped to [lo, hi)."""
+    busy, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def read_trace(path):
+    """What phase 15 reads in a Chrome trace of `train(profile_steps=...)`:
+    the `train_step` spans in order, the device events (kernels, copies,
+    memsets), each kernel's launches, and the device's busy time and idle
+    share from the first span's start to the last event's end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("train_step ")),
+                   key=lambda e: e["ts"])
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    out = dict(events=len(events), spans=[e["name"] for e in spans],
+               device_events=len(device), kernels=len(kernels),
+               stem_events=sum(STEM_KERNEL_NAME in e["name"]
+                               for e in kernels),
+               grouping_events=sum(GROUPING_KERNEL_NAME in e["name"]
+                                   for e in kernels))
+    if not device or not spans:
+        return out | dict(window_ms=None, busy_ms=None, idle=None)
+    lo = spans[0]["ts"]
+    hi = max(e["ts"] + e.get("dur", 0) for e in device + spans)
+    busy = _busy_us([(e["ts"], e["ts"] + e.get("dur", 0)) for e in device],
+                    lo, hi)
+    return out | dict(window_ms=(hi - lo) / 1e3, busy_ms=busy / 1e3,
+                      idle=1 - busy / (hi - lo))
+
+
+_PROFILE_CHILD = """
+import dataclasses, importlib, json, sys
+from gvcnn_tf_tpu_torch import get_config
+from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+logdir, n_shapes, start, stop = sys.argv[1], *map(int, sys.argv[2:5])
+train = importlib.import_module("gvcnn_tf_tpu_torch.train").train
+base = get_config("mn40_12view")
+# device_resident "auto": the card-resident split, the default here.
+cfg = base.replace(
+    data=dataclasses.replace(base.data, dataset="procedural",
+                             transfer_dtype="uint8",
+                             synthetic_num_shapes=n_shapes),
+    train=dataclasses.replace(base.train, train_logdir=logdir,
+                              log_every=stop + 1, checkpoint_every=stop + 1))
+state, mets = train(cfg, num_steps=stop + 1, profile_steps=(start, stop),
+                    device="cuda")
+assert "jax" not in sys.modules and "gvcnn_tf_tpu" not in sys.modules
+print(json.dumps({"step": state.step, "mets": mets, "launches": [
+    stem_conv.launches - stem_conv.launches_f32, stem_conv.launches_f32,
+    group_and_fuse.launches]}))
+"""
+
+
+def phase_profiled(card, dev, n_shapes):
+    """Phase 15 (b): train(profile_steps=PROFILE_WINDOW) in a process of
+    its own, as a trainer runs it, and its Chrome trace: the steps' spans,
+    each kernel's device events, the idle share.  (Traced in this process,
+    after phases 1-14, the window lost kernel records, one of the stem's
+    launches among them, in both chip runs that tried it; `tools/measure.py
+    trace-windows` finds such losses only after 20 or more profiler
+    sessions in one process; PERF.md §6 and §7.)"""
+    import importlib
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from gvcnn_tf_tpu_torch.parallel import World
+    from gvcnn_tf_tpu_torch.tools.measure import PROFILE_TRIES
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    repo = Path(__file__).resolve().parent
+    root = repo / "build" / "chip_smoke_profile"
+    shutil.rmtree(root, ignore_errors=True)
+    start, stop = PROFILE_WINDOW
+    for attempt in range(PROFILE_TRIES):
+        logdir = root / f"try{attempt}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PROFILE_CHILD, str(logdir),
+             str(n_shapes), str(start), str(stop)], cwd=repo,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(repo)))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the profiled train() failed in its "
+                                 f"process:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        path = logdir / train_mod.trace_name(PROFILE_WINDOW, World())
+        tr = read_trace(path)
+        if tr["device_events"]:
+            break
+        log(f"the profiler saw no device activity in {path.name}; "
+            "profiling again")
+    else:
+        raise AssertionError(f"no device activity in {PROFILE_TRIES} traces")
+    size = path.stat().st_size
+    log(f"train(profile_steps={PROFILE_WINDOW}) over {stop + 1} steps in a "
+        f"process of its own ({wall:.1f} s with start-up and rendering): "
+        f"trace {path.name}, {size} B, {tr['events']} events; spans "
+        f"{tr['spans']}; device events {tr['device_events']} "
+        f"({tr['kernels']} kernels), {STEM_KERNEL_NAME} x{tr['stem_events']}"
+        f", {GROUPING_KERNEL_NAME} x{tr['grouping_events']}; window "
+        f"{tr['window_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms, "
+        f"idle {tr['idle']:.1%}; step {child['step']}, launches "
+        f"{child['launches']}; last {child['mets']} [{card}]")
+    want = [f"train_step {s}" for s in range(start, stop)]
+    if tr["spans"] != want:
+        raise AssertionError(f"trace spans {tr['spans']}, expected {want}")
+    if not tr["stem_events"] == tr["grouping_events"] == stop - start:
+        raise AssertionError(f"trace holds {tr['stem_events']} stem and "
+                             f"{tr['grouping_events']} grouping launches, "
+                             f"expected {stop - start} of each")
+    if (child["launches"] != [stop + 1, 0, stop + 1]
+            or child["step"] != stop + 1):
+        raise AssertionError(f"profiled run: step {child['step']}, launches "
+                             f"{child['launches']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return tr | dict(trace_bytes=size, wall_s=wall, attempts=attempt + 1)
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -2628,6 +3007,11 @@ def main():
     log("phase 13 summary: " + json.dumps(tools))
     loaders = phase_loaders(card, dev, tr["views_per_s"])
     log("phase 14 summary: " + json.dumps(loaders))
+    t15 = time.perf_counter()
+    resident = phase_resident(card, dev)
+    profiled = phase_profiled(card, dev, resident["shapes"])
+    log(f"phase 15 summary ({time.perf_counter() - t15:.1f} s): "
+        + json.dumps({"resident": resident, "profiled": profiled}))
     loader_launches = {k: v["launches"] for k, v in loaders["train"].items()}
     loader_eval = {k: v["launches"] for k, v in loaders["eval"].items()}
     per_fwd = tools["export"]["launches_per_forward"]
@@ -2648,6 +3032,8 @@ def main():
              loader_train_launches={k: v[0] for k, v in
                                     loader_launches.items()},
              loader_eval_launches={k: v[0] for k, v in loader_eval.items()},
+             resident_launches_per_step=resident["launches_per_step"][0],
+             profiled_window_events=profiled["stem_events"],
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -2664,6 +3050,8 @@ def main():
              loader_train_launches={k: v[2] for k, v in
                                     loader_launches.items()},
              loader_eval_launches={k: v[2] for k, v in loader_eval.items()},
+             resident_launches_per_step=resident["launches_per_step"][1],
+             profiled_window_events=profiled["grouping_events"],
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}

@@ -282,8 +282,10 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "raw renders and normalizes on the device)")
     p.add_argument("--device_resident", default=None,
                    choices=["auto", "on", "off"],
-                   help="stage the whole uint8 train split on the device "
-                        "once and gather batches inside the train step")
+                   help="stage the procedural uint8 train split on the "
+                        "card once and gather each batch inside the train "
+                        "step (auto: one process, uint8 wire, at most "
+                        "4 GiB; off under several ranks or bn_sync local)")
     p.add_argument("--score_squash", default=None,
                    help="score squash: softmax | sigmoid | sigmoid_log")
     p.add_argument("--seed", type=int, default=None)

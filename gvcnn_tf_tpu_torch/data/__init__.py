@@ -1,7 +1,8 @@
-"""Input pipeline of the port: the synthetic stream, the procedural split,
-the file loaders (the native decode pool, the decode-once cache, the
-TFRecord reader; imported where used), the dataset dispatch and the
-host-to-device prefetcher."""
+"""Input pipeline of the port: the synthetic stream, the procedural split
+(streamed, or staged on the card: `device_resident.py`), the file loaders
+(the native decode pool, the decode-once cache, the TFRecord reader;
+imported where used), the dataset dispatch and the host-to-device
+prefetcher."""
 
 from gvcnn_tf_tpu_torch.data.pipeline import (  # noqa: F401
     dataset_size,

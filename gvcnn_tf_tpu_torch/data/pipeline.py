@@ -10,12 +10,15 @@ TensorFlow.  A loader that cannot run here raises with the reason (the
 native pool needs a C++ compiler, libjpeg and libpng); nothing falls back
 to another loader.  Where the pool cannot be built, the decoded cache and
 the TFRecord reader decode with PIL if it imports, and say so in the log.
-`device_resident="on"` is refused with the ROADMAP item that ports it;
-`"auto"` streams every split through the prefetcher, where
-the JAX package stages a procedural train split on the device under `auto`
-when the uint8 wire is on.  The batches are the same either way: the JAX
-package's staged split draws the same per-epoch permutation as its stream
-(`RandomState(seed + 7 + shard_index)`).
+
+The procedural train split may instead be staged on the card once
+(`data/device_resident.py`, `device_resident`): by the JAX package's rule,
+`"on"` stages it and `"auto"` stages it for one process on one card when
+the uint8 wire is on and the split is at most 4 GiB.  Staging needs the
+device, so `make_dataset` stages only when it is given one (`train()`
+passes its card); without a device every split streams.  The batches are
+the same either way (the same per-epoch permutation,
+`RandomState(seed + 7 + shard_index)`).
 
 The synthetic and procedural streams save their position (`state_dict`),
 so a resumed run continues them; the file loaders restart from their seed,
@@ -29,8 +32,12 @@ import os
 from typing import Iterator, Optional
 
 from gvcnn_tf_tpu_torch.configs import DataConfig
-from gvcnn_tf_tpu_torch.data.procedural import ProceduralStream
+from gvcnn_tf_tpu_torch.data.procedural import (
+    ProceduralStream,
+    build_procedural_split,
+)
 from gvcnn_tf_tpu_torch.data.synthetic import SyntheticStream
+from gvcnn_tf_tpu_torch.metrics import log
 
 
 def _resolve_loader(data_cfg: DataConfig) -> str:
@@ -79,9 +86,32 @@ def dataset_size(data_cfg: DataConfig, *, train: bool = True,
     return sum(count_records(f) for f in files)
 
 
+def _use_device_resident(data_cfg: DataConfig, train: bool,
+                         world_size: int = 1) -> bool:
+    """Whether to stage the split on the device (`device_resident`), by
+    the JAX package's rule with one process per card: "off", or a split
+    that is not train, streams; "on" stages (one rank only); "auto" stages
+    when the wire is uint8, the world is one rank and the split's renders,
+    num_shapes x num_views x H x W x 3 bytes, fit in 4 GiB."""
+    mode = data_cfg.device_resident
+    if mode == "off" or not train:
+        return False
+    if mode == "on":
+        if world_size > 1:
+            raise ValueError(
+                "device_resident='on' is single-process only (several "
+                "ranks shard their input through the streaming prefetcher)")
+        return True
+    width = data_cfg.width or data_cfg.height
+    nbytes = (data_cfg.synthetic_num_shapes * data_cfg.num_views
+              * data_cfg.height * width * 3)
+    return (data_cfg.transfer_dtype == "uint8" and world_size == 1
+            and nbytes <= (4 << 30))
+
+
 def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
                  num_epochs: Optional[int] = None, shard_index: int = 0,
-                 num_shards: int = 1) -> Iterator[dict]:
+                 num_shards: int = 1, device=None) -> Iterator[dict]:
     """The split's iterator of numpy batches for a config (`num_epochs`
     None: endless; the TFRecord reader repeats in train mode and reads once
     in eval, as the JAX one does).
@@ -89,15 +119,16 @@ def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
     `shard_index`/`num_shards`: data-parallel input sharding, as in the JAX
     package: each rank streams a disjoint subset of the split at its local
     batch size (`data_cfg.batch_size` here is the rank's; `train` divides
-    the global batch by the world's size before calling)."""
+    the global batch by the world's size before calling), `num_shards`
+    being the world's size.
+
+    `device`: where `_use_device_resident` allows it, the procedural train
+    split is staged there and the iterator yields its batches as indices
+    into it (`DeviceResidentIter`); without a device it streams."""
     loader = _resolve_loader(data_cfg)
     if loader not in ("synthetic", "procedural", "native", "decoded",
                       "tfrecord"):
         raise ValueError(f"unknown loader {loader!r}")
-    if data_cfg.device_resident == "on":
-        raise NotImplementedError(
-            "device_resident='on' is not ported (ROADMAP §1 item 15, "
-            "GPU-resident split)")
     uint8 = data_cfg.transfer_dtype == "uint8"
     if uint8 and loader == "synthetic":
         raise ValueError(
@@ -149,6 +180,24 @@ def make_dataset(data_cfg: DataConfig, *, train: bool, seed: int = 0,
               num_shapes=data_cfg.synthetic_num_shapes, seed=seed,
               train=train, num_epochs=num_epochs, **geometry, **shards)
     if loader == "procedural":
-        return ProceduralStream(hard=data_cfg.dataset == "procedural_hard",
-                                raw_uint8=uint8, **kw)
+        hard = data_cfg.dataset == "procedural_hard"
+        if device is not None and _use_device_resident(data_cfg, train,
+                                                       num_shards):
+            from gvcnn_tf_tpu_torch.data.device_resident import (
+                device_resident_iter,
+            )
+
+            views, labels = build_procedural_split(
+                num_views=data_cfg.num_views, height=data_cfg.height,
+                width=data_cfg.width,
+                num_shapes=data_cfg.synthetic_num_shapes, seed=seed,
+                train_split=train, hard=hard,
+                num_classes=data_cfg.num_classes)
+            it = device_resident_iter(
+                views, labels, batch_size=data_cfg.batch_size, device=device,
+                seed=seed, train=train, num_epochs=num_epochs, **shards)
+            log(f"device_resident: staged the train split on {device}, "
+                f"{it.staged_bytes / 1e6:.1f} MB in {it.stage_seconds:.3f} s")
+            return it
+        return ProceduralStream(hard=hard, raw_uint8=uint8, **kw)
     return SyntheticStream(**kw)

@@ -17,6 +17,11 @@ flight; handing a batch out makes the current stream wait for its copy and
 records the tensors on that stream, so the caching allocator keeps them
 until the step that reads them is done.  On the CPU the batches pass
 through as host tensors.
+
+A batch of the card-resident split (`data/device_resident.py`: 'views' and
+'label' the staged tensors, 'idx' the batch's indices) passes its staged
+tensors through by reference; only 'idx' is pinned and copied, on the side
+stream like any batch.
 """
 
 from __future__ import annotations
@@ -40,8 +45,10 @@ class DevicePrefetcher:
     """Iterator of {'views', 'label'} device tensors from an iterator of
     numpy batches.  Float `views` arrive in `transfer_dtype` ("bfloat16",
     or None for the loader's own dtype), uint8 `views` as uint8, `label` as
-    int64.  `depth` batches wait on the host; 0 ("prefetch off") is taken
-    as 1, so the stream is never empty.
+    int64.  A resident batch comes out as {'views', 'label', 'idx'}: the
+    staged tensors as they were given, 'idx' int64 on the device.  `depth`
+    batches wait on the host; 0 ("prefetch off") is taken as 1, so the
+    stream is never empty.
 
     `data_state` is the loader's `state_dict()` as it stood right after it
     produced the batch last handed out (None for a loader without one): a
@@ -58,7 +65,7 @@ class DevicePrefetcher:
         self._queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
         self._side = torch.cuda.Stream(self._device) if self._cuda else None
-        self._ready = None              # (views, label, state) copied ahead
+        self._ready = None              # (batch, state) copied ahead
         self._done = False
         self._error: Optional[BaseException] = None
         self.data_state = None
@@ -89,11 +96,15 @@ class DevicePrefetcher:
             for batch in it:
                 state = (it.state_dict() if hasattr(it, "state_dict")
                          else None)
-                views = np.asarray(batch["views"])
-                wire = self._wire if views.dtype.kind == "f" else None
-                item = (self._host(views, wire),
-                        self._host(batch["label"], torch.int64), state)
-                if not self._put(item):
+                if "idx" in batch:      # staged on the device already
+                    host = {"views": batch["views"], "label": batch["label"],
+                            "idx": self._host(batch["idx"], torch.int64)}
+                else:
+                    views = np.asarray(batch["views"])
+                    wire = self._wire if views.dtype.kind == "f" else None
+                    host = {"views": self._host(views, wire),
+                            "label": self._host(batch["label"], torch.int64)}
+                if not self._put((host, state)):
                     return
             self._put(_END)
         except BaseException as e:  # handed to the consumer, raised there
@@ -113,12 +124,13 @@ class DevicePrefetcher:
         if isinstance(item, _Failed):
             self._done, self._error = True, item.exc
             return None
-        views, label, state = item
+        batch, state = item
         if self._cuda:
             with torch.cuda.stream(self._side):
-                views = views.to(self._device, non_blocking=True)
-                label = label.to(self._device, non_blocking=True)
-        return views, label, state
+                batch = {k: v if v.is_cuda else v.to(self._device,
+                                                      non_blocking=True)
+                         for k, v in batch.items()}
+        return batch, state
 
     def __iter__(self):
         return self
@@ -130,18 +142,18 @@ class DevicePrefetcher:
             if self._error is not None:
                 raise self._error
             raise StopIteration
-        views, label, self.data_state = self._ready
+        batch, self.data_state = self._ready
         self._ready = None
         if self._cuda:
             cur = torch.cuda.current_stream(self._device)
             cur.wait_stream(self._side)
-            views.record_stream(cur)
-            label.record_stream(cur)
+            for v in batch.values():
+                v.record_stream(cur)
         if not self._done:
             # The next copy starts now if its batch is ready, and overlaps
             # the step that is about to be enqueued.
             self._ready = self._take(block=False)
-        return {"views": views, "label": label}
+        return batch
 
     def close(self):
         """Stop the producer and wait for it (at most 30 s)."""

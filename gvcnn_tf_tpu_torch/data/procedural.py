@@ -23,7 +23,9 @@ Deterministic by (seed, split); rendered once per process and cached.  The
 same bytes, labels and batches as the JAX package's
 (`tests/test_torch_procedural.py` pins them).  The dataset is an iterator
 object (`ProceduralStream`) whose position can be saved and restored, as
-`SyntheticStream`'s can, so a resumed run continues the stream.
+`SyntheticStream`'s can, so a resumed run continues the stream; its order
+(`EpochOrder`) is shared with the card-resident split
+(`data/device_resident.py`).
 """
 
 from __future__ import annotations
@@ -661,38 +663,33 @@ def build_procedural_split(
     return views, labels
 
 
-class ProceduralStream:
-    """Yields {'views': (B, V, H, W, 3), 'label': (B,) int32} batches of a
-    procedural split: float32 in [-1, 1], or with `raw_uint8` the stored
-    uint8 renders in [0, 255] (for `transfer_dtype="uint8"` runs, which
-    normalize on the device, utils/images.py, and ship 4x fewer bytes).
-    The JAX package's `procedural_dataset` generator, batch for batch.
+class EpochOrder:
+    """The order in which a procedural split is read: each process's shard
+    (every num_shards-th shape from shard_index), one permutation of it an
+    epoch from `RandomState(seed + 7 + shard_index)`, cut into batches of
+    indices.  Train shuffles each epoch and drops the ragged tail; eval
+    reads the shard in order with its tail short.
 
-    Train shuffles each epoch and drops the ragged tail; eval yields the
-    split in order with its tail short.  `shard_index`/`num_shards` give
-    each process every num_shards-th shape."""
+    The base of the streaming `ProceduralStream` and the card-resident
+    `DeviceResidentIter` (`data/device_resident.py`): both read the same
+    batches, and both save the same position (`state_dict`), so a
+    checkpoint written under either transport resumes under the other."""
 
-    def __init__(self, *, num_classes: int, num_views: int, height: int,
-                 width: int, batch_size: int, num_shapes: int = 400,
-                 seed: int = 0, train: bool = True,
-                 num_epochs: Optional[int] = None, shard_index: int = 0,
-                 num_shards: int = 1, hard: bool = False,
-                 raw_uint8: bool = False):
-        self._views, self._labels = build_procedural_split(
-            num_views=num_views, height=height, width=width,
-            num_shapes=num_shapes, seed=seed, train_split=train, hard=hard,
-            num_classes=num_classes,
-        )
+    def __init__(self, *, num_shapes: int, batch_size: int, seed: int = 0,
+                 train: bool = True, num_epochs: Optional[int] = None,
+                 shard_index: int = 0, num_shards: int = 1):
         self._shard = np.arange(num_shapes)[shard_index::num_shards]
         self._rng = np.random.RandomState(seed + 7 + shard_index)
         self._batch_size, self._train = batch_size, train
-        self._num_epochs, self._raw_uint8 = num_epochs, raw_uint8
+        self._num_epochs = num_epochs
         self._epoch, self._order, self._start = 0, None, 0
 
     def __iter__(self):
         return self
 
-    def __next__(self) -> dict:
+    def _next_indices(self) -> np.ndarray:
+        """The next batch's shape indices; StopIteration after the last
+        epoch."""
         bs = self._batch_size
         while True:
             if self._order is None:
@@ -707,16 +704,13 @@ class ProceduralStream:
             if self._start < last:
                 idx = self._order[self._start:self._start + bs]
                 self._start += bs
-                v = self._views[idx]
-                if not self._raw_uint8:
-                    v = v.astype(np.float32) / 255.0 * 2.0 - 1.0
-                return {"views": v, "label": self._labels[idx]}
+                return idx
             self._order = None
             self._epoch += 1
 
     def state_dict(self) -> dict:
-        """The stream's position: epoch, offset, shuffled order and the
-        numpy generator's state, as tensors and numbers (so that
+        """The position: epoch, offset, shuffled order and the numpy
+        generator's state, as tensors and numbers (so that
         `torch.load(weights_only=True)` reads it back)."""
         kind, keys, pos, has_gauss, gauss = self._rng.get_state()
         return {
@@ -735,6 +729,38 @@ class ProceduralStream:
         self._epoch, self._start = state["epoch"], state["start"]
         order = state["order"]
         self._order = None if order is None else order.numpy()
+
+
+class ProceduralStream(EpochOrder):
+    """Yields {'views': (B, V, H, W, 3), 'label': (B,) int32} batches of a
+    procedural split in `EpochOrder`'s order: float32 in [-1, 1], or with
+    `raw_uint8` the stored uint8 renders in [0, 255] (for
+    `transfer_dtype="uint8"` runs, which normalize on the device,
+    utils/images.py, and ship 4x fewer bytes).  The JAX package's
+    `procedural_dataset` generator, batch for batch."""
+
+    def __init__(self, *, num_classes: int, num_views: int, height: int,
+                 width: int, batch_size: int, num_shapes: int = 400,
+                 seed: int = 0, train: bool = True,
+                 num_epochs: Optional[int] = None, shard_index: int = 0,
+                 num_shards: int = 1, hard: bool = False,
+                 raw_uint8: bool = False):
+        self._views, self._labels = build_procedural_split(
+            num_views=num_views, height=height, width=width,
+            num_shapes=num_shapes, seed=seed, train_split=train, hard=hard,
+            num_classes=num_classes,
+        )
+        super().__init__(num_shapes=num_shapes, batch_size=batch_size,
+                         seed=seed, train=train, num_epochs=num_epochs,
+                         shard_index=shard_index, num_shards=num_shards)
+        self._raw_uint8 = raw_uint8
+
+    def __next__(self) -> dict:
+        idx = self._next_indices()
+        v = self._views[idx]
+        if not self._raw_uint8:
+            v = v.astype(np.float32) / 255.0 * 2.0 - 1.0
+        return {"views": v, "label": self._labels[idx]}
 
 
 def procedural_dataset(**kw) -> ProceduralStream:

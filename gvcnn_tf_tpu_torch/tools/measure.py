@@ -4,6 +4,7 @@
     python gvcnn_tf_tpu_torch/tools/measure.py stem-f32 [--root DIR]
     python gvcnn_tf_tpu_torch/tools/measure.py stem-probe
     python gvcnn_tf_tpu_torch/tools/measure.py profile [--train] [--config C]
+    python gvcnn_tf_tpu_torch/tools/measure.py trace-windows [--windows N]
     python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py dp-drift [--config C]    # CPU
@@ -47,6 +48,15 @@ SGD, dropout on; a fixed synthetic batch already on the card, in the
 compute dtype as the loader sends it): step time (CUDA events, median of
 10), views/s, peak device memory, device busy time and idle share over 3
 profiled steps, and device time by kernel class and by kernel.
+
+`trace-windows`: whether `train(profile_steps=(3, 5))` traces its whole
+window.  `--windows` (default 20) runs of mn40_12view on the 128-shape
+procedural uint8 split (card-resident), 6 steps each, in this process,
+each after a CUDA-only profiler session of 5 grouping-kernel calls (as
+`kernel_us` makes them): per window, the kernel launches the trace
+records (its CUDA API events), the kernels it holds, each hand-written
+kernel's events and the device's idle share.  A launch without its kernel
+is a record the profiler lost.
 
 `train-drift` (runs on the CPU, and is no device measurement): one train
 step of `--config` (default mn40_12view), B = 2, in bf16 and in fp32 from
@@ -800,10 +810,77 @@ def profile_train(dev, config="mn40_12view", top=25):
                  for k, v in ranked[:top]])]
 
 
+def trace_windows(dev, windows):
+    """`trace-windows`: one row a profiled window (see the docstring)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.parallel import World
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    base = get_config("mn40_12view")
+    rs = np.random.RandomState(0)
+    scores = torch.from_numpy(rs.rand(8, 12).astype(np.float32)).to(dev)
+    descs = torch.from_numpy(rs.rand(8, 12, 1024).astype(np.float32)).to(dev)
+    rows = []
+    for i in range(windows):
+        kernel_durations_us(lambda: group_and_fuse(scores, descs, 8), calls=5)
+        logdir = tempfile.mkdtemp(prefix="gvcnn_trace_windows_")
+        cfg = base.replace(
+            data=dataclasses.replace(base.data, dataset="procedural",
+                                     transfer_dtype="uint8"),
+            train=dataclasses.replace(base.train, train_logdir=logdir,
+                                      log_every=6, checkpoint_every=6))
+        try:
+            train_mod.train(cfg, num_steps=6, profile_steps=(3, 5),
+                            device=dev)
+            with open(Path(logdir) / train_mod.trace_name((3, 5),
+                                                          World())) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        launches = [e for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "LaunchKernel" in e["name"]]
+        device = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        spans = [e for e in events if e.get("cat") == "user_annotation"]
+        lo = min(e["ts"] for e in spans)
+        hi = max([b for _, b in device] + [e["ts"] + e["dur"]
+                                           for e in spans])
+        busy = sum(b - a for a, b in _union(device, lo, hi))
+        rows.append(dict(
+            window=i, launches=len(launches),
+            kernels=len(kernels),
+            stem=sum("stem_conv_mma_kernel" in e["name"] for e in kernels),
+            grouping=sum("group_and_fuse_kernel" in e["name"]
+                         for e in kernels),
+            idle=1 - busy / (hi - lo)))
+    return rows
+
+
+def _union(intervals, lo, hi):
+    """The union of [a, b) intervals clipped to [lo, hi), as intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("wrappers", "stem-f32", "stem-probe",
-                                     "profile",
+                                     "profile", "trace-windows",
                                      "train-drift",
                                      "serve-drift", "dp-drift",
                                      "retrieval-drift"))
@@ -820,6 +897,8 @@ def main(argv=None):
     ap.add_argument("--size", type=int, default=None,
                     help="train-drift, serve-drift, dp-drift, "
                     "retrieval-drift: the views' size")
+    ap.add_argument("--windows", type=int, default=20,
+                    help="trace-windows: profiled windows to run")
     ap.add_argument("--calibrate", action="store_true",
                     help="serve-drift: BatchNorm statistics calibrated to "
                     "the views (`calibrate_bn`)")
@@ -902,6 +981,8 @@ def main(argv=None):
     rows = (measure_wrappers(dev) if args.what == "wrappers"
             else measure_stem_f32(dev) if args.what == "stem-f32"
             else stem_probe(dev) if args.what == "stem-probe"
+            else trace_windows(dev, args.windows)
+            if args.what == "trace-windows"
             else profile_train(dev, args.config) if args.train
             else profile_forward(dev, args.config))
     for row in rows:

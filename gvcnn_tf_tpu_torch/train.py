@@ -17,7 +17,10 @@ output, without `checkpoint_exclude_scopes`), then the config's loader
 (the synthetic or procedural stream, or a rendered tree through the native,
 decoded or TFRecord loader, `data/pipeline.py`) through a pinned,
 one-batch-ahead host-to-device prefetcher (uint8 views are normalized on
-the device; the decoded loader's flip runs on the card), a JSON metrics line
+the device; the decoded loader's flip runs on the card; the procedural
+train split may instead be staged on the card once and gathered in the
+step, `device_resident`), an optional profiled window of steps
+(`profile_steps`, a Chrome trace in `train_logdir`), a JSON metrics line
 every `log_every` steps, a checkpoint (`checkpoint.py`) every
 `checkpoint_every` steps and at the end, with `eval_every` the validation
 split scored every that many steps (`eval.evaluate` on the training model,
@@ -51,9 +54,11 @@ CLI (`--train_logdir` is required):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import signal
 import sys
 import threading
@@ -62,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from gvcnn_tf_tpu_torch import metrics as metrics_lib
 from gvcnn_tf_tpu_torch.checkpoint import Checkpointer, warm_start_model
@@ -97,6 +103,7 @@ from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
 from gvcnn_tf_tpu_torch.utils import (
     device_flip,
     normalize_views,
+    profile_trace,
     resolve_device,
 )
 
@@ -386,17 +393,24 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     `loader="decoded"`, `augment` and `device_flip`, each (shape, view) of
     a 5-D batch is mirrored along W with probability 0.5 (`flip_mask`),
     on the card, before normalization; the host streamed the batch
-    verbatim."""
+    verbatim.
+
+    A batch of the card-resident split (`data/device_resident.py`) holds
+    the whole staged split and this step's indices, 'idx': the step
+    gathers its views and labels on the card first, as the JAX step does
+    with `jnp.take`; the rest is the streaming step."""
     tc = config.train
     model, opt, world = state.model, state.optimizer, state.world
     if not model.training:
         model.train()
-    views = batch["views"]
+    views, labels = batch["views"], batch["label"]
+    if "idx" in batch:
+        views = views.index_select(0, batch["idx"])
+        labels = labels.index_select(0, batch["idx"])
     if (config.data.loader == "decoded" and config.data.augment
             and config.data.device_flip and views.ndim == 5):
         views = device_flip(views, flip_mask(state, config, views.shape[:2]))
     views = normalize_views(views)
-    labels = batch["label"]
     k = max(tc.accumulate_steps, 1)
     b = views.shape[0]
     if b % k:
@@ -447,19 +461,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(profile_steps):
-    if profile_steps is not None:
-        raise NotImplementedError(
-            "profile_steps: the port profiles a train step with "
-            "`gvcnn_tf_tpu_torch/tools/measure.py profile --train` (ROADMAP, "
-            "'Not ported': tools/profile_step.py)")
-
-
 # What a resumed run may change: its length, its logging, checkpoint and
-# evaluation cadence, its directory and the prefetch depth.
+# evaluation cadence, its directory, the prefetch depth and the transport
+# (streamed or card-resident: the same batches).
 _RESUMABLE = {"train": ("num_steps", "epochs", "steps_per_epoch", "log_every",
                         "checkpoint_every", "eval_every", "train_logdir"),
-              "data": ("prefetch_to_device",)}
+              "data": ("prefetch_to_device", "device_resident")}
 
 
 def run_identity(config: GVCNNConfig) -> Dict[str, object]:
@@ -504,16 +511,45 @@ def _stream_state(saved, world: World):
     return None
 
 
-def _rank_stream(config: GVCNNConfig, world: World):
-    """This rank's shard of the train split at its local batch size (the
-    global batch over the world's size)."""
+def _rank_data_config(config: GVCNNConfig, world: World):
+    """This rank's data config: its local batch size (the global batch over
+    the world's size), and the card-resident split turned off under several
+    ranks or `bn_sync="local"`, as the JAX package turns it off under
+    several devices, processes or local BatchNorm (its batch of the whole
+    split and an index vector is one device's transport)."""
     d, w = config.data, world.size
     if d.batch_size % w:
         raise ValueError(f"global batch {d.batch_size} not divisible by "
                          f"{w} ranks")
-    return make_dataset(dataclasses.replace(d, batch_size=d.batch_size // w),
-                        train=True, seed=config.train.seed,
-                        shard_index=world.rank, num_shards=w)
+    d = dataclasses.replace(d, batch_size=d.batch_size // w)
+    if w > 1 or config.bn_sync == "local":
+        d = dataclasses.replace(d, device_resident="off")
+    return d
+
+
+def _rank_stream(config: GVCNNConfig, world: World):
+    """This rank's shard of the train split (`_rank_data_config`), staged
+    on its device where `make_dataset` allows it."""
+    return make_dataset(_rank_data_config(config, world), train=True,
+                        seed=config.train.seed, shard_index=world.rank,
+                        num_shards=world.size, device=world.device)
+
+
+def _check_profile_steps(profile_steps):
+    if profile_steps is None:
+        return None
+    start, stop = (int(s) for s in profile_steps)
+    if start < 0 or stop <= start:
+        raise ValueError(f"profile_steps {tuple(profile_steps)}: want "
+                         "(start, stop) with 0 <= start < stop")
+    return start, stop
+
+
+def trace_name(profile_steps: Tuple[int, int], world: World) -> str:
+    """The file name of a profiled window's Chrome trace in
+    `train_logdir` (the rank in it when there are several)."""
+    rank = f"_rank{world.rank}" if world.size > 1 else ""
+    return f"trace_steps_{profile_steps[0]}_{profile_steps[1]}{rank}.json"
 
 
 def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
@@ -536,19 +572,28 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
     (a resume at the same world size restarts every stream where it was).
     The ranks meet before the first step, agree every step on whether any
     of them got SIGTERM (so all stop after the same step), and
-    `eval_every` scores the split over all ranks."""
-    _refuse_unported(profile_steps)
+    `eval_every` scores the split over all ranks.
+
+    `profile_steps=(start, stop)`: steps [start, stop) run under
+    `torch.profiler` (`utils/profiling.profile_trace`: device activity on
+    a card, which is synchronized at the window's edges), each in a
+    `train_step {step}` span, and the window's Chrome trace is written to
+    `train_logdir/trace_name(...)`.  A run that resumes past `start`
+    captures nothing."""
+    profile_steps = _check_profile_steps(profile_steps)
     own_world = world is None
     if own_world:
         world = initialize_distributed(device=device)
     try:
-        return _train(config, num_steps, dataset_iter, writer, world)
+        return _train(config, num_steps, dataset_iter, writer, world,
+                      profile_steps)
     finally:
         if own_world:
             shutdown(world)
 
 
-def _train(config, num_steps, dataset_iter, writer, world: World):
+def _train(config, num_steps, dataset_iter, writer, world: World,
+           profile_steps=None):
     check_num_devices(config.num_devices, world)
     dev = world.device
     tc = config.train
@@ -625,9 +670,17 @@ def _train(config, num_steps, dataset_iter, writer, world: World):
     timer = metrics_lib.StepTimer()
     mets: Dict[str, torch.Tensor] = {}
     start = state.step
+    window = contextlib.ExitStack()     # holds the open profiled window
+    tracing = False
     try:
         collectives.barrier(world)
         for step in range(start, num_steps):
+            if profile_steps is not None and step == profile_steps[0]:
+                trace = os.path.join(tc.train_logdir,
+                                     trace_name(profile_steps, world))
+                window.enter_context(profile_trace(*os.path.split(trace),
+                                                   device=dev))
+                tracing = True
             batch = next(prefetch, None)
             # 1: a rank was preempted, 2: a rank's stream ended; every rank
             # learns it, so all leave after the same step.
@@ -643,13 +696,20 @@ def _train(config, num_steps, dataset_iter, writer, world: World):
                 metrics_lib.log("dataset exhausted")
                 break
             if step == start:
+                # A resident batch's labels are the whole staged split's.
                 lo, hi = (int(v) for v in torch.stack(
                     [batch["label"].min(), batch["label"].max()]).cpu())
                 if lo < 0 or hi >= config.data.num_classes:
                     raise ValueError(
                         f"labels [{lo}, {hi}] out of range for num_classes="
                         f"{config.data.num_classes}")
-            mets = train_step(state, batch, config)
+            with (record_function(f"train_step {step}") if tracing
+                  else contextlib.nullcontext()):
+                mets = train_step(state, batch, config)
+            if tracing and step + 1 == profile_steps[1]:
+                window.close()
+                tracing = False
+                metrics_lib.log(f"profiler trace written to {trace}")
             trained["data"] = prefetch.data_state
             timer.tick()
             if world.is_main and ((step + 1) % tc.log_every == 0
@@ -677,6 +737,9 @@ def _train(config, num_steps, dataset_iter, writer, world: World):
                     f"step {step + 1} val accuracy {res['accuracy']:.4f} "
                     f"({res['correct']}/{res['count']})")
                 timer.reset()       # the eval's time is not a step's
+        if tracing:                     # the run ended inside the window
+            window.close()
+            metrics_lib.log(f"profiler trace written to {trace}")
         if ckpt is not None and saved_step != state.step:
             save(state.step)
         # The next run of any rank reads what rank 0 has written.
@@ -684,6 +747,7 @@ def _train(config, num_steps, dataset_iter, writer, world: World):
         writer.flush()
         return state, {k: float(v) for k, v in mets.items()}
     finally:
+        window.close()
         prefetch.close()
         for sig, prev in prev_handlers.items():
             signal.signal(sig, prev)

@@ -39,6 +39,10 @@ runs it; `train()` from a rendered PNG tree through the native decode pool
 (64x64, 4 views, B = 2; where libjpeg or libpng is missing, the refusal
 that names it) and through the TFRecord reader launches each kernel once a
 step.
+
+The card-resident split: a step on a resident batch equals the streaming
+step bit for bit (cuDNN deterministic), and `train(profile_steps=...)`
+writes a trace with one launch of each kernel a profiled step.
 """
 
 import numpy as np
@@ -731,3 +735,86 @@ def test_tfrecord_train_on_the_card(cuda, tmp_path):
     build_tfrecords(tree, str(tmp_path / "tfr"), 4, num_shards=2)
     _train_three_steps(_loader_cfg(str(tmp_path / "tfr"), tmp_path / "run",
                                    "tfrecord"))
+
+
+def _procedural_cfg(logdir, mode):
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+
+    base = get_config("mn40_12view")
+    return base.replace(
+        data=dataclasses.replace(
+            base.data, height=64, width=64, num_views=4, batch_size=2,
+            num_classes=10, dataset="procedural", transfer_dtype="uint8",
+            synthetic_num_shapes=8, device_resident=mode),
+        train=dataclasses.replace(base.train, train_logdir=str(logdir),
+                                  checkpoint_every=10, log_every=1))
+
+
+def test_resident_step_is_the_streaming_step_on_the_card(cuda):
+    """One bf16 step on a batch of the card-resident split (the staged
+    split and its indices, gathered in the step) against one on the same
+    batch streamed through the prefetcher, from one seeded state, cuDNN
+    deterministic: equal bit for bit, one launch of each kernel a step, and
+    the resident batch's views the staged tensor itself."""
+    from gvcnn_tf_tpu_torch.data import DevicePrefetcher, make_dataset
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    cfg = _procedural_cfg("unused", "on")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resident = make_dataset(cfg.data, train=True, device=cuda)
+        assert type(resident).__name__ == "DeviceResidentIter"
+        assert resident.views.is_cuda
+        stream = make_dataset(cfg.data, train=True)
+        states, outs = [], []
+        for it in (resident, stream):
+            with DevicePrefetcher(it, cuda) as pf:
+                batch = next(pf)
+            state = create_train_state(cfg, cuda)
+            launches = (stem_conv.launches, group_and_fuse.launches)
+            outs.append(train_step(state, batch, cfg))
+            assert (stem_conv.launches - launches[0],
+                    group_and_fuse.launches - launches[1]) == (1, 1)
+            states.append(state.model.state_dict())
+            if it is resident:
+                assert batch["views"].data_ptr() == resident.views.data_ptr()
+                assert batch["idx"].is_cuda and batch["idx"].shape == (2,)
+        for k in outs[0]:
+            assert torch.equal(outs[0][k], outs[1][k]), k
+        for k in states[0]:
+            assert torch.equal(states[0][k], states[1][k]), k
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_profiled_window_on_the_card(cuda, tmp_path):
+    """`train(profile_steps=(1, 3))` over 4 resident steps: the Chrome
+    trace holds the spans of steps 1 and 2 only, and the device events of
+    exactly 2 launches of each kernel (their `__global__` names)."""
+    import json
+
+    from gvcnn_tf_tpu_torch.parallel import World
+    from gvcnn_tf_tpu_torch.tools.measure import PROFILE_TRIES
+    from gvcnn_tf_tpu_torch.train import trace_name, train
+
+    for attempt in range(PROFILE_TRIES):   # measure.kernel_us's retry
+        logdir = tmp_path / str(attempt)
+        state, _ = train(_procedural_cfg(logdir, "auto"), num_steps=4,
+                         profile_steps=(1, 3), device="cuda")
+        assert state.step == 4
+        assert [p.name for p in logdir.glob("*.json")] == [
+            trace_name((1, 3), World())]
+        with open(logdir / trace_name((1, 3), World())) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    spans = sorted(e["name"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("train_step "))
+    assert spans == ["train_step 1", "train_step 2"]
+    assert sum("stem_conv_mma_kernel" in k for k in kernels) == 2
+    assert sum("group_and_fuse_kernel" in k for k in kernels) == 2

@@ -85,15 +85,6 @@ def test_make_dataset_matches_jax_for_the_synthetic_loader():
         assert a["views"].tobytes() == b["views"].tobytes()
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(device_resident="on"), "item 15"),
-])
-def test_make_dataset_refuses_what_is_not_ported(change, match):
-    cfg = dataclasses.replace(port_configs.DataConfig(), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        make_dataset(cfg, train=True)
-
-
 @pytest.fixture(scope="module")
 def view_tree(tmp_path_factory):
     from test_torch_loaders import procedural_tree

@@ -156,7 +156,8 @@ def test_make_dataset_matches_jax_for_the_procedural_loader(dataset, wire,
               transfer_dtype=wire)
     cfg = dataclasses.replace(port_configs.DataConfig(), **kw)
     # The JAX package stages a uint8 train split on the device under
-    # device_resident="auto" and shuffles it there; the port streams it.
+    # device_resident="auto" and shuffles it there; the port's make_dataset
+    # streams it when it is given no device.
     jcfg = dataclasses.replace(jax_configs.DataConfig(), **kw,
                                device_resident="off")
     got = list(make_dataset(cfg, train=train, seed=5, num_epochs=1))

@@ -366,7 +366,6 @@ def test_sigterm_saves_and_stops(tmp_path, monkeypatch):
     # launch 2 ranks, in both BatchNorm modes.
     (dict(bn_sync="local", num_devices=2), "nproc_per_node 2", ValueError),
     (dict(num_devices=2), "`--num_devices 2` on the train", ValueError),
-    (dict(data=dict(device_resident="on")), "item 15", NotImplementedError),
 ])
 def test_train_refuses_what_is_not_ported(tmp_path, change, item, error):
     cfg = _loop_cfg(tmp_path)
@@ -449,12 +448,6 @@ def test_bn_sync_local_on_one_device_is_the_global_step(tmp_path):
     sa, sb = a.model.state_dict(), b.model.state_dict()
     for k in sa:
         torch.testing.assert_close(sb[k], sa[k], rtol=0, atol=0, msg=k)
-
-
-def test_train_refuses_profile_steps(tmp_path):
-    with pytest.raises(NotImplementedError, match="measure.py profile"):
-        port_train.train(_loop_cfg(tmp_path), profile_steps=(1, 2),
-                         device="cpu")
 
 
 def test_cli_without_a_card_exits_nonzero(tmp_path):
