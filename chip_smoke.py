@@ -174,6 +174,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    events of each kernel by its `__global__` name; its size and the
    device's idle share over the window.  Phase 13's study smoke trains on
    the resident split too (`device_resident="auto"`).
+16. Rematerialization (`phase_remat`), mn40_12view at full width (12
+   views of 224x224, bf16), three train states from one seed: no remat,
+   `remat_until` REMAT_UNTIL and `remat_backbone`.  (a) One step each on
+   one B = 8 batch made on the card: loss and every BatchNorm running
+   statistic bit-equal to the plain step's, the gradients' cosine and
+   per-tensor norm ratios within REMAT_GRAD_COS_MIN and
+   REMAT_GRAD_LOGRATIO_MAX (whether bit-equal printed); the B = 2
+   card-vs-CPU train step of phase 8 (`check_train_drift`, same bounds)
+   with `remat_until`.  (b) The launches a step of each kernel, held to
+   REMAT_LAUNCHES: the stem twice under remat (the backward recomputes
+   it), the grouping head once.  (c) Step time (CUDA events, median of 10
+   after 3 warm steps) and peak memory at B = 8, in the turns of
+   REMAT_TURNS.  (d) One step's time and peak memory at B = REMAT_BIG_B
+   for each.  (e) mn40_12view_resnet50, one B = 8 step with and without
+   `remat_backbone`: loss equal, peak memory of each.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -388,6 +403,30 @@ PROFILE_WINDOW = (3, 5)
 # The kernels' __global__ names (csrc/stem_conv.cu, csrc/grouping.cu).
 STEM_KERNEL_NAME, GROUPING_KERNEL_NAME = ("stem_conv_mma_kernel",
                                           "group_and_fuse_kernel")
+
+# Phase 16: rematerialization, mn40_12view at full width (12 views of
+# 224x224, bf16), B = 8 and REMAT_BIG_B.  The variants: none, `remat_until`
+# REMAT_UNTIL (the prefix whose activations are the largest) and
+# `remat_backbone`.  A remat step runs the same ops on the same inputs as
+# the plain step, and BatchNorm moves its statistics once, so loss and
+# every running statistic are held bit-equal.  Gradients: the all-tensor
+# cosine at least REMAT_GRAD_COS_MIN and every tensor's |ln(norm ratio)|
+# at most REMAT_GRAD_LOGRATIO_MAX (tensors whose gradient is rounding noise
+# on both sides, `measure.NOISE_REL`, left out): the room of a summation
+# order cuDNN might pick anew, though repeated runs of the step on the card
+# have been bit-equal; whether they are bit-equal is printed.  The stem
+# kernel runs inside both regions, so the backward's recompute launches
+# it again; the grouping kernel runs outside them: (bf16 stem, fp32 stem,
+# grouping) launches a step in REMAT_LAUNCHES.  Step times at B = 8 in the
+# turns of REMAT_TURNS.
+REMAT_UNTIL = "MaxPool_3a_3x3"
+REMAT_VARIANTS = (("none", {}), ("until", dict(remat_until=REMAT_UNTIL)),
+                  ("backbone", dict(remat_backbone=True)))
+REMAT_LAUNCHES = {"none": (1, 0, 1), "until": (2, 0, 1),
+                  "backbone": (2, 0, 1)}
+REMAT_TURNS = ("none", "until", "backbone", "backbone", "until", "none")
+REMAT_BIG_B = 64
+REMAT_GRAD_COS_MIN, REMAT_GRAD_LOGRATIO_MAX = 0.9999, 1e-3
 
 
 def log(msg):
@@ -830,10 +869,16 @@ def phase_grouping_backward(dev):
         plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(group_and_fuse_plain)),
         backward_ms=cuda_ms(lambda: torch.autograd.grad(
             fused, (s, d), gf, retain_graph=True)))
+    # The VJP reads scores, descs and d_fused once and writes d_scores and
+    # d_descs once (fp32); its work is the masked max's B*M*V*C compares.
+    timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
+        4 * (2 * b * v + 2 * b * v * c + b * c), b * m * v * c, FP32_FLOPS)
     log(f"grouping backward ({b}, {v}, {c}, M={m}): Function forward + "
         f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
         f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone (the plain "
-        f"version's VJP replayed) {timed['backward_ms']:.4f} ms")
+        f"version's VJP replayed) {timed['backward_ms']:.4f} ms, bound "
+        f"{timed['backward_bound_ms']:.5f} ms "
+        f"({timed['backward_bound_by']})")
     return dict(grad_max_abs_err=max_err, **timed)
 
 
@@ -2945,6 +2990,178 @@ def phase_profiled(card, dev, n_shapes):
     shutil.rmtree(root, ignore_errors=True)
     return tr | dict(trace_bytes=size, wall_s=wall, attempts=attempt + 1)
 
+
+def _grads(state):
+    return {n: p.grad.detach().double().flatten().cpu()
+            for n, p in state.model.named_parameters()}
+
+
+def _bn_stats(state):
+    return {k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def grad_agreement(got, want, noise_rel):
+    """(cosine of all gradients flattened, the worst tensor's |ln(norm
+    ratio)|, that tensor, whether all are bit-equal), leaving out of the
+    ratios the tensors whose gradient norm is under noise_rel x the global
+    norm on both sides."""
+    import math
+
+    names = list(want)
+    flat = [torch.cat([g[n] for n in names]) for g in (got, want)]
+    cos = float(torch.nn.functional.cosine_similarity(*flat, dim=0))
+    floor = noise_rel * float(flat[1].norm())
+    ratios = {}
+    for n in names:
+        a, r = float(got[n].norm()), float(want[n].norm())
+        if max(a, r) >= floor:
+            ratios[n] = (0.0 if a == r else math.inf if 0 in (a, r)
+                         else abs(math.log(a / r)))
+    worst = max(ratios, key=ratios.get)
+    return (cos, ratios[worst], worst,
+            all(torch.equal(got[n], want[n]) for n in names))
+
+
+def phase_remat(card, dev):
+    """Phase 16 (see the module docstring)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.tools.measure import (
+        NOISE_REL,
+        cuda_ms,
+        device_batch,
+        release_memory,
+        train_step_drift,
+    )
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    t0 = time.perf_counter()
+    base = get_config("mn40_12view")
+    d = base.data
+    cfgs = {k: base.replace(**kw) for k, kw in REMAT_VARIANTS}
+    states = {k: create_train_state(c, dev) for k, c in cfgs.items()}
+    init = states["none"].model.state_dict()
+    for k, st in states.items():
+        if any(not torch.equal(v, init[n])
+               for n, v in st.model.state_dict().items()):
+            raise AssertionError(f"remat {k}: the seeded init differs")
+
+    # (a) and (b): one step of each variant on one batch on the card.
+    batch = device_batch(base, d.batch_size, dev, seed=16)
+    out = {}
+    for k, st in states.items():
+        _zero_counts()
+        mets = train_step(st, batch, cfgs[k])
+        torch.cuda.synchronize(dev)
+        out[k] = dict(launches=_counts(), mets={n: v.cpu() for n, v in
+                                               mets.items()},
+                      grads=_grads(st), stats=_bn_stats(st))
+        if out[k]["launches"] != REMAT_LAUNCHES[k]:
+            raise AssertionError(f"remat {k}: launches (bf16 stem, fp32 "
+                                 f"stem, grouping) a step "
+                                 f"{out[k]['launches']}, want "
+                                 f"{REMAT_LAUNCHES[k]}")
+    for k in ("until", "backbone"):
+        got, want = out[k], out["none"]
+        if not torch.equal(got["mets"]["loss"], want["mets"]["loss"]):
+            raise AssertionError(f"remat {k}: loss {got['mets']['loss']} vs "
+                                 f"{want['mets']['loss']}")
+        moved = [n for n, v in want["stats"].items()
+                 if not torch.equal(got["stats"][n], v)]
+        if moved:
+            raise AssertionError(f"remat {k}: {len(moved)} BatchNorm "
+                                 f"statistics differ, e.g. {moved[:3]}")
+        cos, ratio, worst, equal = grad_agreement(got["grads"],
+                                                  want["grads"], NOISE_REL)
+        got["grad"] = dict(cosine=cos, logratio=ratio, worst=worst,
+                           bit_equal=equal)
+        log(f"remat {k}: loss {float(got['mets']['loss']):.6g} and all "
+            f"{len(want['stats'])} BatchNorm statistics bit-equal to the "
+            f"plain step's; gradients' cosine {cos:.9f} (bound "
+            f"{REMAT_GRAD_COS_MIN}), worst |ln norm ratio| {ratio:.3g} "
+            f"({worst}, bound {REMAT_GRAD_LOGRATIO_MAX}), bit-equal "
+            f"{equal}; launches a step {got['launches']}")
+        if cos < REMAT_GRAD_COS_MIN or ratio > REMAT_GRAD_LOGRATIO_MAX:
+            raise AssertionError(f"remat {k}: gradients disagree")
+    check_train_drift(train_step_drift(cfgs["until"].replace(
+        data=dataclasses.replace(d, batch_size=2)), dev))
+
+    # (c) Step time and peak memory at B = 8, in turns.
+    b8 = {k: dict(step_ms=[], peak_gb=[], over_resident_gb=[])
+          for k in cfgs}
+    for k in REMAT_TURNS:
+        st, cfg = states[k], cfgs[k]
+        release_memory(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        b8[k]["step_ms"].append(cuda_ms(lambda: train_step(st, batch, cfg),
+                                        runs=10, warmup=3))
+        peak = torch.cuda.max_memory_allocated(dev)
+        b8[k]["peak_gb"].append(peak / 1e9)
+        b8[k]["over_resident_gb"].append((peak - resident) / 1e9)
+    for k, row in b8.items():
+        log(f"remat {k}, B={d.batch_size}: step {row['step_ms']} ms "
+            f"(median of 10 after 3, in turns), peak "
+            f"{row['peak_gb']} GB, of it above what was resident "
+            f"{row['over_resident_gb']} GB [{card}]")
+
+    # (d) One step at B = REMAT_BIG_B after one warm step.
+    del batch
+    big = device_batch(base, REMAT_BIG_B, dev, seed=17)
+    b64 = {}
+    for k, st in states.items():
+        cfg = cfgs[k]
+        release_memory(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: train_step(st, big, cfg), runs=1, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        b64[k] = dict(step_ms=ms, peak_gb=peak / 1e9,
+                      over_resident_gb=(peak - resident) / 1e9)
+        log(f"remat {k}, B={REMAT_BIG_B} ({REMAT_BIG_B * d.num_views} "
+            f"views): one step {ms:.3f} ms after one warm step, peak "
+            f"{peak / 1e9:.3f} GB, {b64[k]['over_resident_gb']:.3f} GB above "
+            f"what was resident [{card}]")
+    del big, states
+    release_memory(dev)
+
+    # (e) ResNet-50 with remat_backbone against no remat, one B = 8 step.
+    rbase = get_config("mn40_12view_resnet50")
+    rbatch = device_batch(rbase, rbase.data.batch_size, dev, seed=18)
+    resnet = {}
+    for k, kw in (REMAT_VARIANTS[0], REMAT_VARIANTS[2]):
+        cfg = rbase.replace(**kw)
+        st = create_train_state(cfg, dev)
+        release_memory(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        mets = train_step(st, rbatch, cfg)
+        torch.cuda.synchronize(dev)
+        resnet[k] = dict(loss=mets["loss"].cpu(), launches=_counts(),
+                         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del st
+    if not torch.equal(resnet["backbone"]["loss"], resnet["none"]["loss"]):
+        raise AssertionError(f"mn40_12view_resnet50 remat_backbone: loss "
+                             f"{resnet['backbone']['loss']} vs "
+                             f"{resnet['none']['loss']}")
+    for row in resnet.values():
+        row["loss"] = float(row["loss"])
+    log(f"mn40_12view_resnet50, B=8, one step: loss equal under "
+        f"remat_backbone ({resnet['none']['loss']:.6g}); peak memory "
+        f"{resnet['none']['peak_gb']:.3f} GB without remat, "
+        f"{resnet['backbone']['peak_gb']:.3f} GB with; launches "
+        f"{resnet['none']['launches']} / {resnet['backbone']['launches']} "
+        f"[{card}]")
+    return dict(
+        launches={k: v["launches"] for k, v in out.items()},
+        grad={k: out[k]["grad"] for k in ("until", "backbone")},
+        b8=b8, b64=b64, resnet50=resnet,
+        seconds=time.perf_counter() - t0)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -3012,6 +3229,9 @@ def main():
     profiled = phase_profiled(card, dev, resident["shapes"])
     log(f"phase 15 summary ({time.perf_counter() - t15:.1f} s): "
         + json.dumps({"resident": resident, "profiled": profiled}))
+    remat = phase_remat(card, dev)
+    log("phase 16 summary: " + json.dumps(remat))
+    remat_launches = remat["launches"]
     loader_launches = {k: v["launches"] for k, v in loaders["train"].items()}
     loader_eval = {k: v["launches"] for k, v in loaders["eval"].items()}
     per_fwd = tools["export"]["launches_per_forward"]
@@ -3034,6 +3254,8 @@ def main():
              loader_eval_launches={k: v[0] for k, v in loader_eval.items()},
              resident_launches_per_step=resident["launches_per_step"][0],
              profiled_window_events=profiled["stem_events"],
+             remat_launches_per_step={k: v[0] for k, v in
+                                      remat_launches.items()},
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -3052,6 +3274,8 @@ def main():
              loader_eval_launches={k: v[2] for k, v in loader_eval.items()},
              resident_launches_per_step=resident["launches_per_step"][1],
              profiled_window_events=profiled["grouping_events"],
+             remat_launches_per_step={k: v[2] for k, v in
+                                      remat_launches.items()},
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}

@@ -8,9 +8,11 @@ package's `__init__`, which imports JAX, Flax, optax and Orbax; the machine
 that runs the port has none of them.  `tests/test_torch_bridge.py` pins the
 copy to the original (every config and every flag), so the two cannot drift.
 
-Fields the port does not use yet (training, data loading, parallelism) are
-kept so that configs compare equal; the port's modules refuse the settings
-they cannot honour instead of ignoring them.
+Every field is kept so that configs compare equal.  A setting that only
+changes how the JAX package lays out the same math (branch merging, the
+space-to-depth stem, the Pallas flags) is accepted and logged or ignored as
+its comment says; the port's modules refuse a setting they cannot honour
+instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -118,12 +120,15 @@ class GVCNNConfig:
     # ignores it: a CUDA tensor always goes through the CUDA kernel
     # (ops/grouping_kernel.py), a CPU tensor through the plain version.
     use_pallas_grouping: bool = False
-    # Rematerialize backbone activations in the backward pass.
+    # Rematerialize backbone activations in the backward pass (the port:
+    # one torch.utils.checkpoint region over the backbone call).
     remat_backbone: bool = False
-    # Selective remat through this endpoint ("" = off).  Refused by the port.
+    # Selective remat through this endpoint ("" = off; Inception-v1 only,
+    # another backbone runs without it).
     remat_until: str = ""
-    # Run the 7x7/2 stem as a 4x4/1 conv on space-to-depth(2) input.
-    # Refused by the port.
+    # Run the 7x7/2 stem as a 4x4/1 conv on space-to-depth(2) input.  The
+    # port accepts it: same math and parameters, the stem runs as its
+    # kernel (even H and W only, as in the JAX package).
     stem_space_to_depth: bool = False
     # JAX package: run the 7x7/2 stem as its Pallas kernel.  The port
     # ignores it: a CUDA tensor always goes through the CUDA stem kernel
@@ -292,7 +297,8 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--stem_space_to_depth", action="store_true",
                    default=None,
                    help="run the 7x7/2 stem on space-to-depth input "
-                        "(refused by the PyTorch port)")
+                        "(same math and parameters; the PyTorch port runs "
+                        "the stem as its CUDA kernel)")
     p.add_argument("--stem_pallas", action="store_true", default=None,
                    help="JAX package: run the 7x7/2 stem as its Pallas "
                         "kernel.  Accepted and ignored by the PyTorch "
@@ -307,7 +313,7 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--remat_until", default=None,
                    help="selectively rematerialize the backbone prefix "
                         "through this endpoint in the backward pass; "
-                        "'' = off (refused by the PyTorch port)")
+                        "'' = off")
     p.add_argument("--bn_sync", default=None, choices=["global", "local"],
                    help="BN statistics under data parallelism: 'global' "
                         "(exact global-batch stats, default) or 'local' "

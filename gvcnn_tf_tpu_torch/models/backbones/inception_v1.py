@@ -16,11 +16,18 @@ with the input's dtype.
 Train and eval mode follow the module's `training` flag: in train mode
 BatchNorm normalizes with the batch's statistics and updates its running
 statistics in place (Flax's `use_running_average=False`).
+
+`remat_until` (the JAX module's selective remat): the plan's prefix through
+that endpoint runs as one `layers.remat` region whenever a gradient is
+being taken, so its activations are recomputed in the backward instead of
+kept.  `stem_space_to_depth` (the JAX module's `SpaceToDepthStem`, a TPU
+layout of the same conv with the same parameters): accepted, and the stem
+runs as its kernel; like the JAX transform it takes even H and W only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -30,6 +37,7 @@ from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: F401
     TRUNC_STDDEV,
     BatchNorm,
     ConvBN,
+    remat,
     trunc_normal_,
 )
 from gvcnn_tf_tpu_torch.ops.pool import max_pool
@@ -130,7 +138,14 @@ ENDPOINT_CHANNELS = {
 class InceptionV1Base(nn.Module):
     """`inception_v1_base`: stem + Mixed blocks up to `final_endpoint`.
 
-    forward(x NHWC (N, H, W, 3)) -> (features NCHW, {endpoint: NCHW})."""
+    forward(x NHWC (N, H, W, 3)) -> (features NCHW, {endpoint: NCHW}).
+
+    `remat_until` (an endpoint of the plan, "" = off): while grad mode is
+    on, the layers through it run as one `remat` region.  The region
+    returns the boundary activation and, of its endpoints, only those in
+    `keep` (None: all); a returned endpoint stays alive until the caller
+    drops it, so a model passes the endpoints it reads and no others (the
+    JAX module returns them all and XLA drops the unread ones)."""
 
     NAME = "InceptionV1"
     DEFAULT_RAW_ENDPOINT = "Mixed_3c"
@@ -140,7 +155,9 @@ class InceptionV1Base(nn.Module):
     ENDPOINT_CHANNELS = ENDPOINT_CHANNELS
     KERNEL_INIT = "trunc_normal"      # slim's trunc_normal(0.09)
 
-    def __init__(self, final_endpoint: str = "Mixed_5c"):
+    def __init__(self, final_endpoint: str = "Mixed_5c",
+                 remat_until: str = "", stem_space_to_depth: bool = False,
+                 keep: Optional[Sequence[str]] = None):
         super().__init__()
         if final_endpoint not in ENDPOINTS:
             raise ValueError(f"unknown endpoint {final_endpoint!r}")
@@ -160,13 +177,43 @@ class InceptionV1Base(nn.Module):
                 self.add_module(name, InceptionBlock(ch, *spec[1:]))
             ch = ENDPOINT_CHANNELS[name]
         self._names = [name for name, _ in plan]
+        if remat_until and remat_until not in self._names:
+            raise ValueError(f"remat_until {remat_until!r} not in the active "
+                             f"plan {self._names}")
+        self.remat_until = remat_until
+        # The plan's layers [:_split] form the remat region.
+        self._split = self._names.index(remat_until) + 1 if remat_until else 0
+        self.stem_space_to_depth = stem_space_to_depth
+        self.keep = None if keep is None else tuple(keep)
 
-    def forward(self, x: torch.Tensor):
+    def _run(self, x: torch.Tensor, names: Sequence[str]):
         endpoints: Dict[str, torch.Tensor] = {}
-        for name in self._names:
+        for name in names:
             if name in self._pools:
                 x = max_pool(x, *self._pools[name])
             else:
                 x = getattr(self, name)(x)
             endpoints[name] = x
+        return x, endpoints
+
+    def _prefix(self, x: torch.Tensor):
+        """The remat region: the plan through `remat_until`; its boundary
+        activation and the endpoints in `keep`."""
+        x, endpoints = self._run(x, self._names[:self._split])
+        if self.keep is not None:
+            endpoints = {n: t for n, t in endpoints.items() if n in self.keep}
+        return x, endpoints
+
+    def forward(self, x: torch.Tensor):
+        if self.stem_space_to_depth and (x.shape[1] % 2 or x.shape[2] % 2):
+            raise ValueError(
+                f"stem_space_to_depth takes even H and W, got "
+                f"{tuple(x.shape[1:3])} (the JAX package's space-to-depth "
+                "reshape needs them even)")
+        if not (self.remat_until and torch.is_grad_enabled()
+                and not torch.compiler.is_compiling()):
+            return self._run(x, self._names)
+        x, endpoints = remat(self._prefix, x)
+        x, rest = self._run(x, self._names[self._split:])
+        endpoints.update(rest)
         return x, endpoints

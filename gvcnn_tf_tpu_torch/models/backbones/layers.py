@@ -9,6 +9,9 @@
   `ConvBNReLU`, Inception-v3/v4's `_Conv` and ResNet's `_ConvBN`.
 - The JAX package's initializers: slim's truncated normal (Inception-v1 and
   v2) and Flax's default lecun normal (v3, v4, ResNet, the heads).
+- `remat`: Flax's `nn.remat` for the port, one non-reentrant
+  `torch.utils.checkpoint` region whose recompute in the backward leaves
+  BatchNorm's running statistics alone.
 
 Dtypes: convs run in the input's dtype (the weight is cast where it is not
 already that dtype, as Flax casts fp32 params to the compute dtype);
@@ -20,11 +23,14 @@ port sets no global flag.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
@@ -49,6 +55,52 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator
     normal.  fan_in of an OIHW conv weight is I * H * W (per group), of a
     Linear weight (out, in) its `in`."""
     return trunc_normal_(t, t[0].numel() ** -0.5, generator)
+
+
+# How deep the calling thread is in `remat` recomputes (backward passes run
+# on autograd's threads, so the depth is per thread).
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside a `remat` region's recompute."""
+    return getattr(_recompute, "depth", 0) > 0
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def remat(fn, *args):
+    """fn(*args) as one rematerialized region (Flax's `nn.remat`): the
+    tensors autograd would save inside it are dropped, and the backward
+    runs fn again to get them back (`torch.utils.checkpoint`,
+    non-reentrant, so the region may return any structure and nest).
+
+    The recompute runs the same ops on the same inputs, so it gives the
+    same values; a BatchNorm in it normalizes with the recomputed batch
+    statistics but leaves its running statistics alone (`recomputing()`),
+    as Flax's remat leaves `batch_stats` alone: they move once a step.
+    Under `bn_sync="global"` the recompute all-reduces the statistics
+    again, every rank at the same point of its backward.  No RNG state is
+    kept: the backbones draw no random numbers.
+
+    Only what autograd saves through `ctx.save_for_backward` or an op's
+    own saved tensors is dropped; a tensor kept as an attribute of a
+    Function's ctx would stay resident."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=_remat_contexts)
 
 
 def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, stride: Tuple[int, int],
@@ -92,7 +144,7 @@ class BatchNorm(nn.Module):
     the same statistic, rounded differently; the variance comes back as
     1 / invstd^2 - eps, floored at 0.  `momentum` is the EMA decay (slim's
     0.9997 for Inception, 0.997 for ResNet; `config.bn_momentum` overrides
-    it)."""
+    it).  Inside a `remat` recompute the statistics are not moved again."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.9997, use_scale: bool = False):
@@ -129,10 +181,10 @@ class BatchNorm(nn.Module):
         gamma = self._unit if self.scale is None else self.scale
         y, mean, invstd = torch.native_batch_norm(
             x, gamma, self.bias, None, None, True, 0.0, self.eps)
-        with torch.no_grad():
-            var = torch.clamp(invstd.square().reciprocal() - self.eps,
-                              min=0.0)
-            self._update_ema(mean, var)
+        if not recomputing():
+            with torch.no_grad():
+                self._update_ema(mean, torch.clamp(
+                    invstd.square().reciprocal() - self.eps, min=0.0))
         return y
 
     def _update_ema(self, mean, var):
@@ -159,8 +211,9 @@ class BatchNorm(nn.Module):
         # Flax's order: (x - mean) * mul + bias.
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
-        with torch.no_grad():
-            self._update_ema(mean, var)
+        if not recomputing():
+            with torch.no_grad():
+                self._update_ema(mean, var)
         return y.to(x.dtype)
 
     def _params(self):

@@ -30,10 +30,19 @@ seeds one from `train.seed` and the step); it cannot match JAX's stream.
 Under data parallelism with `bn_sync="global"`, `sync_batch_norm_` makes
 every BatchNorm take its train-mode statistics over all ranks, and the
 caller's `dropout_rows` places the rank's rows in the global batch's mask.
+
+Rematerialization, as the JAX package's configs ask for it:
+`config.remat_backbone` runs the backbone call as one `layers.remat` region
+in train mode with grad enabled (inert in eval, serving and export, as
+Flax's remat is at inference), and `config.remat_until` reaches the
+backbones that have it (Inception-v1, as `_backbone_kwargs`; another
+backbone runs without it, logged).  Either way the region hands back the
+features and only the endpoint the model reads (GVCNN's raw tap).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,6 +56,7 @@ from gvcnn_tf_tpu_torch.models.backbones.layers import (
     BatchNorm,
     ConvBN,
     lecun_normal_,
+    remat,
     trunc_normal_,
 )
 from gvcnn_tf_tpu_torch.ops.grouping import squash_scores
@@ -82,6 +92,31 @@ def dropout(x: torch.Tensor, keep_prob: float,
     keep = keep[start:start + x.shape[0]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+def _backbone_kwargs(cfg: GVCNNConfig, backbone_cls, keep) -> dict:
+    """The constructor options of the config's that the backbone has (the
+    JAX package's `_backbone_kwargs`); `keep`: the endpoints the model
+    reads.  Where the backbone lacks one, the JAX package drops it
+    silently; the port logs the drop."""
+    params = inspect.signature(backbone_cls.__init__).parameters
+    kw = {}
+    for field in ("remat_until", "stem_space_to_depth"):
+        value = getattr(cfg, field)
+        if not value:
+            continue
+        if field not in params:
+            log(f"{field}={value!r}: the {backbone_cls.NAME} backbone has "
+                "no such option; running without it, as the JAX package "
+                "does")
+            continue
+        kw[field] = value
+    if "remat_until" in kw:
+        kw["keep"] = keep
+    if kw.get("stem_space_to_depth"):
+        log("stem_space_to_depth: same math and parameters; the stem runs "
+            "as its kernel")
+    return kw
 
 
 def _resolve_endpoints(cfg: GVCNNConfig, backbone_cls) -> Tuple[str, str]:
@@ -121,7 +156,12 @@ class GroupingModule(nn.Module):
 class ViewModel(nn.Module):
     """What the three families share: the config's backbone under its Flax
     scope name, its endpoints, the compute dtype, the `bn_momentum`
-    override and the cast of the convs."""
+    override, the cast of the convs and the backbone call with its remat.
+
+    `READS_RAW_ENDPOINT`: whether the family reads the raw endpoint (GVCNN's
+    scoring FCN), the one endpoint a remat region hands back."""
+
+    READS_RAW_ENDPOINT = False
 
     def __init__(self, config: GVCNNConfig):
         super().__init__()
@@ -130,13 +170,30 @@ class ViewModel(nn.Module):
         backbone_cls = get_backbone(config.backbone)
         self.raw_endpoint, self.final_endpoint = _resolve_endpoints(
             config, backbone_cls)
+        self._taps = ((self.raw_endpoint,) if self.READS_RAW_ENDPOINT
+                      else ())
         self._backbone_name = backbone_cls.NAME
-        self.add_module(backbone_cls.NAME,
-                        backbone_cls(final_endpoint=self.final_endpoint))
+        self.add_module(backbone_cls.NAME, backbone_cls(
+            final_endpoint=self.final_endpoint,
+            **_backbone_kwargs(config, backbone_cls, self._taps)))
 
     @property
     def backbone(self) -> nn.Module:
         return getattr(self, self._backbone_name)
+
+    def _backbone_taps(self, x: torch.Tensor):
+        feats, endpoints = self.backbone(x)
+        return feats, {n: endpoints[n] for n in self._taps}
+
+    def _run_backbone(self, x: torch.Tensor):
+        """(features, {endpoint: tensor} of the endpoints the model reads);
+        one `remat` region with `config.remat_backbone` in train mode with
+        grad enabled."""
+        if (self.config.remat_backbone and self.training
+                and torch.is_grad_enabled()
+                and not torch.compiler.is_compiling()):
+            return remat(self._backbone_taps, x)
+        return self._backbone_taps(x)
 
     def _set_bn_momentum(self):
         """`config.bn_momentum`, where given, for every BatchNorm (the
@@ -180,6 +237,8 @@ class GVCNN(ViewModel):
     """forward(x (B, V, H, W, 3) float) -> (logits (B, num_classes) fp32,
     end_points dict)."""
 
+    READS_RAW_ENDPOINT = True
+
     def __init__(self, config: GVCNNConfig):
         super().__init__(config)
         chans = self.backbone.ENDPOINT_CHANNELS
@@ -195,7 +254,7 @@ class GVCNN(ViewModel):
         dropout mask in train mode (`dropout_rows`: see `dropout`)."""
         cfg = self.config
         xf, B, V = self._fold(x)
-        feats, endpoints = self.backbone(xf)
+        feats, endpoints = self._run_backbone(xf)
 
         descs = _global_avg_pool(feats.float()).reshape(B, V, -1)  # fp32
         raw_scores = self.GroupingModule(
@@ -234,7 +293,7 @@ class MVCNN(ViewModel):
                 generator: Optional[torch.Generator] = None,
                 dropout_rows: Optional[Tuple[int, int]] = None):
         xf, B, V = self._fold(x)
-        feats, _ = self.backbone(xf)
+        feats, _ = self._run_backbone(xf)
         descs = _global_avg_pool(feats.float()).reshape(B, V, -1)
         pooled = descs.amax(dim=1)                          # view pooling
         logits = self._logits(pooled, generator, dropout_rows)
@@ -266,7 +325,7 @@ class SingleViewClassifier(ViewModel):
                 raise ValueError(f"the single-view classifier takes one "
                                  f"view, got {tuple(x.shape)}")
             x = x[:, 0]
-        feats, _ = self.backbone(x.to(self.compute_dtype).contiguous())
+        feats, _ = self._run_backbone(x.to(self.compute_dtype).contiguous())
         logits = self._logits(_global_avg_pool(feats.float()), generator,
                               dropout_rows)
         return logits, {"Logits": logits,
@@ -318,16 +377,8 @@ def build_model(config: GVCNNConfig) -> ViewModel:
     the JAX package's `build_model` picks them.
 
     The data-parallel degree (`num_devices`) does not change the model:
-    every rank builds the same one.  Refuses what the port does not run
-    instead of ignoring it."""
-    if config.stem_space_to_depth:
-        raise NotImplementedError(
-            "--stem_space_to_depth is a TPU layout trick the port does not "
-            "have (ROADMAP, 'Not ported'); the stem runs as its CUDA kernel")
-    if config.remat_until or config.remat_backbone:
-        raise NotImplementedError(
-            "rematerialization (--remat_until, remat_backbone) is not ported "
-            "(ROADMAP, 'Not ported'): the port keeps the activations")
+    every rank builds the same one.  A layout option of the JAX package's
+    that computes the same function is accepted and logged."""
     if config.merge_inception_branches != "none":
         log(f"merge_inception_branches={config.merge_inception_branches!r}: "
             "same math and parameters as unmerged; the port runs the "

@@ -5,6 +5,7 @@
     python gvcnn_tf_tpu_torch/tools/measure.py stem-probe
     python gvcnn_tf_tpu_torch/tools/measure.py profile [--train] [--config C]
     python gvcnn_tf_tpu_torch/tools/measure.py trace-windows [--windows N]
+    python gvcnn_tf_tpu_torch/tools/measure.py remat [--config C]
     python gvcnn_tf_tpu_torch/tools/measure.py train-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py serve-drift [--config C] # CPU
     python gvcnn_tf_tpu_torch/tools/measure.py dp-drift [--config C]    # CPU
@@ -58,6 +59,25 @@ records (its CUDA API events), the kernels it holds, each hand-written
 kernel's events and the device's idle share.  A launch without its kernel
 is a record the profiler lost.
 
+`remat`: what rematerialization costs and buys in the train step of
+`--config` (default mn40_12view; seeded weights, the config's compute
+dtype, momentum SGD, dropout on, a batch made on the card in the compute
+dtype, as the synthetic stream sends it), for the variants of
+`REMAT_VARIANTS`: no remat, `remat_until` at MaxPool_2a_3x3,
+Conv2d_2c_3x3, MaxPool_3a_3x3 and Mixed_3c, `remat_backbone`, and both
+(the counterpart of the JAX package's `bench_variants.py` remat rows).  At
+B = 8, the variants in turns (in order, then reversed), each in its own
+train state: step time (CUDA events, median of 10 after 3 warm steps) and
+peak device memory (`max_memory_allocated` after
+`reset_peak_memory_stats`).  Then for each variant the largest batch whose
+step fits on the card, by doubling from 8 and bisecting to one shape:
+`torch.cuda.OutOfMemoryError` is the answer this search looks for, so a
+step that raises it counts as "does not fit" (the allocator's cache is
+emptied before the next try); another error is not caught.  One row a
+variant, with its peak memory at that batch, and the step time (median
+of 3 after one warm step; None where a step runs out of memory) and
+views/s at REMAT_TIMED_SHARE of it, beside views/s at B = 8.
+
 `train-drift` (runs on the CPU, and is no device measurement): one train
 step of `--config` (default mn40_12view), B = 2, in bf16 and in fp32 from
 the same weights and batch, dropout off, at 64x64 for seeds 0-2 and at
@@ -102,6 +122,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -121,6 +142,21 @@ DRIFT_RUNS_75 = ((80, 0), (80, 1), (80, 2), (96, 0))
 # sides of a drift comparison, is rounding noise (`train_step_drift`).
 NOISE_REL = 1e-6
 PROFILE_TRIES = 3
+# `remat`: (name, config fields) of each variant.
+REMAT_VARIANTS = (
+    ("none", {}),
+    ("until_MaxPool_2a_3x3", dict(remat_until="MaxPool_2a_3x3")),
+    ("until_Conv2d_2c_3x3", dict(remat_until="Conv2d_2c_3x3")),
+    ("until_MaxPool_3a_3x3", dict(remat_until="MaxPool_3a_3x3")),
+    ("until_Mixed_3c", dict(remat_until="Mixed_3c")),
+    ("backbone", dict(remat_backbone=True)),
+    ("both", dict(remat_backbone=True, remat_until="MaxPool_3a_3x3")),
+)
+REMAT_MAX_BATCH = 1024
+# `remat` times steps at this share of a variant's largest batch: at the
+# largest batch itself a step that fit once runs out of memory again in
+# the cache the search left fragmented.
+REMAT_TIMED_SHARE = 0.9
 
 
 def cuda_ms(fn, runs=30, warmup=5):
@@ -503,6 +539,140 @@ def train_batch(cfg, rs, dev, dtype=torch.bfloat16):
             "label": torch.from_numpy(labels).to(dev)}
 
 
+def device_batch(cfg, b, dev, seed=0):
+    """A batch of `b` shapes of cfg's views, uniform in [-1, 1), made on
+    `dev` in cfg's compute dtype (no host copy, so large batches are
+    cheap), and labels."""
+    d = cfg.data
+    g = torch.Generator(device=dev).manual_seed(seed)
+    views = torch.rand((b, d.num_views, d.height, d.width, 3), generator=g,
+                       device=dev, dtype=getattr(torch, cfg.compute_dtype))
+    return {"views": views.mul_(2).sub_(1),
+            "label": torch.randint(0, d.num_classes, (b,), generator=g,
+                                   device=dev)}
+
+
+def release_memory(dev):
+    """Collect garbage and return the allocator's cached blocks, so that
+    the next peak-memory reading starts from what is live."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
+def _step_fits(state, cfg, b, dev):
+    """Peak memory in bytes of one train step at batch `b`, or None when it
+    raises `torch.cuda.OutOfMemoryError` (the answer `largest_batch`
+    searches for)."""
+    from gvcnn_tf_tpu_torch.train import train_step
+
+    release_memory(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fits = True
+    try:
+        train_step(state, device_batch(cfg, b, dev), cfg)
+        torch.cuda.synchronize(dev)
+    except torch.cuda.OutOfMemoryError:
+        fits = False
+    # Outside the handler, so that no traceback holds the step's tensors.
+    for p in state.optimizer.params:
+        p.grad = None
+    release_memory(dev)
+    return torch.cuda.max_memory_allocated(dev) if fits else None
+
+
+def _step_ms_at(state, cfg, b, dev, runs=3):
+    """Median CUDA-event time of `runs` train steps at batch `b` after one
+    warm step, or None where one raises `torch.cuda.OutOfMemoryError` (a
+    batch that fit once can miss again in a fragmented cache)."""
+    from gvcnn_tf_tpu_torch.train import train_step
+
+    release_memory(dev)
+    batch = device_batch(cfg, b, dev)
+    ms = None
+    try:
+        ms = cuda_ms(lambda: train_step(state, batch, cfg), runs=runs,
+                     warmup=1)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    del batch
+    for p in state.optimizer.params:
+        p.grad = None
+    release_memory(dev)
+    return ms
+
+
+def largest_batch(state, cfg, dev, start=8, limit=REMAT_MAX_BATCH):
+    """(largest batch that fits, its peak bytes, probes): doubling from
+    `start`, then bisecting between the last fit and the first miss, to
+    one shape; `limit` caps the doubling."""
+    fit, peak, miss, probes = 0, None, None, 0
+    b = start
+    while b <= limit:
+        probes += 1
+        got = _step_fits(state, cfg, b, dev)
+        if got is None:
+            miss = b
+            break
+        fit, peak, b = b, got, 2 * b
+    while miss is not None and miss - fit > 1:
+        mid = (fit + miss) // 2
+        probes += 1
+        got = _step_fits(state, cfg, mid, dev)
+        if got is None:
+            miss = mid
+        else:
+            fit, peak = mid, got
+    return fit, peak, probes
+
+
+def remat_variants(dev, config="mn40_12view", batch=8):
+    """`remat`: one row a variant (see the docstring)."""
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    base = get_config(config)
+    rows = {name: dict(variant=name, **kw, batch=batch, step_ms=[],
+                       peak_gb=[])
+            for name, kw in REMAT_VARIANTS}
+    for name, kw in REMAT_VARIANTS + REMAT_VARIANTS[::-1]:
+        cfg = base.replace(**kw)
+        state = create_train_state(cfg, dev)
+        b = device_batch(cfg, batch, dev)
+        release_memory(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows[name]["step_ms"].append(cuda_ms(
+            lambda: train_step(state, b, cfg), runs=10, warmup=3))
+        rows[name]["peak_gb"].append(torch.cuda.max_memory_allocated(dev)
+                                     / 1e9)
+        del state, b
+    release_memory(dev)
+    for name, kw in REMAT_VARIANTS:
+        cfg = base.replace(**kw)
+        state = create_train_state(cfg, dev)
+        t0 = time.perf_counter()
+        fit, peak, probes = largest_batch(state, cfg, dev)
+        search_s = time.perf_counter() - t0
+        timed = max(1, int(REMAT_TIMED_SHARE * fit))
+        ms = _step_ms_at(state, cfg, timed, dev) if fit else None
+        views = fit * cfg.data.num_views
+        rows[name].update(
+            timed_batch=timed, timed_batch_step_ms=ms,
+            timed_batch_views_per_s=None if ms is None
+            else timed * cfg.data.num_views / ms * 1e3,
+            views_per_s=[batch * cfg.data.num_views / t * 1e3
+                         for t in rows[name]["step_ms"]],
+            largest_batch=fit, largest_batch_views=views,
+            largest_batch_peak_gb=None if peak is None else peak / 1e9,
+            capped=fit >= REMAT_MAX_BATCH, probes=probes, search_s=search_s,
+            limit="torch.cuda.OutOfMemoryError at the next shape, the "
+                  "answer searched for" if fit < REMAT_MAX_BATCH
+                  else f"the search's cap of {REMAT_MAX_BATCH}")
+        del state
+        release_memory(dev)
+    return [dict(run=f"remat of {config}", **row) for row in rows.values()]
+
+
 def grad_group(name: str) -> str:
     """A parameter's group for the drift readings: its layer or Mixed
     block (a ResNet unit's block), then `kernel`, `bn_bias`, `bn_scale` or
@@ -880,7 +1050,7 @@ def _union(intervals, lo, hi):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("wrappers", "stem-f32", "stem-probe",
-                                     "profile", "trace-windows",
+                                     "profile", "trace-windows", "remat",
                                      "train-drift",
                                      "serve-drift", "dp-drift",
                                      "retrieval-drift"))
@@ -890,8 +1060,8 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="profile: the train step instead of the forward")
     ap.add_argument("--config", default="mn40_12view",
-                    help="profile, train-drift, serve-drift: the named "
-                    "config")
+                    help="profile, remat, train-drift, serve-drift: the "
+                    "named config")
     ap.add_argument("--backbone", default=None,
                     help="serve-drift: swap the config's backbone")
     ap.add_argument("--size", type=int, default=None,
@@ -983,6 +1153,7 @@ def main(argv=None):
             else stem_probe(dev) if args.what == "stem-probe"
             else trace_windows(dev, args.windows)
             if args.what == "trace-windows"
+            else remat_variants(dev, args.config) if args.what == "remat"
             else profile_train(dev, args.config) if args.train
             else profile_forward(dev, args.config))
     for row in rows:

@@ -181,18 +181,73 @@ def test_folded_equals_unfolded(slice_pair):
 
 
 def test_unsupported_configs_are_refused():
+    """What the port refuses of these settings, the JAX package refuses
+    too: a `remat_until` outside the active plan (at build here, at the
+    first call there) and odd views under `stem_space_to_depth`."""
     cfg = port_configs.get_config("mn40_12view")
-    for bad, what in [
-        (cfg.replace(stem_space_to_depth=True), "stem_space_to_depth"),
-        (cfg.replace(remat_until="MaxPool_3a_3x3"), "remat"),
-    ]:
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(bad)
+    with pytest.raises(ValueError, match="remat_until"):
+        build_model(cfg.replace(final_endpoint="Mixed_4b",
+                                remat_until="Mixed_5b"))
+    model = build_model(cfg.replace(stem_space_to_depth=True,
+                                    final_endpoint="Mixed_3b",
+                                    raw_endpoint="Conv2d_2c_3x3"))
+    with pytest.raises(ValueError, match="even"):
+        model.InceptionV1(torch.zeros(1, 33, 32, 3))
     # The data-parallel config builds every rank's replica, the same model.
     dp8 = port_configs.get_config("mn40_12view_dp8")
     assert dp8.num_devices == 8
     with torch.device("meta"):
         assert type(build_model(dp8)) is type(build_model(cfg))
+
+
+@pytest.mark.parametrize("setting", [
+    dict(stem_space_to_depth=True), dict(remat_until="MaxPool_3a_3x3"),
+    dict(remat_backbone=True)], ids=lambda d: next(iter(d)))
+def test_jax_layout_and_remat_settings_build(setting):
+    """Settings the JAX package runs and the port once refused: each builds
+    the plain model, with the same parameters, for mn40_12view and for
+    every rank of mn40_12view_dp8."""
+    for name in ("mn40_12view", "mn40_12view_dp8"):
+        cfg = port_configs.get_config(name)
+        with torch.device("meta"):
+            plain, model = build_model(cfg), build_model(cfg.replace(
+                **setting))
+        assert type(model) is type(plain)
+        assert ({k: v.shape for k, v in model.state_dict().items()}
+                == {k: v.shape for k, v in plain.state_dict().items()})
+
+
+def test_space_to_depth_stem_matches_jax():
+    """`stem_space_to_depth`: the port (the stem as its kernel, the plain
+    version here) against the JAX package's `SpaceToDepthStem` backbone on
+    the same variables, eval mode, 64x64, through Mixed_3b, at
+    `tests/test_space_to_depth.py`'s rtol and atol 1e-5; odd views raise
+    in both packages (the JAX transform's reshape needs even H and W)."""
+    rs = np.random.RandomState(1)
+    x = rs.randn(1, 64, 64, 3).astype(np.float32)
+    jmodel = JaxInceptionV1Base(final_endpoint="Mixed_3b",
+                                stem_space_to_depth=True)
+    variables = jax.jit(lambda x: jmodel.init(
+        {"params": jax.random.key(0)}, x, train=False))(x)
+    want, _ = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        variables, x)
+    cfg = _config(port_configs).replace(
+        stem_space_to_depth=True, raw_endpoint="Conv2d_2c_3x3",
+        final_endpoint="Mixed_3b")
+    port = build_model(cfg).InceptionV1.eval()
+    port.load_state_dict({k.split(".", 1)[1]: v for k, v in
+                          jax_to_state_dict(jax.device_get(
+                              {c: {"InceptionV1": t} for c, t in
+                               variables.items()})).items()})
+    with torch.no_grad():
+        got, _ = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+    odd = rs.randn(1, 63, 64, 3).astype(np.float32)
+    with pytest.raises(ValueError, match="even"):
+        port(torch.from_numpy(odd))
+    with pytest.raises(TypeError):
+        jmodel.apply(variables, odd, train=False)
 
 
 def test_bn_training_mode_raises():

@@ -186,3 +186,25 @@ def train_rank(init_method, out_dir, runs):
                          saves=saves)
     _save(out_dir, world, out)
     shutdown(world)
+
+
+def remat_rank(init_method, out_dir, cfg, batch, remat_until):
+    """One step from the seeded init in each bn_sync mode on this rank's
+    rows of `batch`, without and with `remat_until`; and one process's
+    global-mode step with it on the whole batch."""
+    world = _join(init_method)
+    out = {}
+    rows = _torch_batch(rank_rows(batch, world))
+    for mode in ("global", "local"):
+        for name, c in (("plain", cfg), ("remat", cfg.replace(
+                remat_until=remat_until))):
+            c = c.replace(bn_sync=mode)
+            state = create_train_state(c, "cpu", world)
+            out[f"{mode}_{name}"] = _snapshot(state, train_step(state, rows,
+                                                                c))
+    c = cfg.replace(remat_until=remat_until)
+    single = create_train_state(c, "cpu", World())
+    out["alone"] = _snapshot(single, train_step(single, _torch_batch(batch),
+                                                c))
+    _save(out_dir, world, out)
+    shutdown(world)
