@@ -189,6 +189,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    REMAT_TURNS.  (d) One step's time and peak memory at B = REMAT_BIG_B
    for each.  (e) mn40_12view_resnet50, one B = 8 step with and without
    `remat_backbone`: loss equal, peak memory of each.
+17. The step-analysis tools (`phase_analysis`).  (a) `tools/bench_layers`
+   in train mode, marginal method, at LAYERS_B images (8 shapes x 12
+   views, 224x224, bf16) over LAYERS_ENDPOINTS, and the whole tower: each
+   row's time (CUDA events), device time (torch.profiler), FLOPs and bytes
+   (`count_work`) and share of its bound; every row's
+   `frac_of_bound_device` in (0, BOUND_FRAC_MAX], and `frac_of_bound` at
+   most BOUND_FRAC_MAX where the A/B delta is not noisy (|delta| >= 2
+   sigma; the eager step's host jitter makes late rows' deltas noisy, and
+   a noisy delta near 0 reads any share): a reading over it means the
+   count is wrong; the stem kernel launched once per execution of
+   the stem in each timed call (A and B of every row, 2 in B of the stem's
+   own row).  (b) The count of one mn40_12view train forward + backward
+   (COUNT_SHAPE, bf16, channels-last parameters) on the card, through both
+   kernels, equals its count on the CPU, through their plain versions:
+   FLOPs, bytes and every op's calls.  (c) `tools/bench_phases` at B = 8
+   and B = 32: fwd, grad and full by CUDA events, each call launching the
+   bf16 stem and the grouping kernel once.  (d) `tools/analyze_collectives`
+   on 2 gloo ranks (on the CPU), both `bn_sync` modes: local one device
+   all-reduce a step (the 22.8 MB flat buffer), global 1 + 2 per
+   train-mode BatchNorm; the NVLink model weighed with B = 32's full_ms.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -199,7 +219,9 @@ host-clock medians of 20 requests (serving; 10 in phase 10).  `bound_ms`
 is the larger of the bytes the function must move (inputs read once,
 outputs written once) over 3.35 TB/s and its operations over the peak rate
 for their type (bf16 tensor cores 989 TFLOP/s; fp32 67 TFLOP/s; the fp32
-stem's three TF32 products at 495 TFLOP/s), from this run's shapes.
+stem's three TF32 products at 495 TFLOP/s; `bench_layers.PEAKS`, keyed on
+the card's name), from this run's shapes.  A line gives each phase's
+seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or outside a
@@ -227,9 +249,6 @@ STEM_SHAPES = [(96, 224, 224, 3), (12, 224, 224, 3), (2, 30, 30, 3),
                (3, 8, 130, 3)]
 STEM_TOL = dict(rtol=1e-2, atol=1e-2)      # bf16 out: one rounding apart
 FORWARDS = 4                               # B=1, 8, 11: 1 + 1 + 2 chunks
-HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
-BF16_FLOPS, FP32_FLOPS = 989e12, 67e12     # dense peaks, the same sheet
-TF32_FLOPS = 495e12
 # Slice on the card (bf16 through ~60 conv layers) vs the CPU in fp32.
 # Predicted from a bf16-vs-fp32 run on the CPU at 112x112: logits drift
 # ~0.6% of max|logit|, scores ~3e-4.  The bounds leave 5x / 15x room.
@@ -428,15 +447,34 @@ REMAT_TURNS = ("none", "until", "backbone", "backbone", "until", "none")
 REMAT_BIG_B = 64
 REMAT_GRAD_COS_MIN, REMAT_GRAD_LOGRATIO_MAX = 0.9999, 1e-3
 
+# Phase 17: the step-analysis tools.  bench_layers at the flagship's folded
+# B = 8 step (96 images of 224x224, bf16); a row whose time is under its
+# bound by more than 5% means the work count is wrong.  The count's
+# card-vs-CPU check at COUNT_SHAPE (B, V, H, W).  bench_phases at
+# PHASES_B shapes, PHASES_ITERS calls a variant.
+LAYERS_B, LAYERS_HW = 96, 224
+LAYERS_ENDPOINTS = ("Conv2d_1a_7x7", "MaxPool_2a_3x3", "Mixed_3b",
+                    "Mixed_4e", "Mixed_5c")
+LAYERS_ITERS = 30
+BOUND_FRAC_MAX = 1.05
+COUNT_SHAPE = (2, 12, 64, 64)
+PHASES_B = (8, 32)
+PHASES_ITERS = 10
+
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bound(nbytes, flops, peak):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over their peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+def bound(nbytes, flops, kind):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its peak rate for `kind` ("bfloat16",
+    "tf32" or "float32"), from `bench_layers.PEAKS` (NVIDIA's data sheet
+    for the H100 SXM; another card raises)."""
+    from gvcnn_tf_tpu_torch.tools.bench_layers import PEAKS
+
+    rates = PEAKS[torch.cuda.get_device_name(0)]
+    t_bytes, t_ops = nbytes / rates["bytes"], flops / rates[kind]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -532,7 +570,7 @@ def phase_stem(dev):
         out_bytes = got.numel() * 2
         timed["bound_ms"], timed["bound_by"] = bound(
             x.numel() * 2 + w.numel() * 2 + out_bytes,
-            2 * got.numel() * 147, BF16_FLOPS)
+            2 * got.numel() * 147, "bfloat16")
         log(f"stem {shape}: kernel {timed['ms']:.4f} ms (with epilogue "
             f"{timed['epilogue_ms']:.4f}, device {timed['device_ms']:.4f}), "
             f"plain {timed['plain_ms']:.4f} ms, cuDNN conv on pre-padded "
@@ -628,7 +666,7 @@ def phase_grouping(dev, c=1024):
     # channel V compares and maxima and M multiply-adds in fp32.
     bound_ms, bound_by = bound(
         4 * (b * v + b * v * c + b * c + b * m + b * m * v),
-        b * c * (2 * v + 2 * m), FP32_FLOPS)
+        b * c * (2 * v + 2 * m), "float32")
     log(f"grouping ({b}, {v}, {c}, M={m}): kernel {ms:.4f} ms (device "
         f"{device_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
         f"ms ({bound_by})")
@@ -810,7 +848,7 @@ def phase_stem_backward(dev):
         # per element of the output gradient.
         timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
             x.numel() * 2 + g.numel() * 2 + w32.numel() * 2,
-            2 * g.numel() * 147, BF16_FLOPS)
+            2 * g.numel() * 147, "bfloat16")
         log(f"stem backward {shape}: Function forward + backward "
             f"{timed['fwd_bwd_ms']:.4f} ms (plain "
             f"{timed['plain_fwd_bwd_ms']:.4f}"
@@ -872,7 +910,7 @@ def phase_grouping_backward(dev):
     # The VJP reads scores, descs and d_fused once and writes d_scores and
     # d_descs once (fp32); its work is the masked max's B*M*V*C compares.
     timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
-        4 * (2 * b * v + 2 * b * v * c + b * c), b * m * v * c, FP32_FLOPS)
+        4 * (2 * b * v + 2 * b * v * c + b * c), b * m * v * c, "float32")
     log(f"grouping backward ({b}, {v}, {c}, M={m}): Function forward + "
         f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
         f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone (the plain "
@@ -1319,9 +1357,9 @@ def phase_stem_f32(dev):
         # same conv once in fp32 on the CUDA cores beside it.
         nbytes = (x.numel() + w.numel() + y.numel()) * 4
         timed["bound_ms"], timed["bound_by"] = bound(
-            nbytes, 3 * 2 * y.numel() * 147, TF32_FLOPS)
+            nbytes, 3 * 2 * y.numel() * 147, "tf32")
         timed["bound_fp32_cores_ms"] = bound(
-            nbytes, 2 * y.numel() * 147, FP32_FLOPS)[0]
+            nbytes, 2 * y.numel() * 147, "float32")[0]
         log(f"fp32 stem {shape}: kernel {timed['ms']:.4f} ms (with epilogue "
             f"{timed['epilogue_ms']:.4f}, device {timed['device_ms']:.4f}), "
             f"plain {timed['plain_ms']:.4f} ms, cuDNN fp32 conv on pre-padded "
@@ -1406,7 +1444,7 @@ def stem_f32_backward(dev, w32):
         # per element of the output gradient, in fp32.
         timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
             (x.numel() + g.numel() + w32.numel()) * 4,
-            2 * g.numel() * 147, FP32_FLOPS)
+            2 * g.numel() * 147, "float32")
         log(f"fp32 stem backward {shape}, TF32 off: Function forward + "
             f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
             f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone "
@@ -3162,6 +3200,150 @@ def phase_remat(card, dev):
         seconds=time.perf_counter() - t0)
 
 
+def _count_train_call(dev, seed=0):
+    """`count_work` of one mn40_12view train-mode forward + backward at
+    COUNT_SHAPE in bf16 on `dev`, the model seeded and channels-last (as
+    `to_device` places it on a card; on the CPU too, so that autograd's
+    layouts are the card's)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.tools.bench_layers import count_work
+
+    b, v, h, w = COUNT_SHAPE
+    cfg = get_config("mn40_12view")
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, batch_size=b, num_views=v, height=h, width=w))
+    model = init_weights(build_model(cfg), seed).to(
+        dev, memory_format=torch.channels_last).train()
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand((b, v, h, w, 3), generator=g) * 2 - 1).to(
+        dev, torch.bfloat16)
+
+    def call():
+        model.zero_grad(set_to_none=True)
+        logits, _ = model(x, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        logits.float().sum().backward()
+
+    return count_work(call)
+
+
+def phase_analysis(card, dev):
+    """Phase 17 (see the module docstring)."""
+    from gvcnn_tf_tpu_torch.tools import (
+        analyze_collectives,
+        bench_layers,
+        bench_phases,
+    )
+
+    t0 = time.perf_counter()
+    # (a) Per-layer roofline attribution.
+    _zero_counts()
+    rows, summary = bench_layers.run(
+        "inception_v1", batch=LAYERS_B, height=LAYERS_HW, width=LAYERS_HW,
+        dtype="bfloat16", mode="train", iters=LAYERS_ITERS,
+        endpoints=list(LAYERS_ENDPOINTS), method="marginal", device=dev)
+    layer_launches = _counts()
+    tower = dict(endpoint="whole tower", frac_of_bound=summary[
+        "total_frac_of_bound"], frac_of_bound_device=summary[
+        "total_frac_of_bound_device"], k2_launches=summary[
+        "total_k2_launches"])
+    for r in rows + [tower]:
+        dev_frac, frac = r["frac_of_bound_device"], r["frac_of_bound"]
+        if dev_frac is None or not 0 < dev_frac <= BOUND_FRAC_MAX or (
+                not r.get("noisy") and frac > BOUND_FRAC_MAX):
+            raise AssertionError(f"bench_layers {r['endpoint']}: "
+                                 f"frac_of_bound {frac} (noisy: "
+                                 f"{r.get('noisy')}), frac_of_bound_device "
+                                 f"{dev_frac}; want each at most "
+                                 f"{BOUND_FRAC_MAX}, the device's above 0")
+        want = ([1, 2] if r["endpoint"] == "Conv2d_1a_7x7"
+                else 1 if r is tower else [1, 1])
+        if r["k2_launches"] != want:
+            raise AssertionError(f"bench_layers {r['endpoint']}: stem "
+                                 f"kernel launches {r['k2_launches']} in "
+                                 f"the counted calls, want {want}")
+    if layer_launches[0] == 0 or layer_launches[1:] != (0, 0):
+        raise AssertionError(f"bench_layers launches {layer_launches}")
+    log(f"bench_layers, B={LAYERS_B} images, {LAYERS_HW}x{LAYERS_HW}, bf16, "
+        "train: "
+        + "; ".join(f"{r['endpoint']} {r['ms']} ms (device "
+                    f"{r['device_ms']} ms), {r['gflops']} GFLOP, "
+                    f"{r['gbytes']} GB, bound {r['bound_ms']} ms "
+                    f"({r['bound_by']}), frac_of_bound {r['frac_of_bound']}"
+                    f" / device {r['frac_of_bound_device']}" for r in rows)
+        + f"; whole tower {summary['total_ms']} ms (device "
+        f"{summary['total_device_ms']} ms), MFU {summary['mfu']} [{card}]")
+
+    # (b) The count on the card equals the count on the CPU.
+    got, want = _count_train_call(dev), _count_train_call(
+        torch.device("cpu"))
+    diff = {k: (got.by_op.get(k), want.by_op.get(k))
+            for k in set(got.by_op) | set(want.by_op)
+            if got.by_op.get(k) != want.by_op.get(k)}
+    if diff or (got.flops, got.bytes) != (want.flops, want.bytes):
+        raise AssertionError(f"work count card vs CPU: {got.flops} / "
+                             f"{got.bytes} vs {want.flops} / {want.bytes}; "
+                             f"ops that differ: {diff}")
+    if got.k2_launches != 1:
+        raise AssertionError(f"counted train call: {got.k2_launches} stem "
+                             "launches, want 1")
+    log(f"work count of a {COUNT_SHAPE} mn40_12view train call: card "
+        f"(kernels) = CPU (plain versions): {got.flops} FLOPs, {got.bytes} "
+        f"bytes, {sum(r[0] for r in got.by_op.values())} ops")
+
+    # (c) The measured phase split.
+    phases = {}
+    for b in PHASES_B:
+        _zero_counts()
+        out = bench_phases.run("mn40_12view", b, PHASES_ITERS, device=dev)
+        per_call = out["launches_per_call"]
+        if any(v != [1, 0, 1] for v in per_call.values()):
+            raise AssertionError(f"bench_phases B={b}: launches a call "
+                                 f"(bf16 stem, fp32 stem, grouping) "
+                                 f"{per_call}, want [1, 0, 1] each")
+        calls = len(per_call) * (1 + bench_phases.WARMUP + PHASES_ITERS)
+        if _counts() != (calls, 0, calls):
+            raise AssertionError(f"bench_phases B={b}: launches {_counts()},"
+                                 f" want {calls} of each kernel")
+        phases[b] = out
+        log(f"bench_phases B={b}: fwd {out['fwd_ms']} ms, grad "
+            f"{out['grad_ms']} ms, full {out['full_ms']} ms; bwd - fwd "
+            f"{out['bwd_minus_fwd_ms']} ms, optimizer + state "
+            f"{out['optimizer_state_ms']} ms [{card}]")
+
+    # (d) The collective audit, weighed with the B = 32 step.
+    step_ms = phases[PHASES_B[-1]]["full_ms"]
+    recorded = analyze_collectives.audit(2, ("local", "global"),
+                                         timeout=300)
+    audits = {}
+    for mode, rec in recorded.items():
+        rep = analyze_collectives.report(
+            rec, 2, mode, step_ms,
+            step_source=f"bench_phases full, B={PHASES_B[-1]}, {card}")
+        want = 1 if mode == "local" else 1 + 2 * rec["train_bn_calls"]
+        if rep["collective_ops"] != want:
+            raise AssertionError(f"analyze_collectives {mode}: "
+                                 f"{rep['collective_ops']} device "
+                                 f"all-reduces a step, want {want}")
+        audits[mode] = {k: rep[k] for k in (
+            "collective_ops", "allreduce_bytes_total", "allreduce_mbytes",
+            "train_bn_calls", "step_ms_measured", "nvlink_gbps_assumed",
+            "hop_us_assumed", "scaling_model_worst_case")}
+        log(f"analyze_collectives {mode}: {rep['collective_ops']} device "
+            f"all-reduces a step, {rep['allreduce_mbytes']} MB; modelled "
+            f"efficiency (not measured) " + ", ".join(
+                f"{r['devices']} cards {r['dp_efficiency']}"
+                for r in rep["scaling_model_worst_case"]))
+    return dict(layers=rows, layers_summary=summary,
+                layer_launches=layer_launches,
+                count=dict(flops=got.flops, bytes=got.bytes),
+                phases=phases, collectives=audits,
+                seconds=time.perf_counter() - t0)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -3201,36 +3383,66 @@ def main():
     import gvcnn_tf_tpu_torch  # noqa: F401
 
     dev = torch.device("cuda", 0)
+    seconds, since = {}, [time.perf_counter()]
+
+    def mark(phase):
+        """Record the seconds since the previous mark as `phase`'s."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - since[0], 1)
+        since[0] = now
+
     card = phase_card()
     phase_packages()
+    mark(1)
     phase_build()
+    mark(2)
     stem = phase_stem(dev)
+    mark(3)
     grouping = phase_grouping(dev)
+    mark(4)
     launches = phase_slice(card)
+    mark(5)
     stem_bwd = phase_stem_backward(dev)
+    mark(6)
     grouping_bwd = phase_grouping_backward(dev)
+    mark(7)
     tr = phase_train(card, dev)
+    mark(8)
     ev = phase_eval(card, dev)
+    mark(9)
     stem32 = phase_stem_f32(dev)
     wide = {c: phase_grouping(dev, c) for c in WIDE_C}
     fam = phase_families(card, dev)
     single = fam["mn10_single_view"]
     log("phase 10 summary: " + json.dumps(fam))
+    mark(10)
     warm = phase_warm_start(card, dev)
     log("phase 11 summary: " + json.dumps(warm))
+    mark(11)
     dp = phase_parallel(card, dev)
     log("phase 12 summary: " + json.dumps(dp))
+    mark(12)
     tools = phase_tools(card, dev, ev["logdir"])
     log("phase 13 summary: " + json.dumps(tools))
+    mark(13)
     loaders = phase_loaders(card, dev, tr["views_per_s"])
     log("phase 14 summary: " + json.dumps(loaders))
-    t15 = time.perf_counter()
+    mark(14)
     resident = phase_resident(card, dev)
     profiled = phase_profiled(card, dev, resident["shapes"])
-    log(f"phase 15 summary ({time.perf_counter() - t15:.1f} s): "
+    mark(15)
+    log(f"phase 15 summary ({seconds[15]:.1f} s): "
         + json.dumps({"resident": resident, "profiled": profiled}))
     remat = phase_remat(card, dev)
     log("phase 16 summary: " + json.dumps(remat))
+    mark(16)
+    analysis = phase_analysis(card, dev)
+    log("phase 17 summary: " + json.dumps(analysis))
+    mark(17)
+    log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
+        " s in all")
+    phase_launches = {b: v["launches_per_call"]
+                      for b, v in analysis["phases"].items()}
     remat_launches = remat["launches"]
     loader_launches = {k: v["launches"] for k, v in loaders["train"].items()}
     loader_eval = {k: v["launches"] for k, v in loaders["eval"].items()}
@@ -3256,6 +3468,13 @@ def main():
              profiled_window_events=profiled["stem_events"],
              remat_launches_per_step={k: v[0] for k, v in
                                       remat_launches.items()},
+             bench_layers_launches=analysis["layer_launches"][0],
+             bench_layers_launches_per_call={
+                 r["endpoint"]: r["k2_launches"]
+                 for r in analysis["layers"]},
+             bench_phases_launches_per_call={
+                 b: {k: v[0] for k, v in calls.items()}
+                 for b, calls in phase_launches.items()},
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -3276,6 +3495,9 @@ def main():
              profiled_window_events=profiled["grouping_events"],
              remat_launches_per_step={k: v[2] for k, v in
                                       remat_launches.items()},
+             bench_phases_launches_per_call={
+                 b: {k: v[2] for k, v in calls.items()}
+                 for b, calls in phase_launches.items()},
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}

@@ -23,6 +23,10 @@ being taken, so its activations are recomputed in the backward instead of
 kept.  `stem_space_to_depth` (the JAX module's `SpaceToDepthStem`, a TPU
 layout of the same conv with the same parameters): accepted, and the stem
 runs as its kernel; like the JAX transform it takes even H and W only.
+
+`start_endpoint` (the JAX module's segment towers, for the per-layer
+attribution of `tools/bench_layers.py`): only the layers strictly after it
+run, on the activation at it.
 """
 
 from __future__ import annotations
@@ -140,6 +144,22 @@ class InceptionV1Base(nn.Module):
 
     forward(x NHWC (N, H, W, 3)) -> (features NCHW, {endpoint: NCHW}).
 
+    `start_endpoint` (an endpoint before `final_endpoint`, "" = the whole
+    tower, as in `gvcnn_tf_tpu/models/backbones/inception_v1.py:361-366,
+    469-479`): the module is a segment.  Its input is the activation at
+    `start_endpoint` as the port's endpoints hold it, NCHW (N, C, H, W)
+    (the JAX segment takes it NHWC), and only the layers strictly after it
+    run, up to `final_endpoint`; the endpoints returned are the segment's.
+    Its layers have the full tower's names, so its state_dict keys are a
+    subset of the full tower's and the bridge loads it from the full
+    tower's variables.  An unknown name, or a start that does not precede
+    the final endpoint, raises ValueError, as in JAX.  With it:
+    `remat_until` must name an endpoint of the segment (ValueError
+    otherwise, as in JAX), and the region is the segment's layers through
+    it; `stem_space_to_depth` raises ValueError, since a segment has no
+    stem to run that way (the JAX module accepts the flag there and it has
+    no effect; the port does not ignore a flag).
+
     `remat_until` (an endpoint of the plan, "" = off): while grad mode is
     on, the layers through it run as one `remat` region.  The region
     returns the boundary activation and, of its endpoints, only those in
@@ -157,14 +177,29 @@ class InceptionV1Base(nn.Module):
 
     def __init__(self, final_endpoint: str = "Mixed_5c",
                  remat_until: str = "", stem_space_to_depth: bool = False,
-                 keep: Optional[Sequence[str]] = None):
+                 keep: Optional[Sequence[str]] = None,
+                 start_endpoint: str = ""):
         super().__init__()
         if final_endpoint not in ENDPOINTS:
             raise ValueError(f"unknown endpoint {final_endpoint!r}")
+        start = 0
+        if start_endpoint:
+            if start_endpoint not in ENDPOINTS:
+                raise ValueError(f"unknown endpoint {start_endpoint!r}")
+            if (ENDPOINTS.index(start_endpoint)
+                    >= ENDPOINTS.index(final_endpoint)):
+                raise ValueError(
+                    f"start_endpoint {start_endpoint!r} must precede "
+                    f"final_endpoint {final_endpoint!r}")
+            if stem_space_to_depth:
+                raise ValueError(
+                    f"stem_space_to_depth with start_endpoint "
+                    f"{start_endpoint!r}: the segment has no stem")
+            start = ENDPOINTS.index(start_endpoint) + 1
         self.final_endpoint = final_endpoint
         self._pools: Dict[str, Tuple] = {}
-        plan = _V1_PLAN[:ENDPOINTS.index(final_endpoint) + 1]
-        ch = 3
+        plan = _V1_PLAN[start:ENDPOINTS.index(final_endpoint) + 1]
+        ch = ENDPOINT_CHANNELS[start_endpoint] if start_endpoint else 3
         for name, spec in plan:
             if name == "Conv2d_1a_7x7":
                 self.add_module(name, Stem(spec[1]))

@@ -1,3 +1,15 @@
 """Ops of the port: the grouping head and TF-'SAME' pooling in plain
 PyTorch, and the two hand-written CUDA kernels with their wrappers
 (stem_kernel.py, grouping_kernel.py), built by _build.py."""
+
+import torch
+
+
+def as_operator() -> bool:
+    """Whether a kernel wrapper should call its `torch.library` op rather
+    than its forward directly: while tracing (`torch.export`: a traced
+    tensor has no data pointer to launch with) and under a Python dispatch
+    mode (the work counter of `tools/bench_layers.py`), which then sees the
+    kernel as one operator, whichever implementation runs under it."""
+    return (torch.compiler.is_compiling()
+            or torch._C._len_torch_dispatch_stack() > 0)

@@ -45,7 +45,10 @@ def grouping_scheme(scores: torch.Tensor, num_group: int) -> torch.Tensor:
     """Bucket views into M groups by score -> (B, M, V) 0/1 mask."""
     gid = torch.clamp(torch.ceil(scores * num_group) - 1.0, 0.0,
                       num_group - 1.0).long()                     # (B, V)
-    onehot = torch.nn.functional.one_hot(gid, num_group).to(scores.dtype)
+    # One-hot by comparison: gid is in range by the clamp, and F.one_hot on
+    # the CPU would read its min and max back to the host to check that.
+    groups = torch.arange(num_group, device=gid.device)
+    onehot = (gid.unsqueeze(-1) == groups).to(scores.dtype)
     return onehot.transpose(-1, -2)                               # (B, M, V)
 
 

@@ -26,8 +26,9 @@ can trace it (a traced tensor has no data pointer to launch with) and an
 exported artifact calls it: its CPU and CUDA implementation is `_forward`,
 its fake (shape-only) implementation gives three contiguous fp32 tensors
 (B, C), (B, M), (B, M, V).  `group_and_fuse` reaches the op only while
-tracing (`torch.compiler.is_compiling()`); an eager call goes to `_forward`
-directly and pays no dispatch.
+tracing (`torch.compiler.is_compiling()`) or under a Python dispatch mode
+(`ops.as_operator`; `GroupAndFuseFunction.forward` too); an eager call
+goes to `_forward` directly and pays no dispatch.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from gvcnn_tf_tpu_torch.ops import _build
+from gvcnn_tf_tpu_torch.ops import _build, as_operator
 from gvcnn_tf_tpu_torch.ops.grouping import group_and_fuse as group_and_fuse_plain
 
 KERNEL_NAME = "group_and_fuse_f32"
@@ -80,7 +81,7 @@ def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
                                     or descs.requires_grad):
         return GroupAndFuseFunction.apply(scores, descs, num_group,
                                           weight_mode)
-    if torch.compiler.is_compiling():
+    if as_operator():
         return torch.ops.gvcnn.group_and_fuse(scores, descs, num_group,
                                               weight_mode)
     return _forward(scores, descs, num_group, weight_mode)
@@ -146,8 +147,12 @@ class GroupAndFuseFunction(torch.autograd.Function):
     def forward(ctx, scores, descs, num_group, weight_mode):
         ctx.save_for_backward(scores, descs)
         ctx.num_group, ctx.weight_mode = num_group, weight_mode
-        fused, weights, scheme = _forward(scores, descs, num_group,
-                                          weight_mode)
+        if as_operator():
+            fused, weights, scheme = torch.ops.gvcnn.group_and_fuse(
+                scores, descs, num_group, weight_mode)
+        else:
+            fused, weights, scheme = _forward(scores, descs, num_group,
+                                              weight_mode)
         ctx.mark_non_differentiable(scheme)
         return fused, weights, scheme
 

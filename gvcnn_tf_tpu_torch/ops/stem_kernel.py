@@ -50,11 +50,12 @@ can trace it (a traced tensor has no data pointer to launch with) and an
 exported artifact calls it: its CPU and CUDA implementation is
 `_stem_forward`, its fake (shape-only) implementation gives a contiguous
 (N, ceil(H/2), ceil(W/2), 64) tensor in x's dtype.  `stem_conv` reaches the
-op only while tracing (`torch.compiler.is_compiling()`); an eager call goes
-to `_stem_forward` directly and pays no dispatch.  The packed weight is
-made inside the implementation, so an artifact packs it at its first call
-and keeps it as an eager forward does (`_packed_weight`) when run with grad
-mode off.
+op only while tracing (`torch.compiler.is_compiling()`) or under a Python
+dispatch mode (`ops.as_operator`; `StemConvFunction.forward` too); an eager
+call goes to `_stem_forward` directly and pays no dispatch.  The packed
+weight is made inside the implementation, so an artifact packs it at its
+first call and keeps it as an eager forward does (`_packed_weight`) when
+run with grad mode off.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gvcnn_tf_tpu_torch.ops import _build
+from gvcnn_tf_tpu_torch.ops import _build, as_operator
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 KERNEL_NAME = "stem_conv7x7s2_bf16"
@@ -206,7 +207,7 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
                 "and has no gradient; run the conv alone and BatchNorm after "
                 "it (Stem does so in train mode)")
         return StemConvFunction.apply(x, weight)
-    if torch.compiler.is_compiling():
+    if as_operator():
         return torch.ops.gvcnn.stem_conv7x7s2(x, weight, scale, shift, relu)
     return _stem_forward(x, weight, scale, shift, relu)
 
@@ -297,6 +298,9 @@ class StemConvFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight):
         ctx.save_for_backward(x, weight)
+        if as_operator():
+            return torch.ops.gvcnn.stem_conv7x7s2(x, weight, None, None,
+                                                  False)
         return _stem_forward(x, weight)
 
     @staticmethod

@@ -15,6 +15,9 @@ the same code as NCCL across cards.
 - On the host group (CPU tensors, gloo): `barrier`, `agree_max` (a code
   that every rank learns, so all stop after the same step),
   `gather_objects` (each rank's object, on every rank) and `sum_counts`.
+
+Every call goes through `_all_reduce`, which logs it to each active
+`CollectiveRecorder` (`tools/analyze_collectives.py`'s audit).
 """
 
 from __future__ import annotations
@@ -28,19 +31,55 @@ import torch.distributed as dist
 
 from gvcnn_tf_tpu_torch.parallel.mesh import World
 
+# The recorders in whose `with` block this process is (module state: the
+# collectives are module functions, called deep inside BatchNorm and the
+# step).
+_RECORDERS: List["CollectiveRecorder"] = []
+
+
+class CollectiveRecorder:
+    """Context manager: each all-reduce made through this module inside the
+    block is appended to `ops` as a dict: op ("all_reduce"), reduce_op
+    ("sum", "max"), site (the function that made it), group ("device": the
+    world's group; "host": the gloo host group), dtype, numel and bytes.
+    An autograd backward's all-reduces are logged too, from whatever thread
+    runs them."""
+
+    def __init__(self):
+        self.ops: List[dict] = []
+
+    def __enter__(self) -> "CollectiveRecorder":
+        _RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDERS.remove(self)
+
+
+def _all_reduce(t: torch.Tensor, group, site: str, on_host: bool,
+                op=dist.ReduceOp.SUM):
+    for rec in _RECORDERS:
+        rec.ops.append(dict(
+            op="all_reduce",
+            reduce_op="max" if op == dist.ReduceOp.MAX else "sum",
+            site=site, group="host" if on_host else "device",
+            dtype=str(t.dtype).replace("torch.", ""), numel=t.numel(),
+            bytes=t.numel() * t.element_size()))
+    dist.all_reduce(t, op=op, group=group)
+
 
 class _SumAcrossRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
+        _all_reduce(out, group, "sum_across_ranks", False)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, group=ctx.group)
+        _all_reduce(grad, ctx.group, "sum_across_ranks.backward", False)
         return grad, None
 
 
@@ -59,7 +98,7 @@ def mean_across_ranks_(tensors: Sequence[torch.Tensor], world: World):
     its mean over the ranks, through one all-reduce of one flat buffer."""
     tensors = list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=world.group)
+    _all_reduce(flat, world.group, "mean_across_ranks_", False)
     flat.div_(world.size)
     views, at = [], 0
     for t in tensors:
@@ -71,7 +110,7 @@ def mean_across_ranks_(tensors: Sequence[torch.Tensor], world: World):
 def barrier(world: World):
     """All ranks meet here (host side)."""
     if world.distributed:
-        dist.all_reduce(torch.zeros(1), group=world.host_group)
+        _all_reduce(torch.zeros(1), world.host_group, "barrier", True)
 
 
 def agree_max(code: int, world: World) -> int:
@@ -79,7 +118,7 @@ def agree_max(code: int, world: World) -> int:
     if not world.distributed:
         return code
     t = torch.tensor([code], dtype=torch.int64)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=world.host_group)
+    _all_reduce(t, world.host_group, "agree_max", True, dist.ReduceOp.MAX)
     return int(t.item())
 
 
@@ -88,7 +127,7 @@ def sum_counts(counts: np.ndarray, world: World) -> np.ndarray:
     if not world.distributed:
         return counts
     t = torch.from_numpy(np.ascontiguousarray(counts, np.int64))
-    dist.all_reduce(t, group=world.host_group)
+    _all_reduce(t, world.host_group, "sum_counts", True)
     return t.numpy()
 
 
@@ -104,11 +143,11 @@ def gather_objects(obj: Any, world: World) -> List[Any]:
     mine = torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8)
     sizes = torch.zeros(world.size, dtype=torch.int64)
     sizes[world.rank] = mine.numel()
-    dist.all_reduce(sizes, group=world.host_group)
+    _all_reduce(sizes, world.host_group, "gather_objects", True)
     width = int(sizes.max())
     slots = torch.zeros(world.size, width, dtype=torch.uint8)
     slots[world.rank, :mine.numel()] = mine
-    dist.all_reduce(slots, group=world.host_group)
+    _all_reduce(slots, world.host_group, "gather_objects", True)
     return [torch.load(io.BytesIO(slots[r, :int(sizes[r])].numpy()
                                   .tobytes()), weights_only=True)
             for r in range(world.size)]

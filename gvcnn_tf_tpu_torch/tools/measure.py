@@ -159,8 +159,9 @@ REMAT_MAX_BATCH = 1024
 REMAT_TIMED_SHARE = 0.9
 
 
-def cuda_ms(fn, runs=30, warmup=5):
-    """Median time of fn() in ms, CUDA events around each run."""
+def cuda_samples(fn, runs=30, warmup=5, chunk=1):
+    """ms a fn() call in each of `runs` chunks of `chunk` calls, CUDA
+    events around each chunk, after `warmup` calls."""
     for _ in range(warmup):
         fn()
     times = []
@@ -168,11 +169,17 @@ def cuda_ms(fn, runs=30, warmup=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(chunk):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / chunk)
+    return times
+
+
+def cuda_ms(fn, runs=30, warmup=5):
+    """Median time of fn() in ms, CUDA events around each run."""
+    return statistics.median(cuda_samples(fn, runs, warmup))
 
 
 def host_us(fn, calls=200):

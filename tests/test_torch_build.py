@@ -4,6 +4,7 @@ on the CPU: a failed build or launch raises, nothing falls back."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from gvcnn_tf_tpu_torch.ops import _build  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse  # noqa: E402

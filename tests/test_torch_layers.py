@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402

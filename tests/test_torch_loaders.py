@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from gvcnn_tf_tpu import configs as jax_configs  # noqa: E402
 from gvcnn_tf_tpu.data import decoded_cache as jax_cache  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from gvcnn_tf_tpu.tools import loadgen as jax_loadgen  # noqa: E402
 from gvcnn_tf_tpu_torch import configs as port_configs  # noqa: E402

@@ -15,6 +15,7 @@ import tempfile
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from gvcnn_tf_tpu.tools import proc_benchmark as jax_pb  # noqa: E402
 from gvcnn_tf_tpu_torch.tools import proc_benchmark as pb  # noqa: E402

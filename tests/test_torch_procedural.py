@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 
 from gvcnn_tf_tpu import configs as jax_configs  # noqa: E402

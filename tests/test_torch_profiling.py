@@ -14,6 +14,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from gvcnn_tf_tpu_torch import configs as port_configs  # noqa: E402
 from gvcnn_tf_tpu_torch.parallel import World  # noqa: E402

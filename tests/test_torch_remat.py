@@ -10,8 +10,10 @@ Inception-v1, `remat_backbone` in the three families) on the CPU.
   region), Mixed_3c (the tap is the region's boundary) and Mixed_4b (the
   tap inside the region), `remat_backbone`, and both; MVCNN and the
   single-view classifier with each; GVCNN on ResNet-50 with
-  `remat_backbone`.  64x64 (ResNet-50 32x32), B = 2, 2 views (3 on
-  ResNet-50), full depth.
+  `remat_backbone`.  32x32, B = 2, 2 views (3 on ResNet-50), full depth:
+  Inception-v1's plan reaches every endpoint there (16x16 after the stem,
+  1x1 after MaxPool_5a_2x2), so each remat boundary and tap is the one a
+  larger input has.
 - Against JAX: the port's `InceptionV1Base(remat_until=...)` and the JAX
   package's on the same bridged weights, 64x64, B = 2, through
   MaxPool_4a_3x3.  In eval mode, as `tests/test_inception_v1.py`'s remat
@@ -48,6 +50,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
@@ -76,9 +79,9 @@ UNTIL = dict(remat_until="MaxPool_3a_3x3")
 BACKBONE = dict(remat_backbone=True)
 
 # family: (config, views, size).
-FAMILIES = {"gvcnn": ("mn40_12view", 2, 64),
-            "mvcnn": ("mn40_12view_mvcnn", 2, 64),
-            "single_view": ("mn10_single_view", 1, 64),
+FAMILIES = {"gvcnn": ("mn40_12view", 2, 32),
+            "mvcnn": ("mn40_12view_mvcnn", 2, 32),
+            "single_view": ("mn10_single_view", 1, 32),
             "resnet50": ("mn40_12view_resnet50", 3, 32)}
 
 
@@ -193,12 +196,13 @@ def test_remat_until_drops_the_prefix_activations():
                                                               **UNTIL))):
         model = port_train.create_train_state(cfg, "cpu").model
         got[name] = _saved_bytes(model, x)
-    # The prefix's endpoints before the boundary: 32x32, 16x16, 16x16 and
-    # 16x16 at 64x64 input, fp32, B * V images.
-    n = B * FAMILIES["gvcnn"][1]
+    # The prefix's endpoints before the boundary: half the input's side
+    # after the stem, a quarter after MaxPool_2a_3x3, fp32, B * V images.
+    _, n, size = FAMILIES["gvcnn"]
+    n *= B
     prefix = sum(n * ENDPOINT_CHANNELS[k] * s * s * 4 for k, s in (
-        ("Conv2d_1a_7x7", 32), ("MaxPool_2a_3x3", 16),
-        ("Conv2d_2b_1x1", 16), ("Conv2d_2c_3x3", 16)))
+        ("Conv2d_1a_7x7", size // 2), ("MaxPool_2a_3x3", size // 4),
+        ("Conv2d_2b_1x1", size // 4), ("Conv2d_2c_3x3", size // 4)))
     assert got["plain"] - got["remat"] >= prefix, (got, prefix)
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 
 import flax.linen as flax_nn  # noqa: E402

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 pytest.importorskip("tensorstore")
 
