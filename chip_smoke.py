@@ -209,6 +209,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    on 2 gloo ranks (on the CPU), both `bn_sync` modes: local one device
    all-reduce a step (the 22.8 MB flat buffer), global 1 + 2 per
    train-mode BatchNorm; the NVLink model weighed with B = 32's full_ms.
+18. The last step-analysis tools (`phase_step_tools`), mn40_12view, bf16.
+   (a) `tools/profile_step` on the B = TOOLS_B train step (12 views of
+   224x224), in a process of its own as phase 15's window: at least ATTRIBUTED_MIN of the window's kernel time tied to a
+   layer or a bucket, the stem kernel once under Conv2d_1a_7x7's forward
+   and the grouping kernel once in its op's row; the residual buckets, the
+   idle share of a plain window and the activation saves printed.  (b) Its
+   op counts by layer and phase at TOOLS_TINY on the card equal those on
+   the CPU (bf16, channels-last parameters) and the B = TOOLS_B step's.
+   (c) `tools/check_wire_fusion` at TOOLS_TINY: the card's two tables and
+   its extra buffers equal the CPU's; its verdict and bytes at B =
+   TOOLS_B.  (d) `tools/dump_ops` on Mixed_3b in train mode at DUMP_B
+   images: its op histogram equals the CPU's at 64x64.  (e)
+   `tools/bench_stem` at 384 x 224x224: both stem kernels against cuDNN,
+   `rel_dev` within STEM_TOL's rtol (bf16) and STEM_F32_REL_TOL (fp32,
+   against cuDNN with TF32 off).  (f) `tools/bench_variants`, the
+   TOOLS_VARIANTS rows at B = TOOLS_B (merge_1x1 the same program as the
+   baseline, every first loss finite).  (g) `tools/bench_backend_flags` at
+   B = TOOLS_B, every setting timed and `torch.backends` as it was after.
+   The phase's launches of each kernel are counted.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -460,6 +479,21 @@ BOUND_FRAC_MAX = 1.05
 COUNT_SHAPE = (2, 12, 64, 64)
 PHASES_B = (8, 32)
 PHASES_ITERS = 10
+
+# Phase 18: the last step-analysis tools.  profile_step's train step at
+# TOOLS_B shapes (12 views of 224x224, bf16) on the card; at least
+# ATTRIBUTED_MIN of its kernel time tied to a layer or a bucket.  The CPU
+# references run at TOOLS_TINY (B, V, H, W) in bf16 with channels-last
+# parameters, as the card's are (phase 17's count check), and the card runs
+# the same tiny step to compare with.  dump_ops on Mixed_3b at DUMP_B
+# images; bench_stem at its default 384 images; bench_variants and
+# bench_backend_flags at TOOLS_B shapes, TOOLS_ITERS steps.
+TOOLS_B = 8
+TOOLS_TINY = (2, 4, 64, 64)
+ATTRIBUTED_MIN = 0.99
+DUMP_B = 96
+TOOLS_VARIANTS = ("baseline", "merge_1x1", "wire_uint8", "wire_uint8_flip")
+TOOLS_ITERS = 10
 
 
 def log(msg):
@@ -3344,6 +3378,193 @@ def phase_analysis(card, dev):
                 seconds=time.perf_counter() - t0)
 
 
+def _tools_config(shape=None):
+    """mn40_12view at TOOLS_B shapes, or at `shape` (B, V, H, W)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+
+    cfg = get_config("mn40_12view")
+    b, v, h, w = shape or (TOOLS_B, cfg.data.num_views, cfg.data.height,
+                           cfg.data.width)
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, batch_size=b, num_views=v, height=h, width=w))
+
+
+def _quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output (the tools' JSON) kept out
+    of this script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase_step_tools(card, dev):
+    """Phase 18 (see the module docstring)."""
+    from gvcnn_tf_tpu_torch.tools import (
+        bench_backend_flags,
+        bench_stem,
+        bench_variants,
+        check_wire_fusion,
+        dump_ops,
+        profile_step,
+    )
+
+    import os
+    import subprocess
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    _zero_counts()
+    # (a) profile_step: the B = TOOLS_B train step by layer and phase, in a
+    # process of its own, as phase 15 profiles: after the earlier phases'
+    # profiler sessions a window in this process loses kernel records (the
+    # stem kernel's among them, in the first full run of this phase).
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "gvcnn_tf_tpu_torch.tools.profile_step",
+         "--batch", str(TOOLS_B), "--residual", "--top", "1000"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(repo)))
+    if proc.returncode != 0:
+        raise AssertionError(f"profile_step failed in its process:\n"
+                             f"{proc.stderr[-4000:]}")
+    prof = json.loads(proc.stdout[proc.stdout.index("{"):])
+    share = prof["attributed_share"]
+    where = prof["hand_written_kernels"]
+    if share is None or share < ATTRIBUTED_MIN:
+        raise AssertionError(f"profile_step: {share} of the kernel time "
+                             f"tied to a layer or a bucket, want at least "
+                             f"{ATTRIBUTED_MIN}")
+    if where != {"stem": {"Conv2d_1a_7x7:fwd": 1},
+                 "grouping": {"(gvcnn::group_and_fuse):fwd": 1}}:
+        raise AssertionError(f"profile_step: the hand-written kernels ran "
+                             f"under {where}; want the stem kernel once "
+                             "under Conv2d_1a_7x7's forward and the "
+                             "grouping kernel once in its op's row "
+                             f"(launches a step {prof['launches_per_step']},"
+                             f" device events a window "
+                             f"{prof['window_events']})")
+    res = prof["residual"]
+    by = {r["layer"]: r for r in prof["layers_top"]}
+    log(f"profile_step mn40_12view train B={TOOLS_B}: {prof['kernels']} "
+        f"device events, {prof['device_ms']} ms of kernels, "
+        f"{share:.6f} tied to a layer or bucket; idle "
+        f"{res['device_idle']} (plain window); buckets "
+        f"{json.dumps(res['buckets_ms'])}; activation saves "
+        f"{res['activation_save']['mb']} MB in "
+        f"{res['activation_save']['tensors']} tensors; top layers "
+        + ", ".join(f"{r['layer']} {r['fwd_ms']}/{r['bwd_ms']} ms"
+                    for r in prof["layers_top"][:6])
+        + f"; stem kernel under Conv2d_1a_7x7 fwd "
+        f"({by['Conv2d_1a_7x7']['fwd_ms']} ms fwd), grouping kernel in "
+        f"(gvcnn::group_and_fuse) [{card}]")
+    # (b) The card's op count by layer and phase equals the CPU's.
+    tiny = _tools_config(TOOLS_TINY)
+    counts = {}
+    for where_, d in (("card", dev), ("cpu", cpu)):
+        fn, model, data = profile_step.make_step(tiny, "train", d,
+                                                 channels_last=True)
+        fn()
+        with profile_step.LayerTracker(model, exclude=data) as tracker:
+            fn()
+        counts[where_] = tracker.op_counts()
+    if counts["card"] != counts["cpu"] or counts["card"] != prof[
+            "op_counts"]:
+        diff = {k: (counts["card"].get(k), counts["cpu"].get(k),
+                    prof["op_counts"].get(k))
+                for k in set(counts["card"]) | set(counts["cpu"])
+                if len({json.dumps(c.get(k), sort_keys=True) for c in (
+                    counts["card"], counts["cpu"], prof["op_counts"])}) > 1}
+        raise AssertionError(f"profile_step op counts by layer, card / CPU "
+                             f"/ card at B={TOOLS_B}, differ: {diff}")
+    log(f"profile_step op counts at {TOOLS_TINY}: card = CPU, "
+        f"{sum(sum(v.values()) for v in counts['card'].values())} ops in "
+        f"{len(counts['card'])} rows (= the card's at B={TOOLS_B})")
+    # (c) check_wire_fusion: the card's tables equal the CPU's.
+    wires = {w: _quiet(check_wire_fusion.run, tiny, TOOLS_TINY[0],
+                       device=d, channels_last=True)
+             for w, d in (("card", dev), ("cpu", cpu))}
+    for key in ("wire_bfloat16", "wire_uint8",
+                "uint8_extra_materializations", "uint8_extra_bytes"):
+        if wires["card"][key] != wires["cpu"][key]:
+            raise AssertionError(f"check_wire_fusion {key}: card "
+                                 f"{wires['card'][key]}, CPU "
+                                 f"{wires['cpu'][key]}")
+    wire = _quiet(check_wire_fusion.run, _tools_config(), TOOLS_B,
+                  device=dev)
+    log(f"check_wire_fusion at {TOOLS_TINY}: card tables = CPU's; at "
+        f"B={TOOLS_B}: {wire['verdict']} ({wire['uint8_extra_bytes']} "
+        f"bytes) [{card}]")
+    # (d) dump_ops: Mixed_3b's segment, train mode; op for op the CPU's.
+    seg = dict(batch=DUMP_B, height=224, width=224, mode="train")
+    rec = dump_ops.segment_ops("inception_v1", "Mixed_3b", "MaxPool_3a_3x3",
+                               device=dev, **seg)
+    ref = dump_ops.segment_ops("inception_v1", "Mixed_3b", "MaxPool_3a_3x3",
+                               device=cpu, **dict(seg, batch=2, height=64,
+                                                  width=64))
+    dump = dump_ops.summarize(rec)
+    if dump["op_histogram"] != dump_ops.summarize(ref)["op_histogram"]:
+        raise AssertionError("dump_ops Mixed_3b: the card's op histogram "
+                             "differs from the CPU's")
+    log(f"dump_ops Mixed_3b train, {DUMP_B} images: {dump['ops']} ops (= "
+        f"the CPU's), relayout MB by kind "
+        f"{json.dumps(dump['relayout_mbytes_by_kind'])}, "
+        f"{dump['total_gbytes']} GB moved in all [{card}]")
+    # (e) bench_stem: K2 against cuDNN at the tool's default shape.
+    stems = _quiet(bench_stem.run, device=dev)
+    bounds = {"bfloat16": STEM_TOL["rtol"], "float32": STEM_F32_REL_TOL}
+    for r in stems:
+        if not r["rel_dev"] <= bounds[r["dtype"]] or not r[
+                "kernel_launches"]:
+            raise AssertionError(f"bench_stem {r['dtype']}: rel_dev "
+                                 f"{r['rel_dev']:.3g} (bound "
+                                 f"{bounds[r['dtype']]}), launches "
+                                 f"{r['kernel_launches']}")
+    log("bench_stem, 384 x 224x224: " + "; ".join(
+        f"{r['kernel']} {r['kernel_ms']} ms vs cuDNN {r['library_ms']} ms "
+        f"(speedup {r['speedup']}, rel_dev {r['rel_dev']:.3g})"
+        for r in stems) + f" [{card}]")
+    # (f) bench_variants: a few rows at B = TOOLS_B.
+    rows = _quiet(bench_variants.run, _tools_config(), TOOLS_B, TOOLS_ITERS,
+                  TOOLS_VARIANTS, device=dev)
+    by = {r["variant"]: r for r in rows}
+    if (list(by) != list(TOOLS_VARIANTS)
+            or by["merge_1x1"].get("same_program_as") != "baseline"
+            or not all(np.isfinite(r["first_loss"]) for r in rows)):
+        raise AssertionError(f"bench_variants rows: {rows}")
+    log(f"bench_variants B={TOOLS_B}: " + ", ".join(
+        f"{r['variant']} {r['step_ms']} ms" for r in rows) + f" [{card}]")
+    # (g) bench_backend_flags: every setting timed, every one restored.
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    settings = _quiet(bench_backend_flags.run, _tools_config(), TOOLS_B,
+                      TOOLS_ITERS, device=dev)
+    after = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if after != flags or not all("step_ms" in r for r in settings):
+        raise AssertionError(f"bench_backend_flags: {settings}; backends "
+                             f"{flags} before, {after} after")
+    log(f"bench_backend_flags B={TOOLS_B}: " + ", ".join(
+        f"{r['name']} {r['step_ms']} ms" for r in settings) + f" [{card}]")
+    launches = _counts()
+    if launches[0] == 0 or launches[1] == 0 or launches[2] == 0:
+        raise AssertionError(f"phase 18 launches {launches}")
+    return dict(profile=dict(kernels=prof["kernels"],
+                             device_ms=prof["device_ms"],
+                             attributed_share=share,
+                             launches_per_step=prof["launches_per_step"],
+                             buckets_ms=res["buckets_ms"],
+                             device_idle=res["device_idle"]),
+                wire_extra_bytes=wire["uint8_extra_bytes"],
+                stem=stems, variants=rows, settings=settings,
+                launches=launches, seconds=time.perf_counter() - t0)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -3439,6 +3660,9 @@ def main():
     analysis = phase_analysis(card, dev)
     log("phase 17 summary: " + json.dumps(analysis))
     mark(17)
+    step_tools = phase_step_tools(card, dev)
+    log("phase 18 summary: " + json.dumps(step_tools))
+    mark(18)
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
     phase_launches = {b: v["launches_per_call"]
@@ -3475,6 +3699,9 @@ def main():
              bench_phases_launches_per_call={
                  b: {k: v[0] for k, v in calls.items()}
                  for b, calls in phase_launches.items()},
+             step_tools_launches=step_tools["launches"][0],
+             profile_step_launches_per_step=step_tools["profile"][
+                 "launches_per_step"]["stem_bf16"],
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -3498,6 +3725,9 @@ def main():
              bench_phases_launches_per_call={
                  b: {k: v[2] for k, v in calls.items()}
                  for b, calls in phase_launches.items()},
+             step_tools_launches=step_tools["launches"][2],
+             profile_step_launches_per_step=step_tools["profile"][
+                 "launches_per_step"]["grouping"],
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}
@@ -3513,7 +3743,8 @@ def main():
              launches=single["serve_launches"][1],
              launches_per_forward=FAMILY_LAUNCHES["mn10_single_view"][1],
              launches_per_step=single["step_launches"][1],
-             dp_launches_per_step=dp_per_step[1], **stem32),
+             dp_launches_per_step=dp_per_step[1],
+             step_tools_launches=step_tools["launches"][1], **stem32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

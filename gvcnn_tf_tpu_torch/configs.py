@@ -117,8 +117,9 @@ class GVCNNConfig:
     # Compute dtype for the backbone (params/BN stats stay fp32).
     compute_dtype: str = "bfloat16"
     # JAX package: run the grouping head as its Pallas kernel.  The port
-    # ignores it: a CUDA tensor always goes through the CUDA kernel
-    # (ops/grouping_kernel.py), a CPU tensor through the plain version.
+    # accepts and logs it (`build_model`): a CUDA tensor always goes through
+    # the CUDA kernel (ops/grouping_kernel.py), a CPU tensor through the
+    # plain version.
     use_pallas_grouping: bool = False
     # Rematerialize backbone activations in the backward pass (the port:
     # one torch.utils.checkpoint region over the backbone call).
@@ -131,8 +132,9 @@ class GVCNNConfig:
     # kernel (even H and W only, as in the JAX package).
     stem_space_to_depth: bool = False
     # JAX package: run the 7x7/2 stem as its Pallas kernel.  The port
-    # ignores it: a CUDA tensor always goes through the CUDA stem kernel
-    # (ops/stem_kernel.py), a CPU tensor through the plain version.
+    # accepts and logs it (`build_model`): a CUDA tensor always goes through
+    # the CUDA stem kernel (ops/stem_kernel.py), a CPU tensor through the
+    # plain version.
     stem_pallas: bool = False
     # Merge Inception Mixed-block branch convolutions into wider convs
     # ("none" | "1x1" | "full", with per-block overrides).  Same math and
@@ -301,7 +303,7 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "the stem as its CUDA kernel)")
     p.add_argument("--stem_pallas", action="store_true", default=None,
                    help="JAX package: run the 7x7/2 stem as its Pallas "
-                        "kernel.  Accepted and ignored by the PyTorch "
+                        "kernel.  Accepted and logged by the PyTorch "
                         "port, where a CUDA tensor always goes through the "
                         "hand-written CUDA stem and grouping kernels")
     p.add_argument("--merge_inception_branches", default=None,

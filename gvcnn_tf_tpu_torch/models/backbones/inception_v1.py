@@ -82,6 +82,20 @@ class Stem(nn.Module):
         return stem_conv(x, w, scale, shift, relu=True).permute(0, 3, 1, 2)
 
 
+class MaxPool(nn.Module):
+    """A TF-'SAME' max pool of the plan as a layer of its own, with no
+    parameters: its name is the endpoint's, as the JAX module runs each
+    step of the plan in a named scope, so a per-layer tool sees the pool's
+    ops under its endpoint (`tools/profile_step.py`)."""
+
+    def __init__(self, kernel: Tuple[int, int], strides: Tuple[int, int]):
+        super().__init__()
+        self.kernel, self.strides = kernel, strides
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool(x, self.kernel, self.strides)
+
+
 class InceptionBlock(nn.Module):
     """One Mixed_* block (slim inception_v1's branch plan).
 
@@ -197,7 +211,6 @@ class InceptionV1Base(nn.Module):
                     f"{start_endpoint!r}: the segment has no stem")
             start = ENDPOINTS.index(start_endpoint) + 1
         self.final_endpoint = final_endpoint
-        self._pools: Dict[str, Tuple] = {}
         plan = _V1_PLAN[start:ENDPOINTS.index(final_endpoint) + 1]
         ch = ENDPOINT_CHANNELS[start_endpoint] if start_endpoint else 3
         for name, spec in plan:
@@ -207,7 +220,7 @@ class InceptionV1Base(nn.Module):
                 self.add_module(name, ConvBNReLU(ch, spec[1], spec[2],
                                                  spec[3]))
             elif spec[0] == "pool":
-                self._pools[name] = spec[1:]
+                self.add_module(name, MaxPool(*spec[1:]))
             else:
                 self.add_module(name, InceptionBlock(ch, *spec[1:]))
             ch = ENDPOINT_CHANNELS[name]
@@ -224,10 +237,7 @@ class InceptionV1Base(nn.Module):
     def _run(self, x: torch.Tensor, names: Sequence[str]):
         endpoints: Dict[str, torch.Tensor] = {}
         for name in names:
-            if name in self._pools:
-                x = max_pool(x, *self._pools[name])
-            else:
-                x = getattr(self, name)(x)
+            x = getattr(self, name)(x)
             endpoints[name] = x
         return x, endpoints
 

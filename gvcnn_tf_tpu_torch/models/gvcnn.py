@@ -378,7 +378,13 @@ def build_model(config: GVCNNConfig) -> ViewModel:
 
     The data-parallel degree (`num_devices`) does not change the model:
     every rank builds the same one.  A layout option of the JAX package's
-    that computes the same function is accepted and logged."""
+    that computes the same function is accepted and logged, and so are its
+    Pallas switches (`stem_pallas`, `use_pallas_grouping`)."""
+    for flag in ("stem_pallas", "use_pallas_grouping"):
+        if getattr(config, flag):
+            log(f"{flag}=True: the port has no switch for its kernels; a "
+                "CUDA tensor always goes through the hand-written CUDA "
+                "kernel and a CPU tensor through the plain version")
     if config.merge_inception_branches != "none":
         log(f"merge_inception_branches={config.merge_inception_branches!r}: "
             "same math and parameters as unmerged; the port runs the "

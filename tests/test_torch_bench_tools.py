@@ -22,8 +22,9 @@
 - `bench_layers.run`, both methods, and `bench_phases.run` on the CPU: the
   JAX tools' keys and this port's; the `--out` table; the peaks table;
   without `--device cpu` and without a card both raise.
-- A child process imports the three tools and neither JAX nor the JAX
-  package.
+- A child process imports the three tools, and the six of
+  `tests/test_torch_profile_step.py` and `tests/test_torch_variant_tools.py`,
+  and neither JAX nor the JAX package.
 """
 
 import functools
@@ -426,9 +427,11 @@ def test_bench_phases_on_the_cpu(capsys):
 
 
 def test_the_tools_import_no_jax():
-    code = ("import sys, gvcnn_tf_tpu_torch.tools.bench_layers, "
-            "gvcnn_tf_tpu_torch.tools.bench_phases, "
-            "gvcnn_tf_tpu_torch.tools.analyze_collectives; "
+    tools = ["bench_layers", "bench_phases", "analyze_collectives",
+             "profile_step", "dump_ops", "check_wire_fusion",
+             "bench_variants", "bench_stem", "bench_backend_flags"]
+    code = ("import sys, " + ", ".join(f"gvcnn_tf_tpu_torch.tools.{t}"
+                                       for t in tools) + "; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'gvcnn_tf_tpu' not in sys.modules, 'gvcnn_tf_tpu'")
     env = dict(os.environ, PYTHONPATH=REPO)
