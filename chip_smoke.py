@@ -148,7 +148,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    printed; without both the pool and PIL the decoded loader reads a cache
    written here from the procedural arrays, in the cache's layout.  Each
    loader that runs: `train()` for LOADER_STEPS steps (one launch of each
-   bf16 kernel a step; the decoded loader flips on the card every step);
+   bf16 kernel a step; the decoded loader flips on the card every step:
+   the masks of its eager warm-up and of its captured step, read after the
+   run, are steps 0's and LOADER_STEPS - 1's `flip_mask`);
    `evaluate()` of the validation tree from one of those checkpoints on the
    card and in fp32 on the CPU (counts equal up to the shapes whose top-2
    margin is under LOGIT_REL_TOL of max|logit|; one launch of each kernel a
@@ -228,6 +230,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    baseline, every first loss finite).  (g) `tools/bench_backend_flags` at
    B = TOOLS_B, every setting timed and `torch.backends` as it was after.
    The phase's launches of each kernel are counted.
+19. The compiled step (`phase_compiled`), mn40_12view at full width, bf16,
+   seeded weights.  The earlier phases' `train()` (one rank),
+   `evaluate()` and engines replay CUDA graphs (`utils/graphs.py`); the
+   tools and the direct `train_step` calls stay eager.  (a) From a state
+   COMPILED_WARM steps past init, COMPILED_STEPS steps at each of
+   COMPILED_B through the eager step twice and the compiled step once: the
+   uint8 wire with dropout, then the card-resident split with the on-card
+   flip, accumulate_steps = 2 and remat_until; parameters, BatchNorm
+   statistics and every step's metrics bit-equal to the first eager run,
+   or within COMPILED_SPREAD x the two eager runs' spread; launches a step
+   equal to the eager step's through the replays; the step (CUDA events,
+   median of 2 x COMPILED_RUNS in turns), the device's idle share over a
+   profiled window and peak memory, eager beside compiled.  (b) The
+   engine's B=1 and B=8 replays against its model run eagerly, bit for
+   bit; engine (graphs and eager) and HTTP p50 / p99 over SERVE_SAMPLES
+   uint8 requests.  (c) `evaluate()` of the PROC_SHAPES-shape procedural
+   split through its graph against eager: counts and logits equal, views/s
+   end to end and of the forwards on the card.  (d) mn10_single_view
+   (fp32 K2) and ResNet-50, FAMILY_B shapes: 3 compiled steps against
+   eager, launches a step.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -494,6 +516,22 @@ ATTRIBUTED_MIN = 0.99
 DUMP_B = 96
 TOOLS_VARIANTS = ("baseline", "merge_1x1", "wire_uint8", "wire_uint8_flip")
 TOOLS_ITERS = 10
+# Phase 19, the compiled step: states COMPILED_WARM eager steps past init
+# (so that the scoring FCN has a gradient), COMPILED_STEPS steps a run at
+# each of COMPILED_B, the resident split staged at COMPILED_SPLIT shapes;
+# times in turns (eager, compiled, compiled, eager) of COMPILED_RUNS
+# samples after 2 warm-up calls: the median of 2 x COMPILED_RUNS each; a
+# profiled window of COMPILED_WINDOW steps; SERVE_SAMPLES requests at B =
+# 1 and 8 (an eager engine's every EAGER_SERVE_EVERY-th turn, beside them);
+# the other families' steps at FAMILY_B.  A run whose eager
+# repeat is not bit-equal holds the compiled run's largest difference from
+# the first eager run to COMPILED_SPREAD x the two eager runs' own.
+COMPILED_WARM, COMPILED_STEPS, COMPILED_B = 5, 10, (8, 32)
+COMPILED_SPLIT, COMPILED_RUNS, COMPILED_WINDOW = 64, 10, 3
+COMPILED_SPREAD = 2.0
+COMPILED_FAMILIES = {"mn10_single_view": (0, 1, 0),
+                     "mn40_12view_resnet50": (0, 0, 1)}
+SERVE_SAMPLES, EAGER_SERVE_EVERY, FAMILY_B = 200, 4, 8
 
 
 def log(msg):
@@ -1050,11 +1088,20 @@ def phase_train(card, dev):
                 views_per_s=views / step_ms * 1e3, drift=drift)
 
 
-@contextlib.contextmanager
 def eval_logits():
+    """The fp32 logits (on the host) of every batch `evaluate()` scores
+    while the context is open, in a list, also inside `train()`: the
+    logits its CUDA graph computed on the card (`eval.recorded_logits`)."""
+    from gvcnn_tf_tpu_torch.eval import recorded_logits
+
+    return recorded_logits()
+
+
+@contextlib.contextmanager
+def predict_logits():
     """The fp32 logits (on the host) of every GVCNN forward run in eval
-    mode while the context is open, in a list: a global module hook, so
-    that it sees the forwards inside `train()` and `evaluate()`."""
+    mode while the context is open, in a list: a global module hook, for
+    `predict()`, whose forwards run eagerly."""
     from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN
 
     seen = []
@@ -1263,9 +1310,9 @@ def phase_eval(card, dev):
         raise AssertionError(f"predict CSV {rows}")
     u8 = np.random.RandomState(10).randint(
         0, 256, (2, d.num_views, d.height, d.width, 3)).astype(np.uint8)
-    with eval_logits() as card_seen:
+    with predict_logits() as card_seen:
         card_recs = predict(cfg, str(logdir), views=u8, device="cuda")
-    with eval_logits() as cpu_seen:
+    with predict_logits() as cpu_seen:
         predict(cfg32, str(logdir), views=u8, device="cpu")
     _check_results(card_recs, 2, d.num_views)
     check_card_vs_cpu(card_seen[0], cpu_seen[0], "predict B=2 uint8")
@@ -1765,8 +1812,8 @@ def phase_warm_start(card, dev):
         checkpoint_path=str(root / "imagenet_v1"), log_every=WARM_STEPS,
         checkpoint_every=WARM_STEPS))
 
-    real_warm, real_step, seen, step_ms = (train_mod.warm_start_model,
-                                           train_mod.train_step, {}, [])
+    real_warm, real_step_fn, seen, step_ms = (
+        train_mod.warm_start_model, train_mod._step_function, {}, [])
 
     def warm(*args, **kw):
         t = time.perf_counter()
@@ -1775,27 +1822,34 @@ def phase_warm_start(card, dev):
         seen["warm_s"] = time.perf_counter() - t
         return out
 
-    def step(state, batch, config):
-        if "before" not in seen:
-            seen["before"] = {k: v.detach().cpu().clone()
-                              for k, v in state.model.state_dict().items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real_step(state, batch, config)
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        return out
+    def step_function(state, config, batch):
+        # The loop's step (the compiled one on the card), timed.
+        real_step = real_step_fn(state, config, batch)
 
-    train_mod.warm_start_model, train_mod.train_step = warm, step
+        def step(state, batch, config):
+            if "before" not in seen:
+                seen["before"] = {k: v.detach().cpu().clone()
+                                  for k, v in state.model.state_dict().items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_step(state, batch, config)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return out
+
+        return step
+
+    train_mod.warm_start_model, train_mod._step_function = (warm,
+                                                            step_function)
     _zero_counts()
     try:
         state, mets = train_mod.train(cfg, num_steps=WARM_STEPS,
                                       device="cuda")
     finally:
-        train_mod.warm_start_model, train_mod.train_step = (real_warm,
-                                                            real_step)
+        train_mod.warm_start_model, train_mod._step_function = (
+            real_warm, real_step_fn)
     launches = _counts()
     before = state_dict_to_jax(seen["before"])
     copied = 0
@@ -2641,7 +2695,11 @@ def phase_loaders(card, dev, step_views_per_s):
         real_flip = train_mod.device_flip
 
         def counted_flip(views, mask):
-            flips.append(float(mask.float().mean()))
+            # The mask, read after the run: the compiled step calls this at
+            # its eager warm-up (step 0) and at its capture, whose mask is
+            # the graph's buffer, which every replay rewrites (the last
+            # step's after the run).
+            flips.append(mask)
             return real_flip(views, mask)
 
         train_mod.device_flip = counted_flip
@@ -2656,23 +2714,33 @@ def phase_loaders(card, dev, step_views_per_s):
                                     device="cuda")
                 wall = time.perf_counter() - t0
                 launches = _counts()
+                shares = [float(m.float().mean()) for m in flips]
+                # Each recorded mask is the one its step drew.
+                same = []
+                for m, step in zip(flips, (0, LOADER_STEPS - 1)):
+                    state.step = step
+                    same.append(bool(torch.equal(
+                        m, train_mod.flip_mask(state, cfg, tuple(m.shape)))))
+                state.step = LOADER_STEPS
                 log(f"train() through the {loader} loader ({n_train} "
                     f"shapes): {LOADER_STEPS} steps in {wall:.1f} s (the "
                     f"first loads or builds the input); launches (bf16 "
                     f"stem, fp32 stem, grouping) {launches}; on-card flips "
-                    f"{len(flips)} (share flipped "
-                    f"{', '.join(f'{f:.2f}' for f in flips) or '-'}); last "
-                    f"{mets}")
+                    f"in the warm-up and the captured step {len(flips)} "
+                    f"(share flipped at steps 0 and {LOADER_STEPS - 1} "
+                    f"{', '.join(f'{f:.2f}' for f in shares) or '-'}, each "
+                    f"that step's mask: {same}); last {mets}")
                 if launches != (LOADER_STEPS, 0, LOADER_STEPS):
                     raise AssertionError(f"{loader}: launches {launches}")
                 if not (state.step == LOADER_STEPS and all(
                         np.isfinite(v) for v in mets.values())):
                     raise AssertionError(f"{loader}: step {state.step}, "
                                          f"{mets}")
-                want_flips = LOADER_STEPS if loader == "decoded" else 0
+                want_flips = 2 if loader == "decoded" else 0
                 if len(flips) != want_flips or not all(
-                        0 < f < 1 for f in flips):
-                    raise AssertionError(f"{loader}: on-card flips {flips}")
+                        0 < f < 1 for f in shares) or not all(same):
+                    raise AssertionError(f"{loader}: on-card flips {shares}, "
+                                         f"each its step's mask {same}")
                 trained[loader] = dict(launches=launches, seconds=wall,
                                        loss=mets["loss"], logdir=str(logdir))
         finally:
@@ -3565,6 +3633,395 @@ def phase_step_tools(card, dev):
                 launches=launches, seconds=time.perf_counter() - t0)
 
 
+def _load_state(dst, src):
+    """`dst` (a train state of the same model and optimizer) given `src`'s
+    weights, statistics, optimizer and step, in place."""
+    dst.model.load_state_dict(src.model.state_dict())
+    dst.optimizer.load_state_dict(src.optimizer.state_dict())
+    dst.step = src.step
+    return dst
+
+
+def _max_diff(a, b):
+    """The largest |a - b| over two state dicts' (or metric dicts') floating
+    tensors (0.0: bit-equal)."""
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a if a[k].is_floating_point())
+
+
+def _hold_spread(what, eager, again, compiled):
+    """(the eager repeat's spread, the compiled run's difference) over the
+    states and each step's metrics; bit-equal where the eager step repeats
+    bit for bit, else within COMPILED_SPREAD x its spread."""
+    spread = max(_max_diff(eager[0], again[0]),
+                 *(_max_diff(x, y) for x, y in zip(eager[1], again[1])))
+    diff = max(_max_diff(eager[0], compiled[0]),
+               *(_max_diff(x, y) for x, y in zip(eager[1], compiled[1])))
+    ok = diff == 0 or diff <= COMPILED_SPREAD * spread
+    held = ("bit-equal" if diff == 0
+            else f"held to {COMPILED_SPREAD} x the eager spread")
+    log(f"{what}: compiled against eager max|d| {diff:.4g}, two eager runs "
+        f"{spread:.4g} ({held})")
+    if not ok:
+        raise AssertionError(f"{what}: the compiled step is not the eager "
+                             "step")
+    return spread, diff
+
+
+def _run_steps(fn, state, batches, cfg):
+    """(final model state dict, each step's metrics, launches a step)."""
+    _zero_counts()
+    mets = [{k: v.detach().clone() for k, v in fn(state, b, cfg).items()}
+            for b in batches]
+    torch.cuda.synchronize()
+    launches = tuple(n / len(batches) for n in _counts())
+    return ({k: v.detach().clone()
+             for k, v in state.model.state_dict().items()}, mets, launches)
+
+
+def _profiled_idle(fn, steps, root, name):
+    """The device's idle share over `steps` calls of fn(i), each in a
+    `train_step i` span, read as phase 15 reads a trainer's trace."""
+    from torch.profiler import record_function
+
+    from gvcnn_tf_tpu_torch.utils import profile_trace
+
+    torch.cuda.synchronize()
+    with profile_trace(str(root), name, device="cuda"):
+        for i in range(steps):
+            with record_function(f"train_step {i}"):
+                fn(i)
+    return read_trace(root / name)
+
+
+def _nearest_rank(lats, p):
+    lats = sorted(lats)
+    return lats[min(max(-(-p * len(lats) // 100) - 1, 0), len(lats) - 1)]
+
+
+def _compiled_steps(card, dev, root):
+    """Phase 19 (a) and (d)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_samples, release_memory
+    from gvcnn_tf_tpu_torch.train import (
+        compile_train_step,
+        create_train_state,
+        train_step,
+    )
+
+    base = get_config("mn40_12view")
+    d = base.data
+    plain = base.replace(data=dataclasses.replace(d, transfer_dtype="uint8"))
+    flip = base.replace(
+        data=dataclasses.replace(d, loader="decoded", augment=True,
+                                 device_flip=True, transfer_dtype="uint8"),
+        train=dataclasses.replace(base.train, accumulate_steps=2),
+        remat_until=REMAT_UNTIL)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def labels(n):
+        return torch.randint(0, d.num_classes, (n,), generator=g, device=dev)
+
+    shape = (d.num_views, d.height, d.width, 3)
+    warm = create_train_state(plain, dev)
+    for _ in range(COMPILED_WARM):
+        train_step(warm, {"views": u8(8, *shape), "label": labels(8)}, plain)
+    split = {"views": u8(COMPILED_SPLIT, *shape),
+             "label": labels(COMPILED_SPLIT)}
+    out = {}
+    # (bf16 K2, fp32 K2, K1) a step: K2 once a microbatch, twice under
+    # remat_until (its recompute).
+    for variant, cfg, launches in (
+            ("uint8_dropout", plain, (1, 0, 1)),
+            ("resident_flip_acc2_remat", flip, (4, 0, 2))):
+        # The variant's models (remat is built in), each run reloading
+        # `warm`.
+        states = {k: create_train_state(cfg, dev)
+                  for k in ("eager", "again", "compiled", "ref")}
+        for b in COMPILED_B:
+            cfg_b = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                         batch_size=b))
+            if variant == "uint8_dropout":
+                batches = [{"views": u8(b, *shape), "label": labels(b)}
+                           for _ in range(COMPILED_STEPS)]
+            else:
+                batches = [dict(split, idx=torch.randperm(
+                    COMPILED_SPLIT, generator=g, device=dev)[:b])
+                    for _ in range(COMPILED_STEPS)]
+            what = f"{variant} B={b}"
+            eager = _run_steps(train_step, _load_state(states["eager"], warm),
+                               batches, cfg_b)
+            again = _run_steps(train_step, _load_state(states["again"], warm),
+                               batches, cfg_b)
+            state = _load_state(states["compiled"], warm)
+            step = compile_train_step(state, cfg_b, batches[0])
+            # The graph's pool: what the capture reserved and keeps.
+            release_memory(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            compiled = _run_steps(step, state, batches, cfg_b)
+            release_memory(dev)
+            pool_gb = (torch.cuda.memory_reserved(dev) - reserved) / 1e9
+            spread, diff = _hold_spread(what, eager, again, compiled)
+            if not compiled[2] == eager[2] == launches:
+                raise AssertionError(f"{what}: launches a step (bf16 stem, "
+                                     f"fp32 stem, grouping) {compiled[2]}, "
+                                     f"eager {eager[2]}, want {launches}")
+            if (step.graph.captures, step.graph.replays) != (
+                    1, COMPILED_STEPS - 1):
+                raise AssertionError(f"{what}: {step.graph.captures} "
+                                     f"captures, {step.graph.replays} "
+                                     "replays")
+            ref = _load_state(states["ref"], warm)
+            fns = {"eager": lambda: train_step(ref, batches[0], cfg_b),
+                   "compiled": lambda: step(state, batches[0], cfg_b)}
+            times = {"eager": [], "compiled": []}
+            for k in ("eager", "compiled", "compiled", "eager"):
+                times[k] += cuda_samples(fns[k], runs=COMPILED_RUNS,
+                                         warmup=2)
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            idle, above = {}, {}
+            for k in ("eager", "compiled"):
+                tr = _profiled_idle(lambda i: fns[k](), COMPILED_WINDOW,
+                                    root, f"{variant}_{b}_{k}.json")
+                idle[k] = tr["idle"]
+                # What a step allocates above what was resident: an eager
+                # step's activations; a replay's live in the graph's pool.
+                release_memory(dev)
+                resident = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                for _ in range(2):
+                    fns[k]()
+                torch.cuda.synchronize(dev)
+                above[k] = (torch.cuda.max_memory_allocated(dev)
+                            - resident) / 1e9
+            log(f"{what}: step {ms['eager']:.3f} ms eager, "
+                f"{ms['compiled']:.3f} ms compiled (CUDA events, median of "
+                f"{2 * COMPILED_RUNS} in turns); device idle "
+                f"{idle['eager']:.1%} eager, {idle['compiled']:.1%} compiled "
+                f"(a profiled window of {COMPILED_WINDOW} steps); memory: "
+                f"an eager step's peak {above['eager']:.3f} GB above what "
+                f"was resident, the graph's pool {pool_gb:.3f} GB reserved "
+                f"between steps (a replay's peak above resident "
+                f"{above['compiled']:.3f} GB); launches a step "
+                f"{compiled[2]} [{card}]")
+            out[what] = dict(spread=spread, diff=diff, launches=compiled[2],
+                             eager_ms=ms["eager"],
+                             compiled_ms=ms["compiled"],
+                             eager_idle=idle["eager"],
+                             compiled_idle=idle["compiled"],
+                             eager_step_gb=above["eager"],
+                             compiled_step_gb=above["compiled"],
+                             graph_pool_gb=pool_gb)
+            step.close()
+            del eager, again, compiled, step, fns, batches
+            release_memory(dev)
+        del states
+    del warm
+    release_memory(dev)
+
+    # (d) The other families: the warm-up, a capture and its replay, one
+    # more replay, against the eager step.
+    for name, want in COMPILED_FAMILIES.items():
+        fcfg = get_config(name)
+        fcfg = fcfg.replace(data=dataclasses.replace(
+            fcfg.data, batch_size=FAMILY_B, transfer_dtype="uint8"))
+        fd = fcfg.data
+        batches = [{"views": u8(FAMILY_B, fd.num_views, fd.height, fd.width,
+                                3), "label": torch.randint(
+                        0, fd.num_classes, (FAMILY_B,), generator=g,
+                        device=dev)} for _ in range(3)]
+        # Two seeded states: `state` stays at init until the compiled run.
+        other, state = (create_train_state(fcfg, dev) for _ in range(2))
+        eager = _run_steps(train_step, other, batches, fcfg)
+        again = _run_steps(train_step, _load_state(other, state), batches,
+                           fcfg)
+        step = compile_train_step(state, fcfg, batches[0])
+        compiled = _run_steps(step, state, batches, fcfg)
+        spread, diff = _hold_spread(f"{name} B={FAMILY_B}", eager, again,
+                                    compiled)
+        if compiled[2] != eager[2] or compiled[2] != want:
+            raise AssertionError(f"{name}: launches a step {compiled[2]}, "
+                                 f"eager {eager[2]}, want {want}")
+        out[name] = dict(spread=spread, diff=diff, launches=compiled[2],
+                         replays=step.graph.replays)
+        step.close()
+        del eager, again, compiled, state, step, other
+        release_memory(dev)
+    return out
+
+
+def _compiled_serving(card, dev):
+    """Phase 19 (b)."""
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine, serve
+    from gvcnn_tf_tpu_torch.utils import graphs, normalize_views
+
+    cfg = get_config("mn40_12view")
+    d = cfg.data
+    rs = np.random.RandomState(19)
+    shape = (d.num_views, d.height, d.width, 3)
+    httpd, thread, engine = serve(cfg, port=0, serve_batch_size=8,
+                                  block=False, device="cuda")
+    real = graphs.capturable
+    graphs.capturable = lambda device: False
+    try:
+        eager = InferenceEngine(cfg, serve_batch_size=8, device="cuda")
+    finally:
+        graphs.capturable = real
+    out = {}
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+        for n in (1, 8):
+            views = rs.randint(0, 256, (n,) + shape).astype(np.uint8)
+            logits, scores = engine.logits_and_scores(views)
+
+            def by_hand():
+                with torch.inference_mode():
+                    y, ep = engine.model(normalize_views(
+                        torch.from_numpy(views).to(dev)))
+                    return (y.cpu().numpy(),
+                            ep["view_discrimination_scores"].cpu().numpy())
+
+            want = engine._device_thread.submit(by_hand).result()
+            same = (np.array_equal(logits, want[0])
+                    and np.array_equal(scores, want[1])
+                    and np.array_equal(eager.logits_and_scores(views)[0],
+                                       want[0]))
+            g = engine.graphs[(n, np.dtype(np.uint8))]
+            lat = {"engine": [], "eager_engine": [], "http": []}
+            for i in range(SERVE_SAMPLES):
+                for k, fn in (("engine", lambda: engine.predict(views)),
+                              ("eager_engine", lambda: eager.predict(views)),
+                              ("http", lambda: _post(url, views))):
+                    if k == "eager_engine" and i % EAGER_SERVE_EVERY:
+                        continue
+                    t = time.perf_counter()
+                    fn()
+                    lat[k].append((time.perf_counter() - t) * 1e3)
+            row = {f"{k}_{p}": _nearest_rank(v, q) for k, v in lat.items()
+                   for p, q in (("p50", 50), ("p99", 99))}
+            out[f"B={n}"] = dict(row, replay_equals_eager=same,
+                                 replays=g.replays)
+            log(f"serving B={n}: the replayed forward equals the eager one "
+                f"bit for bit: {same}; over {SERVE_SAMPLES} uint8 requests "
+                f"p50 / p99 ms: engine {row['engine_p50']:.3f} / "
+                f"{row['engine_p99']:.3f} (graph replayed {g.replays} "
+                f"times), eager engine (every {EAGER_SERVE_EVERY}th turn) "
+                f"{row['eager_engine_p50']:.3f} / "
+                f"{row['eager_engine_p99']:.3f}, HTTP "
+                f"{row['http_p50']:.3f} / {row['http_p99']:.3f} [{card}]")
+            if not same:
+                raise AssertionError(f"serving B={n}: the replay is not the "
+                                     "eager forward")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+        eager.close()
+        thread.join(timeout=60)
+    return out
+
+
+def _compiled_eval(card, dev, root):
+    """Phase 19 (c)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch import eval as eval_mod
+    from gvcnn_tf_tpu_torch.data import make_dataset
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+    from gvcnn_tf_tpu_torch.train import create_train_state
+    from gvcnn_tf_tpu_torch.utils import graphs
+
+    base = get_config("mn40_12view")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, dataset="procedural", transfer_dtype="uint8",
+        synthetic_num_shapes=PROC_SHAPES, device_resident="off"),
+        train=dataclasses.replace(base.train, train_logdir=str(root)))
+    d = cfg.data
+    state = create_train_state(cfg, dev)
+    val = list(make_dataset(d, train=False, seed=cfg.train.seed,
+                            num_epochs=1))
+    runs, walls = {}, {"compiled": [], "eager": []}
+    real = graphs.capturable
+    for k in ("compiled", "eager", "compiled", "eager"):
+        graphs.capturable = (real if k == "compiled"
+                             else (lambda device: False))
+        try:
+            with eval_mod.recorded_logits() as seen:
+                t = time.perf_counter()
+                res = eval_mod.evaluate(cfg, state=state,
+                                        dataset_iter=iter(val))
+                walls[k].append(time.perf_counter() - t)
+        finally:
+            graphs.capturable = real
+        runs.setdefault(k, (res, torch.cat(seen)))
+    (got, got_logits), (want, want_logits) = runs["compiled"], runs["eager"]
+    same = got == want and torch.equal(got_logits, want_logits)
+    [g] = eval_mod._GRAPHS[state.model].values()
+    views = PROC_SHAPES * d.num_views
+    padded = []
+    for batch in val:
+        v, lab = batch["views"], batch["label"]
+        n = d.batch_size - len(v)
+        padded.append({
+            "views": torch.from_numpy(np.concatenate(
+                [v, np.zeros((n,) + v.shape[1:], v.dtype)])).to(dev),
+            "label": torch.from_numpy(np.concatenate(
+                [lab, np.zeros(n, lab.dtype)])).to(dev, torch.int64)})
+    model = state.model.eval()
+    with torch.no_grad():
+        dev_ms = {
+            "compiled": cuda_ms(lambda: [g(**b) for b in padded], runs=10,
+                                warmup=2),
+            "eager": cuda_ms(lambda: [eval_mod._scores(model, b["views"],
+                                                       b["label"])
+                                      for b in padded], runs=10, warmup=2)}
+    state.model.train()
+    row = dict(counts_equal=got == want, logits_equal=same, result=got,
+               replays=g.replays,
+               **{f"{k}_views_per_s": views / min(v) for k, v in
+                  walls.items()},
+               **{f"{k}_device_views_per_s": views / v * 1e3 for k, v in
+                  dev_ms.items()})
+    log(f"eval of the {PROC_SHAPES}-shape procedural split ({len(val)} "
+        f"padded batches of {d.batch_size}): compiled {got}, eager {want}, "
+        f"logits bit-equal {same}; end to end (host clock, best of 2) "
+        f"{row['compiled_views_per_s']:.1f} views/s compiled, "
+        f"{row['eager_views_per_s']:.1f} eager; the forwards on the card "
+        f"(CUDA events, median of 10) {dev_ms['compiled']:.3f} ms "
+        f"({row['compiled_device_views_per_s']:.1f} views/s) compiled, "
+        f"{dev_ms['eager']:.3f} ms ({row['eager_device_views_per_s']:.1f}) "
+        f"eager [{card}]")
+    if not same or got["count"] != PROC_SHAPES:
+        raise AssertionError("eval: the compiled forward scores otherwise "
+                             "than the eager one")
+    return row
+
+
+def phase_compiled(card, dev):
+    """Phase 19 (see the module docstring)."""
+    import shutil
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_compiled"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    steps = _compiled_steps(card, dev, root)
+    serving = _compiled_serving(card, dev)
+    ev = _compiled_eval(card, dev, root)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(steps=steps, serving=serving, eval=ev,
+                seconds=time.perf_counter() - t0)
+
+
 def check_train_drift(drift):
     """Print the card-vs-CPU train step readings (`train_step_drift`) and
     raise unless each is inside its bound."""
@@ -3663,6 +4120,10 @@ def main():
     step_tools = phase_step_tools(card, dev)
     log("phase 18 summary: " + json.dumps(step_tools))
     mark(18)
+    compiled = phase_compiled(card, dev)
+    log("phase 19 summary: " + json.dumps(compiled))
+    mark(19)
+    replayed = compiled["steps"]
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
     phase_launches = {b: v["launches_per_call"]
@@ -3702,6 +4163,8 @@ def main():
              step_tools_launches=step_tools["launches"][0],
              profile_step_launches_per_step=step_tools["profile"][
                  "launches_per_step"]["stem_bf16"],
+             compiled_launches_per_step={
+                 k: v["launches"][0] for k, v in replayed.items()},
              **stem, **stem_bwd),
         dict(name="group_and_fuse_f32", route="cuda",
              source="gvcnn_tf_tpu_torch/csrc/grouping.cu",
@@ -3728,6 +4191,8 @@ def main():
              step_tools_launches=step_tools["launches"][2],
              profile_step_launches_per_step=step_tools["profile"][
                  "launches_per_step"]["grouping"],
+             compiled_launches_per_step={
+                 k: v["launches"][2] for k, v in replayed.items()},
              backward_library_ms=None,
              wide_c={str(c): {k: v for k, v in t.items()
                               if k not in ("library_ms", "max_abs_err")}
@@ -3744,7 +4209,9 @@ def main():
              launches_per_forward=FAMILY_LAUNCHES["mn10_single_view"][1],
              launches_per_step=single["step_launches"][1],
              dp_launches_per_step=dp_per_step[1],
-             step_tools_launches=step_tools["launches"][1], **stem32),
+             step_tools_launches=step_tools["launches"][1],
+             compiled_launches_per_step=replayed["mn10_single_view"][
+                 "launches"][1], **stem32),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

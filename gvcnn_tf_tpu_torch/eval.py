@@ -17,7 +17,12 @@ device), the argmax is taken on fp32 logits, and each batch's correct flags
 are copied back asynchronously and read while the next batch computes.
 The forward runs under `torch.no_grad()`, not `inference_mode`: the
 kernels' caches (the stem's packed weight, BatchNorm's scale and shift)
-are kept on parameters that a training run goes on updating.
+are kept on parameters that a training run goes on updating.  On a card
+the forward is a CUDA graph (`eval_graph`, `utils/graphs.py`), one a
+(model, padded shape, wire dtype), as the JAX package caches its jitted
+eval step: the first batch runs eagerly (the warm-up), the second
+captures, every later one replays; `recorded_logits` collects the logits
+of the scored batches, which no module hook sees under a replay.
 
 Over several data-parallel ranks (`world`, as the JAX package's
 multi-process evaluation does): each rank scores its own shard of the
@@ -41,6 +46,8 @@ import collections
 import contextlib
 import dataclasses
 import sys
+import threading
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -66,12 +73,19 @@ from gvcnn_tf_tpu_torch.parallel import (
     spawn,
 )
 from gvcnn_tf_tpu_torch.parallel.collectives import sum_counts
-from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
+from gvcnn_tf_tpu_torch.utils import graphs, normalize_views, resolve_device
 
 # The model that checkpoints and JAX variables are loaded into, one per
 # (config, device), as the JAX package caches its jitted eval step: repeated
 # evaluations build and place it once.
 _MODELS: Dict[Tuple[GVCNNConfig, torch.device], ViewModel] = {}
+
+
+# The eval graphs of each model scored on a card, one a (padded shape, wire
+# dtype) (`eval_graph`): as the JAX package caches its jitted eval step, a
+# model (one of `_MODELS`, or a training run's) captures once.
+_GRAPHS: "weakref.WeakKeyDictionary[ViewModel, Dict]" = (
+    weakref.WeakKeyDictionary())
 
 
 def _cached_model(config: GVCNNConfig,
@@ -116,11 +130,63 @@ def scoring_model(config: GVCNNConfig, checkpoint_dir: Optional[str] = None,
         yield to_eval(_cached_model(config, dev), weights, dev, fold_bn)
 
 
+def _scores(model: ViewModel, views: torch.Tensor, labels: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hits (B,) bool: the argmax of the fp32 logits equals the label,
+    the fp32 logits (B, K))."""
+    logits, _ = model(normalize_views(views))
+    logits = logits.float()
+    return logits.argmax(-1) == labels, logits
+
+
+# The lists `recorded_logits` contexts collect into, innermost last.
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """Within the context, every batch that `evaluate` scores on this
+    thread appends its fp32 logits (on the host, padding rows included) to
+    the list it yields: the logits the graph computed where one replays (a
+    module hook sees no replayed forward)."""
+    stack = _RECORDING.__dict__.setdefault("stack", [])
+    seen = []
+    stack.append(seen)
+    try:
+        yield seen
+    finally:
+        stack.remove(seen)
+
+
+def eval_graph(model: ViewModel, batch: Dict[str, torch.Tensor]
+               ) -> graphs.CapturedCall:
+    """The CUDA graph of `_scores` for `model` at the batch's padded shape
+    and wire dtype (`_GRAPHS`), keyed on the model's parameters' and
+    buffers' storages: `to_eval` loads weights into them in place, so a
+    graph outlives a reload, and the capture reads the weights themselves
+    (`utils/graphs.py`)."""
+    views, labels = batch["views"], batch["label"]
+    cache = _GRAPHS.setdefault(model, {})
+    key = (tuple(views.shape), views.dtype)
+    g = cache.get(key)
+    if g is None:
+        ref = weakref.ref(model)        # the graphs go with the model
+        g = cache[key] = graphs.CapturedCall(
+            f"the eval forward of {type(model).__name__} at "
+            f"{tuple(views.shape)} {views.dtype}",
+            lambda: _scores(ref(), g.inputs["views"], g.inputs["label"]),
+            {"views": torch.empty_like(views),
+             "label": torch.empty_like(labels)},
+            device=views.device,
+            watch=lambda: graphs.model_tensors(ref()))
+    return g
+
+
 def _to_host(t: torch.Tensor):
     """(host copy of t, event or None): on a card the copy goes to pinned
     memory asynchronously and the event marks its end."""
     if t.device.type != "cuda":
-        return t, None
+        return t.clone(), None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
@@ -191,9 +257,15 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
                               resolve_transfer_dtype(config),
                               depth=max(d.prefetch_to_device, 1)) as batches:
             for batch in batches:
-                logits, _ = model(normalize_views(batch["views"]))
-                item = (_to_host(logits.float().argmax(-1) == batch["label"]),
-                        meta.popleft())
+                if graphs.capturable(dev):
+                    hits, logits = eval_graph(model, batch)(
+                        views=batch["views"], label=batch["label"])
+                else:
+                    hits, logits = _scores(model, batch["views"],
+                                           batch["label"])
+                for seen in getattr(_RECORDING, "stack", ()):
+                    seen.append(logits.to("cpu", copy=True))
+                item = (_to_host(hits), meta.popleft())
                 if pending is not None:
                     drain(pending)
                 pending = item

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from gvcnn_tf_tpu_torch.ops import capturing
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 # slim's inception_v1 trunc_normal(0.09) for conv kernels.
@@ -229,11 +230,13 @@ class BatchNorm(nn.Module):
         changes (storage or version counter), so serving computes them
         once.  While tracing (`torch.export`) they are computed, not looked
         up: a traced tensor has no storage to key on, so an exported graph
-        computes them on every call."""
+        computes them on every call.  So does a CUDA graph
+        (`utils/graphs.py`): while one is captured they are computed, and
+        every replay computes them from the statistics as it finds them."""
         self._check_eval()
         tensors = self._params()
         if (torch.is_grad_enabled() or torch.compiler.is_compiling()
-                or any(t.is_inference() for t in tensors)):
+                or capturing() or any(t.is_inference() for t in tensors)):
             return self._scale_shift()
         key = tuple((t.data_ptr(), t._version) for t in tensors)
         if self._affine is None or self._affine[0] != key:

@@ -13,3 +13,11 @@ def as_operator() -> bool:
     kernel as one operator, whichever implementation runs under it."""
     return (torch.compiler.is_compiling()
             or torch._C._len_torch_dispatch_stack() > 0)
+
+
+def capturing() -> bool:
+    """Whether the current stream is being captured into a CUDA graph
+    (`utils/graphs.py`): the kernels' host-side caches then compute instead
+    of looking up, so that the graph reads the weights themselves."""
+    return torch.cuda.is_available() and (
+        torch.cuda.is_current_stream_capturing())

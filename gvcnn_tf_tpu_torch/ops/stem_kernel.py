@@ -65,7 +65,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gvcnn_tf_tpu_torch.ops import _build, as_operator
+from gvcnn_tf_tpu_torch.ops import _build, as_operator, capturing
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 KERNEL_NAME = "stem_conv7x7s2_bf16"
@@ -113,10 +113,12 @@ def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
     its storage and version counter stay the same and grad mode is off, so
     a serving forward pays no packing launches.  (Inside
     `StemConvFunction.forward` grad mode is off too, and the pack stays out
-    of the autograd graph.)"""
+    of the autograd graph.)  While a CUDA graph is captured the pack is
+    computed, not looked up, so the graph packs the weight as it finds it
+    at every replay."""
     pack = (pack_stem_weight_f32 if weight.dtype == torch.float32
             else pack_stem_weight)
-    if torch.is_grad_enabled() or weight.is_inference():
+    if torch.is_grad_enabled() or weight.is_inference() or capturing():
         return pack(weight).contiguous()
     key = (weight.data_ptr(), weight._version)
     hit = getattr(weight, "_stem_packed", None)

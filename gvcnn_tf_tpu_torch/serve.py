@@ -18,6 +18,13 @@ engine owns: PyTorch keeps cuDNN's execution plans per thread, and
 ThreadingHTTPServer starts a thread per request, so running the forward on
 the request's thread re-planned every conv (~250 ms per request, measured
 on an H100 80GB HBM3 at 700 W, against ~12 ms on a warm thread).
+On a card each bucket's forward is a CUDA graph (`utils/graphs.py`, one
+a bucket and request dtype, all in one memory pool), warmed up and captured
+at start-up, as the JAX engine compiles one executable a bucket: a request
+is copied into its bucket's static input and the graph replays.  A weight
+loaded in place into `engine.model` changes what the graphs compute (they
+pack the stem's weight and fold its BatchNorm at every replay).  On the
+CPU the forward runs eagerly.
 Every family and backbone of the configs is served (GVCNN, MVCNN, the
 single-view classifier; V = 1 for it).  On the card the backbone and the
 scoring FCN run in the config's `compute_dtype`, the Inception-v1 stem and
@@ -45,7 +52,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +62,7 @@ from gvcnn_tf_tpu_torch.checkpoint import load_model
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+from gvcnn_tf_tpu_torch.utils import graphs
 from gvcnn_tf_tpu_torch.utils import (
     fold_batch_norm,
     normalize_views,
@@ -115,10 +123,18 @@ class InferenceEngine:
         if any(b < 1 for b in self.buckets):
             raise ValueError(f"buckets must be >= 1: {self.buckets}")
         self.batch = self.buckets[-1]  # chunk stride = largest bucket
+        # On a card, one CUDA graph a (bucket, request dtype), all in one
+        # memory pool; each is warmed up and captured here.
+        self._capture = graphs.capturable(self.device)
+        self._pool = graphs.new_pool(self.device)
+        self.graphs: Dict[Tuple[int, np.dtype], graphs.CapturedCall] = {}
+        wire = [np.uint8] + ([] if self._uint8_wire else [np.float32])
         try:
             for nb in self.buckets:    # warm up (and build the kernels)
-                self._forward(np.zeros((nb,) + self._input_shape[1:],
-                                       np.uint8))
+                for dt in wire:
+                    zeros = np.zeros((nb,) + self._input_shape[1:], dt)
+                    for _ in range(2 if self._capture else 1):
+                        self._forward(zeros)
         except BaseException:
             self.close()
             raise
@@ -130,13 +146,35 @@ class InferenceEngine:
         logits, class index, probability and view scores."""
         return self._device_thread.submit(self._forward_here, chunk).result()
 
+    def _outputs(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        logits, ep = self.model(normalize_views(x))
+        prob, pred = torch.softmax(logits.float(), -1).max(-1)
+        return {"logits": logits, "pred": pred, "prob": prob,
+                "scores": ep.get("view_discrimination_scores")}
+
+    def _graph(self, chunk: np.ndarray) -> graphs.CapturedCall:
+        """The graph of the chunk's (bucket, dtype): its static input is
+        written by each request and read by the model's forward."""
+        key = (len(chunk), chunk.dtype)
+        g = self.graphs.get(key)
+        if g is None:
+            static = torch.empty(chunk.shape, dtype=torch.from_numpy(
+                chunk[:0]).dtype, device=self.device)
+            g = self.graphs[key] = graphs.CapturedCall(
+                f"the {self.config.name} forward at bucket {len(chunk)} "
+                f"({chunk.dtype} requests)",
+                lambda: self._outputs(g.inputs["x"]), {"x": static},
+                device=self.device, pool=self._pool,
+                watch=lambda: graphs.model_tensors(self.model))
+        return g
+
     def _forward_here(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(chunk))
         with torch.inference_mode():
-            logits, ep = self.model(normalize_views(x))
-            prob, pred = torch.softmax(logits.float(), -1).max(-1)
-            out = {"logits": logits, "pred": pred, "prob": prob,
-                   "scores": ep.get("view_discrimination_scores")}
+            if self._capture:
+                out = self._graph(chunk)(x=x)
+            else:
+                out = self._outputs(x.to(self.device))
             return {k: None if v is None else v.cpu().numpy()
                     for k, v in out.items()}
 
@@ -147,8 +185,9 @@ class InferenceEngine:
         return out["logits"], out["scores"]
 
     def close(self):
-        """Stop the device thread."""
+        """Stop the device thread and drop the graphs (and their pool)."""
         self._device_thread.shutdown(wait=True)
+        self.graphs.clear()
 
     def predict(self, views: np.ndarray):
         """views (N, V, H, W, 3) -> list of result dicts (chunked/padded).

@@ -123,7 +123,7 @@ def run(config: str = "mn40_12view", batch: int = 32, iters: int = 30,
     def forward_loss():
         gen = None
         if cfg.dropout_keep_prob < 1.0:
-            gen = state.generator
+            gen = state.generators[0]
             gen.manual_seed(dropout_seed(tc.seed, state.step, 0))
         logits, _ = model(normalize_views(b["views"]), generator=gen)
         return cross_entropy(logits, b["label"], tc.label_smoothing)

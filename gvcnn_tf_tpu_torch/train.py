@@ -31,8 +31,18 @@ stopped (the JAX package restarts the stream from its seed; so do the
 port's file loaders), and the run's
 config (`run_identity`): a run refuses to resume from a checkpoint whose
 config differs in more than its length, cadence and directory.  Dropout
-masks come from a `torch.Generator` on the model's device, reseeded from
-(`train.seed`, step, microbatch) every step, so they need no saved state.
+masks come from a `torch.Generator` a microbatch on the model's device,
+reseeded from (`train.seed`, step, microbatch) every step, so they need no
+saved state.
+
+The compiled step (the JAX package's `jax.jit(..., donate_argnums=0)`
+step, compiled ahead of time for the batch's shape): on a card with one
+rank, `train` runs `compile_train_step`, the step's device work captured
+once as a CUDA graph (`utils/graphs.py`) and replayed every step after an
+eager warm-up; the host reseeds the generators and writes the optimizer's
+scalars before each replay.  On the CPU, and over several data-parallel
+ranks, it runs `train_step` eagerly.  `train_step` stays the eager step
+the analysis tools call: they attribute single ops, which a replay hides.
 
 Data parallelism (the JAX package's `data` mesh and `bn_sync`, as one
 process per card, `parallel/`): every rank holds a replica, trains on its
@@ -100,6 +110,7 @@ from gvcnn_tf_tpu_torch.parallel import (
 )
 from gvcnn_tf_tpu_torch.parallel import collectives
 from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
+from gvcnn_tf_tpu_torch.utils import graphs
 from gvcnn_tf_tpu_torch.utils import (
     device_flip,
     normalize_views,
@@ -155,6 +166,18 @@ class Optimizer:
 
     `count` is optax's update count: lr(count) scales the update, and it
     is incremented after it.
+
+    `step(grads)` is three parts, which a CUDA graph of the train step
+    takes apart (`compile_train_step`): `prepare()` writes the step's
+    scalars, -lr(count) and Adam's fp32 bias corrections, into 0-d fp32
+    tensors on the parameters' device (one `fill_` each); `apply(grads)`
+    is the update on the device, which reads them there; `advance()`
+    counts.  The update keeps the bits of the same update by Python
+    floats: `_foreach_mul` by a 0-d fp32 tensor rounds the factor to fp32
+    as by a scalar, and `_foreach_div` by a Python float divides on the CPU
+    but multiplies by the divisor's fp32 reciprocal on a card (where a
+    division by a 0-d tensor is IEEE's), so on a card the corrections are
+    stored as their reciprocals and multiply.
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -173,9 +196,34 @@ class Optimizer:
             {"trace": zeros()} if self.kind == "momentum"
             else {"mu": zeros(), "nu": zeros()} if self.kind == "adam"
             else {})
+        dev = self.params[0].device if self.params else None
+        # -lr(count), then Adam's bias corrections 1 - b1^t, 1 - b2^t (on a
+        # card their reciprocals).
+        self.neg_lr, self.bc1, self.bc2 = (
+            torch.zeros((), dtype=torch.float32, device=dev)
+            for _ in range(3))
+        self._reciprocal = dev is not None and dev.type == "cuda"
+
+    def step(self, grads: Sequence[torch.Tensor]):
+        self.prepare()
+        self.apply(grads)
+        self.advance()
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
+    def prepare(self):
+        """Write this update's scalars (see the class docstring)."""
+        self.neg_lr.fill_(-self.schedule(self.count))
+        if self.kind == "adam":
+            t = np.float32(self.count + 1)
+            # optax computes the corrections in fp32.
+            for out, b in ((self.bc1, self.B1), (self.bc2, self.B2)):
+                bc = np.float32(1.0) - np.float32(b) ** t
+                out.fill_(float(np.float32(1.0) / bc if self._reciprocal
+                                else bc))
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor]):
+        """The update, on the device, with the scalars `prepare` wrote."""
         grads = list(grads)
         if self.clip > 0:
             norm = global_norm(grads)
@@ -183,18 +231,19 @@ class Optimizer:
             torch._foreach_mul_(scaled, self.clip)
             keep = norm < self.clip
             grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
-        lr = self.schedule(self.count)
         if self.kind == "momentum":
             trace = self.slots["trace"]
             torch._foreach_mul_(trace, self.momentum)
             torch._foreach_add_(trace, grads)
-            updates = torch._foreach_mul(trace, -lr)
+            updates = torch._foreach_mul(trace, self.neg_lr)
         elif self.kind == "sgd":
-            updates = torch._foreach_mul(grads, -lr)
+            updates = torch._foreach_mul(grads, self.neg_lr)
         else:
             updates = self._adam(grads)
-            torch._foreach_mul_(updates, -lr)
+            torch._foreach_mul_(updates, self.neg_lr)
         torch._foreach_add_(self.params, updates)
+
+    def advance(self):
         self.count += 1
 
     def _adam(self, grads):
@@ -206,14 +255,11 @@ class Optimizer:
         torch._foreach_mul_(sq, 1.0 - b2)
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, sq)
-        t = self.count + 1
-        # optax computes the corrections in fp32.
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(t))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(t))
-        den = torch._foreach_div(nu, bc2)
+        div = torch._foreach_mul if self._reciprocal else torch._foreach_div
+        den = div(nu, self.bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.EPS)
-        updates = torch._foreach_div(mu, bc1)
+        updates = div(mu, self.bc1)
         torch._foreach_div_(updates, den)
         return updates
 
@@ -242,11 +288,13 @@ def kernel_params(named_params) -> List[torch.Tensor]:
 
 
 def l2_regularization(kernels: Sequence[torch.Tensor],
-                      weight_decay: float) -> torch.Tensor:
-    """slim's l2_regularizer: 0.5 * wd * sum(||kernel||^2), in fp32.  Its
-    gradient, wd * kernel, is added by `train_step` directly."""
+                      weight_decay: float, device=None) -> torch.Tensor:
+    """slim's l2_regularizer: 0.5 * wd * sum(||kernel||^2), in fp32, on the
+    kernels' device (with none, on `device`).  Its gradient, wd * kernel,
+    is added by `train_step` directly."""
     if weight_decay <= 0 or not kernels:
-        return torch.zeros((), dtype=torch.float32)
+        return torch.zeros((), dtype=torch.float32, device=(
+            kernels[0].device if kernels else device))
     return 0.5 * weight_decay * global_norm(kernels).square()
 
 
@@ -266,13 +314,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 @dataclasses.dataclass
 class TrainState:
     """The model (fp32 parameters and BatchNorm statistics, on the device,
-    in train mode), its optimizer, the step count, the dropout generator
-    and the data-parallel world this replica belongs to."""
+    in train mode), its optimizer, the step count, the generators the step
+    draws from (`generators[i]`: microbatch i's dropout mask;
+    `flip_generator`: the on-card flip's mask) and the data-parallel world
+    this replica belongs to."""
 
     step: int
     model: ViewModel
     optimizer: Optimizer
-    generator: torch.Generator
+    generators: List[torch.Generator]
+    flip_generator: torch.Generator
     kernels: List[torch.Tensor]        # the parameters the L2 term covers
     world: World = World()
 
@@ -312,7 +363,9 @@ def create_train_state(config: GVCNNConfig, device="cuda",
     return TrainState(
         step=0, model=model,
         optimizer=Optimizer([p for _, p in named], config.train),
-        generator=torch.Generator(device=dev),
+        generators=[torch.Generator(device=dev)
+                    for _ in range(max(config.train.accumulate_steps, 1))],
+        flip_generator=torch.Generator(device=dev),
         kernels=kernel_params(named), world=world)
 
 
@@ -332,24 +385,81 @@ def dropout_seed(seed: int, step: int, micro: int,
     return (int(state[0]) << 31) | (int(state[1]) >> 1)
 
 
+def _local_bn(config: GVCNNConfig, world: World) -> bool:
+    return config.bn_sync == "local" and world.size > 1
+
+
+def _seed_flip(state: TrainState, config: GVCNNConfig):
+    """The flip generator reseeded from (`train.seed`, step, "FLP")."""
+    world = state.world
+    entropy = [config.train.seed, state.step, 0x464C50] + (
+        [world.rank] if _local_bn(config, world) else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    state.flip_generator.manual_seed(
+        (int(words[0]) << 31) | (int(words[1]) >> 1))
+
+
+def _draw_flip(state: TrainState, config: GVCNNConfig,
+               shape: Tuple[int, int]) -> torch.Tensor:
+    world = state.world
+    local_bn = _local_bn(config, world)
+    b, v = shape
+    ranks = world.size if world.size > 1 and not local_bn else 1
+    gen = state.flip_generator
+    mask = torch.rand((ranks * b, v), generator=gen, device=gen.device) < 0.5
+    return mask[world.rank * b:(world.rank + 1) * b] if ranks > 1 else mask
+
+
 def flip_mask(state: TrainState, config: GVCNNConfig,
               shape: Tuple[int, int]) -> torch.Tensor:
     """The on-card flip's Bernoulli(0.5) mask of one step, (B, V) bool on
-    the model's device, drawn from the step's generator reseeded from
+    the model's device, drawn from the flip generator reseeded from
     (`train.seed`, step, "FLP").  Over several ranks it is cut from one
     mask of the global batch, or with `bn_sync="local"` drawn per rank, as
     the dropout masks are."""
-    world = state.world
-    local_bn = config.bn_sync == "local" and world.size > 1
-    entropy = [config.train.seed, state.step, 0x464C50] + (
-        [world.rank] if local_bn else [])
-    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
-    state.generator.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
-    b, v = shape
-    ranks = world.size if world.size > 1 and not local_bn else 1
-    mask = torch.rand((ranks * b, v), generator=state.generator,
-                      device=state.generator.device) < 0.5
-    return mask[world.rank * b:(world.rank + 1) * b] if ranks > 1 else mask
+    _seed_flip(state, config)
+    return _draw_flip(state, config, shape)
+
+
+def _microbatch_generators(state: TrainState, k: int):
+    """Give `state` a dropout generator for each of k microbatches."""
+    while len(state.generators) < k:
+        state.generators.append(torch.Generator(
+            device=state.flip_generator.device))
+
+
+def seed_step(state: TrainState, config: GVCNNConfig):
+    """The host's part of a step, before its device work: every
+    microbatch's dropout generator reseeded from (`train.seed`, step,
+    microbatch), the flip's from (`train.seed`, step, "FLP"), and the
+    optimizer's scalars for this update written (`Optimizer.prepare`).
+    Each microbatch has a generator of its own, so a CUDA graph of the
+    step, which reads each registered generator's seed once a replay,
+    draws what the eager step draws."""
+    tc, world = config.train, state.world
+    k = max(tc.accumulate_steps, 1)
+    _microbatch_generators(state, k)
+    if config.dropout_keep_prob < 1.0:
+        rank = world.rank if _local_bn(config, world) else None
+        for i in range(k):
+            state.generators[i].manual_seed(
+                dropout_seed(tc.seed, state.step, i, rank))
+    _seed_flip(state, config)
+    state.optimizer.prepare()
+
+
+def finish_step(state: TrainState):
+    """The host's part of a step after its device work: the counts."""
+    state.optimizer.advance()
+    state.step += 1
+
+
+def _check_batch(batch: Dict[str, torch.Tensor], config: GVCNNConfig):
+    k = max(config.train.accumulate_steps, 1)
+    b = len(batch["idx"] if "idx" in batch else batch["views"])
+    if b % k:
+        raise ValueError(f"batch_size {b} not divisible by accumulate_steps "
+                         f"{k}")
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -398,7 +508,26 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     A batch of the card-resident split (`data/device_resident.py`) holds
     the whole staged split and this step's indices, 'idx': the step
     gathers its views and labels on the card first, as the JAX step does
-    with `jnp.take`; the rest is the streaming step."""
+    with `jnp.take`; the rest is the streaming step.
+
+    The step is the host's `seed_step`, the device work `device_step` and
+    the counts (`finish_step`); `compile_train_step` replays the device
+    work as one CUDA graph.  This eager form stays the one the analysis
+    tools call: they attribute individual ops, which a replay hides."""
+    _check_batch(batch, config)
+    seed_step(state, config)
+    mets = device_step(state, batch, config)
+    finish_step(state)
+    return mets
+
+
+def device_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                config: GVCNNConfig) -> Dict[str, torch.Tensor]:
+    """The device work of `train_step`, after `seed_step` and before
+    `finish_step`: what a CUDA graph of the step captures.  Every choice
+    it makes on the host (the flip, dropout, the microbatches, remat's
+    recompute, BatchNorm's EMA) depends on the config and the shapes
+    alone."""
     tc = config.train
     model, opt, world = state.model, state.optimizer, state.world
     if not model.training:
@@ -409,16 +538,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         labels = labels.index_select(0, batch["idx"])
     if (config.data.loader == "decoded" and config.data.augment
             and config.data.device_flip and views.ndim == 5):
-        views = device_flip(views, flip_mask(state, config, views.shape[:2]))
+        views = device_flip(views, _draw_flip(state, config,
+                                              views.shape[:2]))
     views = normalize_views(views)
     k = max(tc.accumulate_steps, 1)
     b = views.shape[0]
-    if b % k:
-        raise ValueError(f"batch_size {b} not divisible by accumulate_steps "
-                         f"{k}")
     for p in opt.params:
         p.grad = None
-    local_bn = config.bn_sync == "local" and world.size > 1
+    local_bn = _local_bn(config, world)
     use_dropout = config.dropout_keep_prob < 1.0
     losses, accs = [], []
     for i in range(k):
@@ -426,9 +553,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                                               (i + 1) * b // k]
         gen, rows = None, None
         if use_dropout:
-            gen = state.generator
-            gen.manual_seed(dropout_seed(tc.seed, state.step, i,
-                                         world.rank if local_bn else None))
+            gen = state.generators[i]
             if world.size > 1 and not local_bn:
                 rows = (world.rank * len(v), world.size * len(v))
         logits, _ = model(v, generator=gen, dropout_rows=rows)
@@ -445,15 +570,99 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             collectives.mean_across_ranks_(
                 grads + [loss, acc]
                 + (bn_statistics(model) if local_bn else []), world)
-        l2 = l2_regularization(state.kernels, tc.weight_decay).to(
-            views.device)
+        l2 = l2_regularization(state.kernels, tc.weight_decay, views.device)
         if tc.weight_decay > 0:
             torch._foreach_add_([p.grad for p in state.kernels],
                                 state.kernels, alpha=tc.weight_decay)
         grad_norm = global_norm(grads)
-        opt.step(grads)
-    state.step += 1
+        opt.apply(grads)
     return {"loss": loss + l2, "accuracy": acc, "grad_norm": grad_norm}
+
+
+class CompiledTrainStep:
+    """`train_step` with its device work (`device_step`) captured as one
+    CUDA graph and replayed, as the JAX package runs its jitted, donated
+    step (`compile_train_step`).  Called as `train_step` is, on the state,
+    config and batch shape it was made for; returns fresh metric tensors
+    (the graph's own outputs are overwritten by the next replay).
+
+    Per call: `seed_step` on the host (generators reseeded, the optimizer's
+    scalars written), the batch copied into the graph's static buffers
+    (a streamed batch's views and labels, on the current stream, which
+    the prefetcher has made wait for its copy; a card-resident batch's
+    indices only, its staged split being read where it lies), the replay,
+    `finish_step`.  The first call runs the step eagerly (the warm-up,
+    `utils/graphs.py`), the second captures and replays, every later one
+    replays.  The gradients persist across replays in the graph's pool
+    (`p.grad` holds them between steps); the parameters' and buffers'
+    version counters move each replay.  On the CPU the call is
+    `train_step` itself."""
+
+    METRICS = ("loss", "accuracy", "grad_norm")
+
+    def __init__(self, state: TrainState, config: GVCNNConfig,
+                 batch: Dict[str, torch.Tensor]):
+        self.state, self.config = state, config
+        dev = state.world.device
+        self.graph = None
+        if not graphs.capturable(dev):
+            return
+        k = max(config.train.accumulate_steps, 1)
+        _microbatch_generators(state, k)
+        self._resident = "idx" in batch
+        self._fixed = fixed = (
+            {"views": batch["views"], "label": batch["label"]}
+            if self._resident else {})
+        self._keys = ("idx",) if self._resident else ("views", "label")
+        static = {k: torch.empty_like(batch[k]) for k in self._keys}
+        views = batch["idx" if self._resident else "views"]
+
+        def step():
+            return device_step(state, {**fixed, **self.graph.inputs}, config)
+
+        def watched():
+            return (graphs.model_tensors(state.model) + list(fixed.values())
+                    + [t for v in state.optimizer.slots.values() for t in v])
+
+        self.graph = graphs.CapturedCall(
+            f"the train step of {config.name} (batch {tuple(views.shape)}, "
+            f"{k} microbatch(es))", step, static, device=dev,
+            generators=state.generators[:k] + [state.flip_generator],
+            watch=watched, mutates=lambda: graphs.model_tensors(state.model))
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 config: GVCNNConfig) -> Dict[str, torch.Tensor]:
+        if state is not self.state or config != self.config:
+            raise ValueError("a compiled train step runs the state and "
+                             "config it was compiled for")
+        if self.graph is None:
+            return train_step(state, batch, config)
+        _check_batch(batch, config)
+        if any(batch[k] is not t for k, t in self._fixed.items()):
+            raise ValueError("a compiled train step reads the card-resident "
+                             "split it was compiled with")
+        seed_step(state, config)
+        out = self.graph(**{k: batch[k] for k in self._keys})
+        finish_step(state)
+        return dict(zip(self.METRICS, torch.stack(
+            [out[k] for k in self.METRICS]).unbind()))
+
+    def close(self):
+        """Drop the graph and its memory."""
+        if self.graph is not None:
+            self.graph.reset()
+
+
+def compile_train_step(state: TrainState, config: GVCNNConfig,
+                       batch: Dict[str, torch.Tensor]) -> CompiledTrainStep:
+    """The train step of `state` and `config` at `batch`'s shapes as one
+    CUDA graph on a card (`CompiledTrainStep`; `train_step` on the CPU):
+    the JAX package's `jax.jit(make_train_step(...), donate_argnums=0)`
+    compiled ahead of time for the batch's shape.  Every step the graph
+    covers: any `accumulate_steps`, dropout, the on-card flip, the uint8,
+    bf16 and fp32 wires, `remat_until` and `remat_backbone`, every family.
+    A step over several data-parallel ranks stays eager (`_train`)."""
+    return CompiledTrainStep(state, config, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +801,23 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
             shutdown(world)
 
 
+def _step_function(state: TrainState, config: GVCNNConfig, batch):
+    """The loop's step: one CUDA graph on a card with one rank
+    (`compile_train_step`), logged; the eager `train_step` elsewhere."""
+    world = state.world
+    if not graphs.capturable(world.device):
+        return train_step
+    if world.size > 1:
+        metrics_lib.log(f"train: the data-parallel step over {world.size} "
+                        "ranks runs eagerly (capturing it with its NCCL "
+                        "all-reduce is ROADMAP item 29)")
+        return train_step
+    metrics_lib.log(f"train: the step runs as one CUDA graph on "
+                    f"{world.device} (eager warm-up, captured at the next "
+                    "step, replayed after)")
+    return compile_train_step(state, config, batch)
+
+
 def _train(config, num_steps, dataset_iter, writer, world: World,
            profile_steps=None):
     check_num_devices(config.num_devices, world)
@@ -670,6 +896,7 @@ def _train(config, num_steps, dataset_iter, writer, world: World,
     timer = metrics_lib.StepTimer()
     mets: Dict[str, torch.Tensor] = {}
     start = state.step
+    step_fn = train_step
     window = contextlib.ExitStack()     # holds the open profiled window
     tracing = False
     try:
@@ -703,9 +930,10 @@ def _train(config, num_steps, dataset_iter, writer, world: World,
                     raise ValueError(
                         f"labels [{lo}, {hi}] out of range for num_classes="
                         f"{config.data.num_classes}")
+                step_fn = _step_function(state, config, batch)
             with (record_function(f"train_step {step}") if tracing
                   else contextlib.nullcontext()):
-                mets = train_step(state, batch, config)
+                mets = step_fn(state, batch, config)
             if tracing and step + 1 == profile_steps[1]:
                 window.close()
                 tracing = False
@@ -749,6 +977,8 @@ def _train(config, num_steps, dataset_iter, writer, world: World,
     finally:
         window.close()
         prefetch.close()
+        if isinstance(step_fn, CompiledTrainStep):
+            step_fn.close()
         for sig, prev in prev_handlers.items():
             signal.signal(sig, prev)
         if own_writer:

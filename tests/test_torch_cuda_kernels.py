@@ -43,6 +43,14 @@ step.
 The card-resident split: a step on a resident batch equals the streaming
 step bit for bit (cuDNN deterministic), and `train(profile_steps=...)`
 writes a trace with one launch of each kernel a profiled step.
+
+CUDA graphs (`utils/graphs.py`): the optimizer's device scalars give the
+Python floats' bits on the card; the compiled step equals the eager step
+bit for bit over 3 steps (64x64, 4 views, B = 2, dropout, the on-card flip,
+accumulate_steps = 2, cuDNN deterministic) with the eager launches;
+`train()` replays its step; an engine bucket's replay is its eager forward
+bit for bit, and a weight reload changes it; eval through its graph
+counts and scores as eager.
 """
 
 import numpy as np
@@ -424,27 +432,12 @@ def test_families_on_the_card(cuda, name, launches):
 
 
 def _eval_logits():
-    """Context: the logits of every GVCNN forward run in eval mode, appended
-    to the list it yields (a global module hook; removed on exit)."""
-    import contextlib
+    """Context: the fp32 logits of every batch `evaluate` scores, appended
+    to the list it yields (`eval.recorded_logits`: on the card the logits
+    of the replayed graph, which no module hook sees)."""
+    from gvcnn_tf_tpu_torch.eval import recorded_logits
 
-    from gvcnn_tf_tpu_torch.models.gvcnn import GVCNN
-
-    @contextlib.contextmanager
-    def ctx():
-        seen = []
-
-        def hook(module, args, out):
-            if isinstance(module, GVCNN) and not module.training:
-                seen.append(out[0].detach().float().cpu())
-
-        handle = torch.nn.modules.module.register_module_forward_hook(hook)
-        try:
-            yield seen
-        finally:
-            handle.remove()
-
-    return ctx()
+    return recorded_logits()
 
 
 def test_eval_on_the_card(cuda, tmp_path):
@@ -818,3 +811,299 @@ def test_profiled_window_on_the_card(cuda, tmp_path):
     assert spans == ["train_step 1", "train_step 2"]
     assert sum("stem_conv_mma_kernel" in k for k in kernels) == 2
     assert sum("group_and_fuse_kernel" in k for k in kernels) == 2
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the compiled step, the engine's buckets, eval
+# ---------------------------------------------------------------------------
+
+def _graph_cfg(**train_kw):
+    """mn40_12view at 64x64, 4 views, B = 2, bf16, dropout on, the decoded
+    loader's on-card flip on a uint8 wire."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+
+    base = get_config("mn40_12view")
+    return base.replace(
+        data=dataclasses.replace(
+            base.data, height=64, width=64, num_views=4, batch_size=2,
+            loader="decoded", augment=True, device_flip=True,
+            transfer_dtype="uint8"),
+        train=dataclasses.replace(base.train, **train_kw))
+
+
+def _u8_batches(cfg, n, seed=0):
+    d = cfg.data
+    rs = np.random.RandomState(seed)
+    return [{"views": torch.from_numpy(rs.randint(
+        0, 256, (d.batch_size, d.num_views, d.height, d.width, 3)).astype(
+            np.uint8)).cuda(), "label": torch.from_numpy(rs.randint(
+                0, d.num_classes, d.batch_size)).cuda()} for _ in range(n)]
+
+
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_foreach_by_a_0d_tensor_is_by_the_scalar_on_the_card(cuda, op):
+    """The optimizer's device scalars on the card: `_foreach_mul` of fp32
+    CUDA tensors by a 0-d fp32 CUDA tensor gives the bits of the same call
+    by the Python float; `_foreach_div` by a Python float is `_foreach_mul`
+    by its fp32 reciprocal there (a division by a 0-d tensor is IEEE's and
+    differs), which is how `Optimizer` stores Adam's corrections on a
+    card."""
+    rs = np.random.RandomState(3)
+    xs = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+          for s in [(1000,), (64, 3, 7, 7), (5,)]]
+    for value in (-0.1 * 0.94 ** 3, 1.0 - 0.999 ** 7, -1e-3 / 3):
+        if op == "mul":
+            want = torch._foreach_mul(xs, value)
+            got = torch._foreach_mul(xs, torch.tensor(value, device=cuda))
+        else:
+            want = torch._foreach_div(xs, value)
+            inv = np.float32(1.0) / np.float32(value)
+            got = torch._foreach_mul(xs, torch.tensor(float(inv),
+                                                      device=cuda))
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), value
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.7])
+@pytest.mark.parametrize("kind", ["momentum", "sgd", "adam"])
+def test_device_scalar_optimizer_on_the_card(cuda, kind, clip):
+    """5 updates of CUDA tensors with the optimizer's scalars in device
+    tensors equal the Python-float update bit for bit
+    (`tests/torch_optimizer_ref.py`)."""
+    from torch_optimizer_ref import python_float_update
+
+    from gvcnn_tf_tpu_torch.configs import TrainConfig
+    from gvcnn_tf_tpu_torch.train import Optimizer
+
+    tc = TrainConfig(optimizer=kind, learning_rate=0.1, lr_decay_steps=2,
+                     lr_decay_rate=0.94, warmup_steps=3, grad_clip_norm=clip)
+    rs = np.random.RandomState(7)
+    shapes = [(3, 4), (5000,), (64, 3, 7, 7)]
+    start = [rs.randn(*s).astype(np.float32) for s in shapes]
+    got, ref = (Optimizer([torch.from_numpy(p.copy()).to(cuda)
+                           for p in start], tc) for _ in range(2))
+    for count in range(5):
+        grads = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+                 for s in shapes]
+        got.step(grads)
+        python_float_update(ref, grads, count)
+        for a, b in zip(got.params, ref.params):
+            assert torch.equal(a, b), count
+
+
+def test_compiled_step_is_the_eager_step_on_the_card(cuda):
+    """3 steps of the compiled step (the warm-up, a capture and its replay,
+    a replay) equal 3 eager steps bit for bit, cuDNN deterministic on both
+    sides: loss, grad_norm, every parameter and BatchNorm statistic, with
+    dropout, the on-card flip and accumulate_steps = 2; the launches equal
+    the eager step's (one K2 and one K1 a microbatch)."""
+    from gvcnn_tf_tpu_torch.train import (
+        compile_train_step,
+        create_train_state,
+        train_step,
+    )
+
+    cfg = _graph_cfg(accumulate_steps=2)
+    batches = _u8_batches(cfg, 3)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = create_train_state(cfg, cuda)
+        state = create_train_state(cfg, cuda)
+        step = compile_train_step(state, cfg, batches[0])
+        for b in batches:
+            before = (stem_conv.launches, group_and_fuse.launches)
+            want = train_step(ref, b, cfg)
+            eager = (stem_conv.launches - before[0],
+                     group_and_fuse.launches - before[1])
+            before = (stem_conv.launches, group_and_fuse.launches)
+            got = step(state, b, cfg)
+            assert (stem_conv.launches - before[0],
+                    group_and_fuse.launches - before[1]) == eager == (2, 2)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+        a, b = ref.model.state_dict(), state.model.state_dict()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+        assert (step.graph.captures, step.graph.replays) == (1, 2)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_train_replays_its_step_on_the_card(cuda, tmp_path, monkeypatch):
+    """`train()` with one rank on the card runs the compiled step: 4 steps
+    are a warm-up and 3 replays, one launch of each kernel a step."""
+    import dataclasses
+    import importlib
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    made = []
+    real = train_mod.compile_train_step
+
+    def spy(*a):
+        made.append(real(*a))
+        return made[-1]
+
+    monkeypatch.setattr(train_mod, "compile_train_step", spy)
+    cfg = _procedural_cfg(tmp_path, "auto")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                checkpoint_every=0))
+    before = (stem_conv.launches, group_and_fuse.launches)
+    state, mets = train_mod.train(cfg, num_steps=4, device="cuda")
+    assert state.step == 4 and np.isfinite(mets["loss"])
+    assert (stem_conv.launches - before[0],
+            group_and_fuse.launches - before[1]) == (4, 4)
+    [step] = made
+    assert (step.graph.captures, step.graph.replays) == (1, 3)
+
+
+def _engine_cfg():
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+
+    base = get_config("mn40_12view")
+    return base.replace(data=dataclasses.replace(
+        base.data, height=64, width=64, num_views=4,
+        transfer_dtype="uint8"))
+
+
+def test_engine_bucket_replay_is_the_eager_forward(cuda):
+    """A bucket's replayed forward gives the logits and scores of the
+    engine's model run eagerly on the same request, bit for bit."""
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine
+    from gvcnn_tf_tpu_torch.utils import normalize_views
+
+    views = np.random.RandomState(1).randint(
+        0, 256, (2, 4, 64, 64, 3)).astype(np.uint8)
+    engine = InferenceEngine(_engine_cfg(), serve_batch_size=2,
+                             device="cuda")
+    try:
+        g = engine.graphs[(2, np.dtype(np.uint8))]
+        logits, scores = engine.logits_and_scores(views)
+        assert (g.captures, g.replays) == (1, 2)
+
+        def eager():
+            with torch.inference_mode():
+                out, ep = engine.model(normalize_views(
+                    torch.from_numpy(views).cuda()))
+                return (out.cpu().numpy(),
+                        ep["view_discrimination_scores"].cpu().numpy())
+
+        want = engine._device_thread.submit(eager).result()
+    finally:
+        engine.close()
+    np.testing.assert_array_equal(logits, want[0])
+    np.testing.assert_array_equal(scores, want[1])
+
+
+def test_a_weight_reload_changes_the_replayed_logits(cuda):
+    """Weights loaded in place into a serving engine's model change what
+    its graphs compute (the stem's packed weight and scale and shift are
+    computed inside the graph): the reloaded engine answers as an engine
+    built with those weights."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine
+    from gvcnn_tf_tpu_torch.utils import fold_batch_norm
+
+    cfg = _engine_cfg()
+    views = np.random.RandomState(2).randint(
+        0, 256, (2, 4, 64, 64, 3)).astype(np.uint8)
+    other = cfg.replace(train=dataclasses.replace(cfg.train, seed=7))
+    fresh = InferenceEngine(other, serve_batch_size=2, device="cuda")
+    engine = InferenceEngine(cfg, serve_batch_size=2, device="cuda")
+    try:
+        want = fresh.logits_and_scores(views)[0]
+        before = engine.logits_and_scores(views)[0]
+        weights = fold_batch_norm(init_weights(build_model(other), 7))
+        weights.cast_convs_()
+        engine._device_thread.submit(
+            engine.model.load_state_dict, weights.state_dict()).result()
+        after = engine.logits_and_scores(views)[0]
+        g = engine.graphs[(2, np.dtype(np.uint8))]
+        assert g.captures == 1
+    finally:
+        engine.close()
+        fresh.close()
+    assert not np.array_equal(before, after)
+    np.testing.assert_array_equal(after, want)
+
+
+def test_eval_graph_counts_as_eager_on_the_card(cuda, tmp_path, monkeypatch):
+    """`evaluate` of a 10-shape procedural split (3 padded batches of 4)
+    through its graph gives the eager counts and logits; the graph was
+    captured once and replayed for the batches after the warm-up."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import eval as eval_mod
+    from gvcnn_tf_tpu_torch.train import create_train_state
+    from gvcnn_tf_tpu_torch.utils import graphs
+
+    cfg = _procedural_cfg(tmp_path, "off")
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, batch_size=4, synthetic_num_shapes=10))
+    state = create_train_state(cfg, cuda)
+    results = []
+    for capture in (True, False):
+        with monkeypatch.context() as mp:
+            if not capture:
+                mp.setattr(graphs, "capturable", lambda device: False)
+            with eval_mod.recorded_logits() as seen:
+                results.append((eval_mod.evaluate(cfg, state=state,
+                                                  per_class=True),
+                                torch.cat(seen)))
+    (got, got_logits), (want, want_logits) = results
+    assert got == want and got["count"] == 10
+    assert torch.equal(got_logits, want_logits)
+    [g] = eval_mod._GRAPHS[state.model].values()
+    assert (g.captures, g.replays) == (1, 2)
+
+
+def test_train_in_a_world_of_one_over_nccl_replays(cuda, tmp_path,
+                                                   monkeypatch):
+    """`train()` in a world of one rank over NCCL runs the compiled step,
+    its all-reduce captured in the graph: 3 steps (a warm-up, a capture and
+    its replay, a replay) end where the single process's `train()` ends,
+    bit for bit, cuDNN deterministic."""
+    import dataclasses
+    import datetime
+    import importlib
+
+    from gvcnn_tf_tpu_torch.parallel import initialize_distributed, shutdown
+
+    train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
+    made = []
+    real = train_mod.compile_train_step
+
+    def spy(*a):
+        made.append(real(*a))
+        return made[-1]
+
+    monkeypatch.setattr(train_mod, "compile_train_step", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    states = []
+    for name in ("alone", "world"):
+        cfg = _procedural_cfg(tmp_path / name, "off")
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    checkpoint_every=0))
+        world = None
+        if name == "world":
+            world = initialize_distributed(
+                timeout=datetime.timedelta(seconds=120), device="cuda:0",
+                init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                world_size=1)
+            assert (world.backend, world.size) == ("nccl", 1)
+        try:
+            state, _ = train_mod.train(cfg, num_steps=3, device="cuda",
+                                       world=world)
+        finally:
+            if world is not None:
+                shutdown(world)
+        states.append(state.model.state_dict())
+    assert [(s.graph.captures, s.graph.replays) for s in made] == [(1, 2)] * 2
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
