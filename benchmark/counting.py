@@ -1,0 +1,52 @@
+"""Operations and bytes of a configuration, counted from its published
+layer shapes (the reference's tables), independent of how the program
+implements them.
+
+Every conv and matmul counts 2 FLOP a multiply-add; nothing else counts
+(BatchNorm, pools, elementwise ops and the grouping head's compares are a
+rounding error beside them).  A train step counts 3x its forward (the
+forward, and the backward's input and weight gradients).  The stem conv
+(K2) reads its input and weight once and writes its output once, in the
+compute dtype."""
+
+from __future__ import annotations
+
+from benchmark.reference import gvcnn
+
+DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
+
+
+def conv_flops(cin, cout, k, h_out, w_out) -> int:
+    return 2 * cin * cout * k * k * h_out * w_out
+
+
+def forward_flops(model: dict, shapes: int) -> int:
+    """FLOPs of one forward over `shapes` shapes of `num_views` views."""
+    bb = gvcnn.BACKBONES[model["backbone"]]
+    h, w = model["height"], model["width"]
+    per_view = sum(conv_flops(cin, cout, k, -(-hi // s), -(-wi // s))
+                   for _, cin, cout, k, s, hi, wi
+                   in bb.conv_shapes(model["final_endpoint"], h, w))
+    ch = bb.channels(model["final_endpoint"])
+    rh, rw = bb.spatial(model["raw_endpoint"], h, w)
+    hidden = gvcnn.SCORE_HIDDEN
+    per_view += conv_flops(ch[model["raw_endpoint"]], hidden, 1, rh, rw)
+    per_view += conv_flops(hidden, 1, 1, rh, rw)
+    head = 2 * ch[model["final_endpoint"]] * model["num_classes"]
+    return shapes * (model["num_views"] * per_view + head)
+
+
+def train_step_flops(model: dict, shapes: int) -> int:
+    return 3 * forward_flops(model, shapes)
+
+
+def stem_work(model: dict, images: int):
+    """(FLOPs, bytes) of one launch of the 7x7/2 stem conv over `images`
+    images: 2 multiply-adds a tap, the input, the 7x7x3x64 weight and the
+    output in the compute dtype."""
+    h, w = model["height"], model["width"]
+    out = images * -(-h // 2) * -(-w // 2) * 64
+    nb = DTYPE_BYTES[model["compute_dtype"]]
+    flops = 2 * out * 7 * 7 * 3
+    nbytes = nb * (images * h * w * 3 + 7 * 7 * 3 * 64 + out)
+    return flops, nbytes
