@@ -22,6 +22,13 @@ A batch of the card-resident split (`data/device_resident.py`: 'views' and
 'label' the staged tensors, 'idx' the batch's indices) passes its staged
 tensors through by reference; only 'idx' is pinned and copied, on the side
 stream like any batch.
+
+Spans (`utils/profiling.py`): `prefetch.produce` on the producer thread
+(one batch into host memory); `prefetch.next` around the consumer's
+`next()` (its count is the batches handed out, and one more where the
+stream ended), with the child `prefetch.blocked` around the wait for a
+batch the producer has not made yet (its count is the calls that had to
+block).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from gvcnn_tf_tpu_torch.utils import profiling
 
 _END = object()
 
@@ -82,6 +91,15 @@ class DevicePrefetcher:
         out = torch.empty(t.shape, dtype=dtype, pin_memory=True)
         return out.copy_(t)
 
+    def _host_batch(self, batch: dict) -> dict:
+        if "idx" in batch:              # staged on the device already
+            return {"views": batch["views"], "label": batch["label"],
+                    "idx": self._host(batch["idx"], torch.int64)}
+        views = np.asarray(batch["views"])
+        wire = self._wire if views.dtype.kind == "f" else None
+        return {"views": self._host(views, wire),
+                "label": self._host(batch["label"], torch.int64)}
+
     def _put(self, item) -> bool:
         while not self._stop.is_set():
             try:
@@ -96,14 +114,8 @@ class DevicePrefetcher:
             for batch in it:
                 state = (it.state_dict() if hasattr(it, "state_dict")
                          else None)
-                if "idx" in batch:      # staged on the device already
-                    host = {"views": batch["views"], "label": batch["label"],
-                            "idx": self._host(batch["idx"], torch.int64)}
-                else:
-                    views = np.asarray(batch["views"])
-                    wire = self._wire if views.dtype.kind == "f" else None
-                    host = {"views": self._host(views, wire),
-                            "label": self._host(batch["label"], torch.int64)}
+                with profiling.span("prefetch.produce"):
+                    host = self._host_batch(batch)
                 if not self._put((host, state)):
                     return
             self._put(_END)
@@ -115,9 +127,12 @@ class DevicePrefetcher:
         """The next host batch from the producer, its copy to the device
         started; None if none is ready (block=False) or the stream ended."""
         try:
-            item = self._queue.get(block=block)
+            item = self._queue.get_nowait()
         except queue.Empty:
-            return None
+            if not block:
+                return None
+            with profiling.span("prefetch.blocked"):
+                item = self._queue.get()
         if item is _END:
             self._done = True
             return None
@@ -136,6 +151,10 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> dict:
+        with profiling.span("prefetch.next"):
+            return self._next()
+
+    def _next(self) -> dict:
         if self._ready is None and not self._done:
             self._ready = self._take(block=True)
         if self._ready is None:

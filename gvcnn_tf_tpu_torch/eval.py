@@ -24,6 +24,13 @@ eval step: the first batch runs eagerly (the warm-up), the second
 captures, every later one replays; `recorded_logits` collects the logits
 of the scored batches, which no module hook sees under a replay.
 
+Spans and counters (`utils/profiling.py`): `eval.setup` from the
+scoring model's set-up to the first forward's launch (the model, the
+dataset, the prefetcher's start and its first batch), `eval.drain`
+around the last batch's wait and the count; `eval.rows` and
+`eval.padded_rows` count the rows this process scored and the padding
+rows it dropped, once a pass.
+
 Over several data-parallel ranks (`world`, as the JAX package's
 multi-process evaluation does): each rank scores its own shard of the
 split (every world-size-th shape) at the global batch over the world's
@@ -73,7 +80,12 @@ from gvcnn_tf_tpu_torch.parallel import (
     spawn,
 )
 from gvcnn_tf_tpu_torch.parallel.collectives import sum_counts
-from gvcnn_tf_tpu_torch.utils import graphs, normalize_views, resolve_device
+from gvcnn_tf_tpu_torch.utils import (
+    graphs,
+    normalize_views,
+    profiling,
+    resolve_device,
+)
 
 # The model that checkpoints and JAX variables are loaded into, one per
 # (config, device), as the JAX package caches its jitted eval step: repeated
@@ -226,24 +238,25 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
                                                           labels.dtype)])
             yield {"views": views, "label": labels}
 
-    n_correct = n_total = 0
+    n_correct = n_total = n_padded = 0
     cls_correct = np.zeros(d.num_classes, np.int64)
     cls_total = np.zeros(d.num_classes, np.int64)
 
     def drain(item):
-        nonlocal n_correct, n_total
+        nonlocal n_correct, n_total, n_padded
         (host, done), (n, labels) = item
         if done is not None:
             done.synchronize()
         correct = host.numpy()[:n].astype(np.int64)
         n_correct += int(correct.sum())
         n_total += n
+        n_padded += len(host) - n
         if per_class:
             np.add.at(cls_correct, labels, correct)
             np.add.at(cls_total, labels, 1)
 
-    with scoring_model(config, checkpoint_dir, state, fold_bn,
-                       device) as model:
+    with profiling.span("eval.setup") as setup, scoring_model(
+            config, checkpoint_dir, state, fold_bn, device) as model:
         dev = next(model.parameters()).device
         if dataset_iter is None:
             dataset_iter = make_dataset(
@@ -257,6 +270,7 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
                               resolve_transfer_dtype(config),
                               depth=max(d.prefetch_to_device, 1)) as batches:
             for batch in batches:
+                setup.close()           # the first forward is launched next
                 if graphs.capturable(dev):
                     hits, logits = eval_graph(model, batch)(
                         views=batch["views"], label=batch["label"])
@@ -269,12 +283,14 @@ def evaluate(config: GVCNNConfig, checkpoint_dir: Optional[str] = None, *,
                 if pending is not None:
                     drain(pending)
                 pending = item
-        if pending is not None:
-            drain(pending)
-
-    # One all-reduce of every count, after the last batch.
-    totals = sum_counts(np.concatenate([[n_correct, n_total], cls_correct,
-                                        cls_total]), world)
+        with profiling.span("eval.drain"):
+            if pending is not None:
+                drain(pending)
+            profiling.count("eval.rows", n_total)
+            profiling.count("eval.padded_rows", n_padded)
+            # One all-reduce of every count, after the last batch.
+            totals = sum_counts(np.concatenate(
+                [[n_correct, n_total], cls_correct, cls_total]), world)
     n_correct, n_total = int(totals[0]), int(totals[1])
     cls_correct, cls_total = np.split(totals[2:], 2)
     result = {"accuracy": n_correct / max(n_total, 1), "correct": n_correct,

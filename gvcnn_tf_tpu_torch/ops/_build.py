@@ -118,14 +118,19 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with argtypes.
 
-    Loaded once per process: a launch must not pay for hashing sources."""
+    Loaded once per process: a launch must not pay for hashing sources.
+    The build or load is a `kernels.build` span (`utils/profiling.py`)."""
     global _lib
     if _lib is not None:
         return _lib
+    # Imported here: the utilities import the models, which import the ops.
+    from gvcnn_tf_tpu_torch.utils import profiling
+
     with _lock:
         if _lib is None:
-            path = build()["path"]
-            lib = ctypes.CDLL(path)
+            with profiling.span("kernels.build"):
+                path = build()["path"]
+                lib = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

@@ -3,7 +3,9 @@
 
   GET  /healthz   -> 200 "ok"
   GET  /info      -> JSON model/config metadata
-  GET  /stats     -> JSON request latency stats (nearest-rank p50/p99 ms)
+  GET  /stats     -> JSON stats of the engine's recent requests: latency,
+                     queue wait and forward (nearest-rank p50/p99 ms),
+                     padded rows, each with the count it is taken over
   POST /predict   -> body: .npz with array 'views' shaped (N, V, H, W, 3)
                      (or (V, H, W, 3) for one shape), float in [-1, 1] or
                      raw uint8 in [0, 255]; response: JSON list of
@@ -25,6 +27,12 @@ is copied into its bucket's static input and the graph replays.  A weight
 loaded in place into `engine.model` changes what the graphs compute (they
 pack the stem's weight and fold its BatchNorm at every replay).  On the
 CPU the forward runs eagerly.
+Each request is a `serve.request` span on its thread (`utils/profiling.py`)
+and each of its chunks a `serve.queue` span (from the submit until the
+device thread takes it) and a `serve.forward` span (the device thread's
+copy in, replay and copy out), both the request's children; `/stats`
+reads the engine's own records of them, the last `profiling.RING` of each
+name in the process.
 Every family and backbone of the configs is served (GVCNN, MVCNN, the
 single-view classifier; V = 1 for it).  On the card the backbone and the
 scoring FCN run in the config's `compute_dtype`, the Inception-v1 stem and
@@ -44,12 +52,11 @@ CLI:
 from __future__ import annotations
 
 import argparse
-import collections
 import io
+import itertools
 import json
 import math
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -62,12 +69,15 @@ from gvcnn_tf_tpu_torch.checkpoint import load_model
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.metrics import log
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
-from gvcnn_tf_tpu_torch.utils import graphs
+from gvcnn_tf_tpu_torch.utils import graphs, profiling
 from gvcnn_tf_tpu_torch.utils import (
     fold_batch_norm,
     normalize_views,
     resolve_device,
 )
+
+# Tells the engines of one process apart in the span records.
+_ENGINES = itertools.count()
 
 
 class InferenceEngine:
@@ -105,10 +115,8 @@ class InferenceEngine:
         # also serializes device work.
         self._device_thread = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="gvcnn-device")
-        # Rolling per-request latency (seconds, shapes) for /stats, under
-        # its own lock so a /stats poll never waits on an inference.
-        self._latencies = collections.deque(maxlen=1024)
-        self._stats_lock = threading.Lock()
+        # The `engine` attribute of this engine's request spans.
+        self._tag = next(_ENGINES)
 
         d = config.data
         self._input_shape = (serve_batch_size, d.num_views, d.height,
@@ -141,10 +149,16 @@ class InferenceEngine:
         log(f"engine ready on {self.device}: {config.name}, buckets "
             f"{self.buckets}, compute {config.compute_dtype}")
 
-    def _forward(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
+    def _forward(self, chunk: np.ndarray, request=None, padded: int = 0
+                 ) -> Dict[str, np.ndarray]:
         """One chunk through the model on the device thread -> numpy
-        logits, class index, probability and view scores."""
-        return self._device_thread.submit(self._forward_here, chunk).result()
+        logits, class index, probability and view scores.  Under a
+        request's span (`request`, its id; None: set-up, untraced) the
+        chunk's wait and forward are its children; `padded` of its rows
+        are padding."""
+        return self._device_thread.submit(
+            self._forward_here, chunk, request, padded,
+            profiling.now_ns()).result()
 
     def _outputs(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits, ep = self.model(normalize_views(x))
@@ -168,7 +182,19 @@ class InferenceEngine:
                 watch=lambda: graphs.model_tensors(self.model))
         return g
 
-    def _forward_here(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
+    def _forward_here(self, chunk: np.ndarray, request=None,
+                      padded: int = 0, submitted: int = 0
+                      ) -> Dict[str, np.ndarray]:
+        if request is None:
+            return self._forward_chunk(chunk)
+        profiling.record("serve.queue", submitted, profiling.now_ns(),
+                         parent=request, engine=self._tag)
+        with profiling.span("serve.forward", parent=request,
+                            engine=self._tag, rows=len(chunk),
+                            padded=padded):
+            return self._forward_chunk(chunk)
+
+    def _forward_chunk(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
         x = torch.from_numpy(np.ascontiguousarray(chunk))
         with torch.inference_mode():
             if self._capture:
@@ -208,49 +234,66 @@ class InferenceEngine:
                 views = np.clip((views + 1.0) * 127.5 + 0.5, 0.0,
                                 255.0).astype(np.uint8)
         results = []
-        t_start = time.perf_counter()
-        for start in range(0, len(views), self.batch):
-            chunk = views[start:start + self.batch]
-            n = len(chunk)
-            bucket = next(b for b in self.buckets if b >= n)
-            if n < bucket:  # pad to the bucket's batch
-                pad = np.zeros((bucket - n,) + chunk.shape[1:], chunk.dtype)
-                chunk = np.concatenate([chunk, pad])
-            out = self._forward(chunk)
-            for i in range(n):
-                rec = {"class_index": int(out["pred"][i]),
-                       "probability": float(out["prob"][i])}
-                if out["scores"] is not None:
-                    rec["view_scores"] = out["scores"][i].tolist()
-                results.append(rec)
-        dt = time.perf_counter() - t_start
-        with self._stats_lock:
-            self._latencies.append((dt, len(views)))
-        log(f"/predict shapes={len(views)} latency_ms={dt * 1e3:.2f}")
+        with profiling.span("serve.request", engine=self._tag,
+                            rows=len(views)) as request:
+            for start in range(0, len(views), self.batch):
+                chunk = views[start:start + self.batch]
+                n = len(chunk)
+                bucket = next(b for b in self.buckets if b >= n)
+                if n < bucket:  # pad to the bucket's batch
+                    pad = np.zeros((bucket - n,) + chunk.shape[1:],
+                                   chunk.dtype)
+                    chunk = np.concatenate([chunk, pad])
+                out = self._forward(chunk, request.id, bucket - n)
+                for i in range(n):
+                    rec = {"class_index": int(out["pred"][i]),
+                           "probability": float(out["prob"][i])}
+                    if out["scores"] is not None:
+                        rec["view_scores"] = out["scores"][i].tolist()
+                    results.append(rec)
         return results
 
     def latency_stats(self) -> dict:
-        """p50/p99 request latency over the last <=1024 requests."""
-        with self._stats_lock:
-            snapshot = list(self._latencies)
-        lats = sorted(d for d, _ in snapshot)
-        if not lats:
+        """Over this engine's last requests (the store's ring of
+        `serve.request` records): the requests' count, shapes and
+        latency (nearest-rank p50 and p99, mean), their chunks' queue wait
+        and forward (p50, p99 and count) and the padding rows' share of the
+        rows forwarded (with both counts)."""
+        def mine(name):     # [(ms, attrs)] of this engine's records
+            return [((end - start) / 1e6, attrs) for
+                    _, _, start, end, _, _, _, attrs in profiling.records(name)
+                    if attrs["engine"] == self._tag]
+
+        requests = mine("serve.request")
+        if not requests:
             return {"count": 0}
-        shapes = sum(n for _, n in snapshot)
+        forwards = mine("serve.forward")
+        lats = sorted(ms for ms, _ in requests)
+        out = {"count": len(lats),
+               "shapes": sum(a["rows"] for _, a in requests),
+               "p50_ms": round(_nearest_rank(lats, 50), 2),
+               "p99_ms": round(_nearest_rank(lats, 99), 2),
+               "mean_ms": round(sum(lats) / len(lats), 2),
+               "serve_batch_size": self.batch}
+        for key, recs in (("queue", mine("serve.queue")),
+                          ("forward", forwards)):
+            ms = sorted(ms for ms, _ in recs)
+            out[f"{key}_count"] = len(ms)
+            if ms:
+                out[f"{key}_p50_ms"] = round(_nearest_rank(ms, 50), 2)
+                out[f"{key}_p99_ms"] = round(_nearest_rank(ms, 99), 2)
+        rows = sum(a["rows"] for _, a in forwards)
+        padded = sum(a["padded"] for _, a in forwards)
+        out.update(forward_rows=rows, padded_rows=padded,
+                   padded_share=round(padded / rows, 4) if rows else 0.0)
+        return out
 
-        def pct(p):
-            # Nearest rank: smallest value with cumulative frequency >= p%.
-            return lats[min(max(math.ceil(p / 100.0 * len(lats)) - 1, 0),
-                            len(lats) - 1)]
 
-        return {
-            "count": len(lats),
-            "shapes": shapes,
-            "p50_ms": round(pct(50) * 1e3, 2),
-            "p99_ms": round(pct(99) * 1e3, 2),
-            "mean_ms": round(sum(lats) / len(lats) * 1e3, 2),
-            "serve_batch_size": self.batch,
-        }
+def _nearest_rank(values, p):
+    """The smallest of the sorted `values` whose cumulative frequency is at
+    least p%."""
+    return values[min(max(math.ceil(p / 100.0 * len(values)) - 1, 0),
+                      len(values) - 1)]
 
 
 def make_handler(engine: InferenceEngine):

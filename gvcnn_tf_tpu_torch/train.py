@@ -110,7 +110,7 @@ from gvcnn_tf_tpu_torch.parallel import (
 )
 from gvcnn_tf_tpu_torch.parallel import collectives
 from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
-from gvcnn_tf_tpu_torch.utils import graphs
+from gvcnn_tf_tpu_torch.utils import graphs, profiling
 from gvcnn_tf_tpu_torch.utils import (
     device_flip,
     normalize_views,
@@ -354,19 +354,20 @@ def create_train_state(config: GVCNNConfig, device="cuda",
     BatchNorm takes its statistics over all ranks."""
     world = world or World(device=resolve_device(device))
     dev = world.device
-    model = to_device(init_weights(build_model(config), config.train.seed),
-                      dev)
-    model.train()
-    if world.size > 1 and config.bn_sync == "global":
-        model.sync_batch_norm_(world.group)
-    named = list(model.named_parameters())
-    return TrainState(
-        step=0, model=model,
-        optimizer=Optimizer([p for _, p in named], config.train),
-        generators=[torch.Generator(device=dev)
-                    for _ in range(max(config.train.accumulate_steps, 1))],
-        flip_generator=torch.Generator(device=dev),
-        kernels=kernel_params(named), world=world)
+    with profiling.span("train.create_state"):
+        model = to_device(init_weights(build_model(config),
+                                       config.train.seed), dev)
+        model.train()
+        if world.size > 1 and config.bn_sync == "global":
+            model.sync_batch_norm_(world.group)
+        named = list(model.named_parameters())
+        return TrainState(
+            step=0, model=model,
+            optimizer=Optimizer([p for _, p in named], config.train),
+            generators=[torch.Generator(device=dev) for _ in
+                        range(max(config.train.accumulate_steps, 1))],
+            flip_generator=torch.Generator(device=dev),
+            kernels=kernel_params(named), world=world)
 
 
 def bn_statistics(model: ViewModel) -> List[torch.Tensor]:
@@ -595,8 +596,11 @@ class CompiledTrainStep:
     `utils/graphs.py`), the second captures and replays, every later one
     replays.  The gradients persist across replays in the graph's pool
     (`p.grad` holds them between steps); the parameters' and buffers'
-    version counters move each replay.  On the CPU the call is
-    `train_step` itself."""
+    version counters move each replay.  On the CPU, and over several
+    data-parallel ranks (whose all-reduce is not captured), the call is
+    `train_step` itself.  Each call is a `train.step` span
+    (`utils/profiling.py`), whose child `graph.launch` is the replay's
+    launch alone: its self time is the call's host work."""
 
     METRICS = ("loss", "accuracy", "grad_norm")
 
@@ -605,7 +609,7 @@ class CompiledTrainStep:
         self.state, self.config = state, config
         dev = state.world.device
         self.graph = None
-        if not graphs.capturable(dev):
+        if not graphs.capturable(dev) or state.world.size > 1:
             return
         k = max(config.train.accumulate_steps, 1)
         _microbatch_generators(state, k)
@@ -635,17 +639,18 @@ class CompiledTrainStep:
         if state is not self.state or config != self.config:
             raise ValueError("a compiled train step runs the state and "
                              "config it was compiled for")
-        if self.graph is None:
-            return train_step(state, batch, config)
-        _check_batch(batch, config)
-        if any(batch[k] is not t for k, t in self._fixed.items()):
-            raise ValueError("a compiled train step reads the card-resident "
-                             "split it was compiled with")
-        seed_step(state, config)
-        out = self.graph(**{k: batch[k] for k in self._keys})
-        finish_step(state)
-        return dict(zip(self.METRICS, torch.stack(
-            [out[k] for k in self.METRICS]).unbind()))
+        with profiling.span("train.step"):
+            if self.graph is None:
+                return train_step(state, batch, config)
+            _check_batch(batch, config)
+            if any(batch[k] is not t for k, t in self._fixed.items()):
+                raise ValueError("a compiled train step reads the "
+                                 "card-resident split it was compiled with")
+            seed_step(state, config)
+            out = self.graph(**{k: batch[k] for k in self._keys})
+            finish_step(state)
+            return dict(zip(self.METRICS, torch.stack(
+                [out[k] for k in self.METRICS]).unbind()))
 
     def close(self):
         """Drop the graph and its memory."""
@@ -661,7 +666,7 @@ def compile_train_step(state: TrainState, config: GVCNNConfig,
     compiled ahead of time for the batch's shape.  Every step the graph
     covers: any `accumulate_steps`, dropout, the on-card flip, the uint8,
     bf16 and fp32 wires, `remat_until` and `remat_backbone`, every family.
-    A step over several data-parallel ranks stays eager (`_train`)."""
+    A step over several data-parallel ranks stays eager."""
     return CompiledTrainStep(state, config, batch)
 
 
@@ -786,9 +791,10 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
     `profile_steps=(start, stop)`: steps [start, stop) run under
     `torch.profiler` (`utils/profiling.profile_trace`: device activity on
     a card, which is synchronized at the window's edges), each in a
-    `train_step {step}` span, and the window's Chrome trace is written to
-    `train_logdir/trace_name(...)`.  A run that resumes past `start`
-    captures nothing."""
+    `train_step {step}` span holding the program's own spans
+    (`utils/profiling.py`: `train.step`, `graph.launch`, ...), and the
+    window's Chrome trace is written to `train_logdir/trace_name(...)`.
+    A run that resumes past `start` captures nothing."""
     profile_steps = _check_profile_steps(profile_steps)
     own_world = world is None
     if own_world:
@@ -802,19 +808,17 @@ def train(config: GVCNNConfig, *, num_steps: Optional[int] = None,
 
 
 def _step_function(state: TrainState, config: GVCNNConfig, batch):
-    """The loop's step: one CUDA graph on a card with one rank
-    (`compile_train_step`), logged; the eager `train_step` elsewhere."""
+    """The loop's step, `compile_train_step`: one CUDA graph on a card with
+    one rank, logged; the eager `train_step` elsewhere."""
     world = state.world
-    if not graphs.capturable(world.device):
-        return train_step
-    if world.size > 1:
+    if graphs.capturable(world.device) and world.size > 1:
         metrics_lib.log(f"train: the data-parallel step over {world.size} "
                         "ranks runs eagerly (capturing it with its NCCL "
                         "all-reduce is ROADMAP item 29)")
-        return train_step
-    metrics_lib.log(f"train: the step runs as one CUDA graph on "
-                    f"{world.device} (eager warm-up, captured at the next "
-                    "step, replayed after)")
+    elif graphs.capturable(world.device):
+        metrics_lib.log(f"train: the step runs as one CUDA graph on "
+                        f"{world.device} (eager warm-up, captured at the "
+                        "next step, replayed after)")
     return compile_train_step(state, config, batch)
 
 

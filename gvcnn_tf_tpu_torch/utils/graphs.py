@@ -36,6 +36,11 @@ reloaded in place changes what it computes.  A graph is keyed on the
 storages of the tensors it watches (a model's parameters and buffers):
 when one of them moves, the graph is captured again.
 
+Each warm-up, capture and replay's launch is a span (`utils/profiling.py`:
+`graph.warmup`, `graph.capture`, `graph.launch`, with the call's name as
+`call`); a capture after the first, when a watched storage moved, counts
+`graph.recaptures`.
+
 On a CUDA device a capture that fails raises `GraphCaptureError`, naming
 the call and the line of the port where it broke; nothing falls back to
 the eager call.  On the CPU no graph is made (`capturable` is false) and
@@ -52,6 +57,7 @@ import torch
 
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+from gvcnn_tf_tpu_torch.utils import profiling
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,7 +159,8 @@ class CapturedCall:
                     f"the graph's {tuple(buf.shape)} {buf.dtype}")
             buf.copy_(t)
         if not self._warm:
-            out = self._on_side(self.fn)
+            with profiling.span("graph.warmup", call=self.name):
+                out = self._on_side(self.fn)
             self._warm = True
             return out
         key = self._storage_key()
@@ -182,6 +189,12 @@ class CapturedCall:
         return out
 
     def _capture(self):
+        if self.captures:
+            profiling.count("graph.recaptures")
+        with profiling.span("graph.capture", call=self.name):
+            self._capture_graph()
+
+    def _capture_graph(self):
         self.reset()
         graph = _new_graph(self)
         for g in self.generators:
@@ -220,7 +233,8 @@ class CapturedCall:
 
     def _replay(self):
         before = _counters()
-        self._graph.replay()
+        with profiling.span("graph.launch", call=self.name):
+            self._graph.replay()
         _set_counters(tuple(b + d for b, d in zip(before, self._delta)))
         mutated = list(self.mutates())
         if mutated:
