@@ -240,8 +240,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    flip, accumulate_steps = 2 and remat_until; parameters, BatchNorm
    statistics and every step's metrics bit-equal to the first eager run,
    or within COMPILED_SPREAD x the two eager runs' spread; launches a step
-   equal to the eager step's through the replays; the step (CUDA events,
-   median of 2 x COMPILED_RUNS in turns), the device's idle share over a
+   equal to the eager step's through the replays, the max-pool kernels'
+   counted from zero before the steps and held to COMPILED_POOL_LAUNCHES;
+   the step (CUDA events, median of 2 x COMPILED_RUNS in turns), the
+   device's idle share over a
    profiled window and peak memory, eager beside compiled.  (b) The
    engine's B=1 and B=8 replays against its model run eagerly, bit for
    bit; engine (graphs and eager) and HTTP p50 / p99 over SERVE_SAMPLES
@@ -249,7 +251,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    split through its graph against eager: counts and logits equal, views/s
    end to end and of the forwards on the card.  (d) mn10_single_view
    (fp32 K2) and ResNet-50, FAMILY_B shapes: 3 compiled steps against
-   eager, launches a step.
+   eager, launches a step (the max pool's too).
+20. The max-pool kernels (`phase_pool`, csrc/max_pool.cu) at every pool of
+   Inception-v1 and ResNet-50 at POOL_IMAGES images of 224x224 (B = 32 of
+   12 views), bf16: the forward without and with its record, bit-equal to
+   `F.pad` + `F.max_pool2d` and to the plain record; the backward from
+   that record within one bf16 ulp of the plain gather (bit-equal where an
+   input wins one window); each timed beside its bytes bound, its plain
+   version and one PyTorch call on the pre-padded input
+   (`F.max_pool2d` with indices; its backward), with the sums over
+   Inception-v1's 13 pools.  Then the main path's entry, `pool.max_pool`
+   under autograd at MaxPool_3a_3x3 (B = 32), against `F.pad` +
+   `F.max_pool2d` and autograd's gradient: one launch each way.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -488,6 +501,19 @@ REMAT_TURNS = ("none", "until", "backbone", "backbone", "until", "none")
 REMAT_BIG_B = 64
 REMAT_GRAD_COS_MIN, REMAT_GRAD_LOGRATIO_MAX = 0.9999, 1e-3
 
+# Phase 20: the max-pool kernels at the B = 32 train step's pools
+# (POOL_IMAGES images): (pool, H = W, C, k, s), Inception-v1's 13 in order,
+# then ResNet-50's.
+POOL_IMAGES = 384
+POOL_SHAPES = (
+    ("MaxPool_2a_3x3", 112, 64, 3, 2), ("MaxPool_3a_3x3", 56, 192, 3, 2),
+    ("Mixed_3b", 28, 192, 3, 1), ("Mixed_3c", 28, 256, 3, 1),
+    ("MaxPool_4a_3x3", 28, 480, 3, 2), ("Mixed_4b", 14, 480, 3, 1),
+    ("Mixed_4c", 14, 512, 3, 1), ("Mixed_4d", 14, 512, 3, 1),
+    ("Mixed_4e", 14, 512, 3, 1), ("Mixed_4f", 14, 528, 3, 1),
+    ("MaxPool_5a_2x2", 14, 832, 2, 2), ("Mixed_5b", 7, 832, 3, 1),
+    ("Mixed_5c", 7, 832, 3, 1), ("resnet50_pool1", 112, 64, 3, 2))
+
 # Phase 17: the step-analysis tools.  bench_layers at the flagship's folded
 # B = 8 step (96 images of 224x224, bf16); a row whose time is under its
 # bound by more than 5% means the work count is wrong.  The count's
@@ -531,6 +557,14 @@ COMPILED_SPLIT, COMPILED_RUNS, COMPILED_WINDOW = 64, 10, 3
 COMPILED_SPREAD = 2.0
 COMPILED_FAMILIES = {"mn10_single_view": (0, 1, 0),
                      "mn40_12view_resnet50": (0, 0, 1)}
+# The max-pool kernels' (forward, backward) launches a step: Inception-v1's
+# 13 pools a microbatch, and with remat_until = REMAT_UNTIL the recompute
+# of MaxPool_2a and _3a (2 microbatches: 2 x (13 + 2) forwards); ResNet-50
+# has one pool.
+COMPILED_POOL_LAUNCHES = {"uint8_dropout": (13, 13),
+                          "resident_flip_acc2_remat": (30, 26),
+                          "mn10_single_view": (13, 13),
+                          "mn40_12view_resnet50": (1, 1)}
 SERVE_SAMPLES, EAGER_SERVE_EVERY, FAMILY_B = 200, 4, 8
 
 
@@ -677,6 +711,133 @@ def phase_stem(dev):
         log(f"Stem module {shape}: {timed['layer_ms']:.4f} ms; plain conv "
             f"-> BatchNorm -> ReLU {timed['plain_layer_ms']:.4f} ms")
     return dict(max_abs_err=max_err, **timed)
+
+
+def phase_pool(dev):
+    """Phase 20: the max-pool kernels against their plain versions at the
+    B = 32 pools, timed (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.ops.pool import _pads
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+
+    rows, rs = [], np.random.RandomState(0)
+    for name, h, c, k, s in POOL_SHAPES:
+        x = torch.from_numpy(rs.randn(POOL_IMAGES // 4, c, h, h).astype(
+            np.float32)).to(dev, torch.bfloat16).repeat(4, 1, 1, 1)
+        x = x.contiguous(memory_format=torch.channels_last)
+        geo = ((k, k), (s, s), _pads(x, (k, k), (s, s), "SAME"))
+        (pt, pb), (pl, pr) = geo[2]
+        xp = F.pad(x, (pl, pr, pt, pb), value=-torch.inf)
+        with torch.no_grad():
+            y, _ = pk._forward(x, *geo, False)
+            y2, slot = pk._forward(x, *geo, True)
+            want = pk.max_pool_plain(x, *geo)
+            want_y, want_slot = pk.max_pool_record_plain(x, *geo)
+            if not (torch.equal(y, want) and torch.equal(y2, want)
+                    and torch.equal(want_y, want)
+                    and torch.equal(slot, want_slot)):
+                raise AssertionError(f"max pool {name}: the kernel's output "
+                                     "or record is not the plain one")
+            del want_y, want_slot
+            dy = torch.randn_like(y)
+            dx = pk._backward(dy, slot, (h, h), *geo)
+            want_dx = pk.max_pool_backward_plain(dy, slot, (h, h), *geo)
+            wins = pk.max_pool_backward_plain(
+                torch.ones_like(dy, dtype=torch.float32), slot, (h, h), *geo)
+            gap = (dx.float() - want_dx.float()).abs()
+            if not (bool((gap[wins <= 1] == 0).all()) and bool(
+                    (gap <= _bf16_ulp(want_dx.float())).all())):
+                raise AssertionError(f"max pool {name}: dx off the plain "
+                                     f"gather by {gap.max().item():.3g}")
+            del want_dx, wins, gap
+            lib_y, idx = F.max_pool2d(xp, k, s, return_indices=True)
+            row = dict(
+                pool=name, shape=[POOL_IMAGES, c, h, h], k=k, s=s,
+                pads=[pt, pb, pl, pr],
+                fwd_ms=cuda_ms(lambda: pk._forward(x, *geo, False)),
+                fwd_record_ms=cuda_ms(lambda: pk._forward(x, *geo, True)),
+                bwd_ms=cuda_ms(lambda: pk._backward(dy, slot, (h, h), *geo)),
+                plain_fwd_ms=cuda_ms(lambda: pk.max_pool_plain(x, *geo)),
+                plain_fwd_record_ms=cuda_ms(
+                    lambda: pk.max_pool_record_plain(x, *geo)),
+                plain_bwd_ms=cuda_ms(lambda: pk.max_pool_backward_plain(
+                    dy, slot, (h, h), *geo)),
+                library_fwd_ms=cuda_ms(
+                    lambda: F.max_pool2d(xp, k, s, return_indices=True)),
+                library_bwd_ms=cuda_ms(
+                    lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                        dy, xp, [k, k], [s, s], [0, 0], [1, 1], False, idx)))
+        io_bytes = (x.numel() + y.numel()) * 2
+        row["fwd_bound_ms"] = bound(io_bytes, 0, "bfloat16")[0]
+        row["fwd_record_bound_ms"] = bound(io_bytes + y.numel(), 0,
+                                           "bfloat16")[0]
+        row["bwd_bound_ms"] = bound(io_bytes + y.numel(), 0, "bfloat16")[0]
+        for way in ("fwd", "fwd_record", "bwd"):
+            row[f"{way}_share"] = row[f"{way}_bound_ms"] / row[f"{way}_ms"]
+        log("max pool " + json.dumps(row))
+        rows.append(row)
+        del x, xp, y, y2, slot, dy, dx, lib_y, idx, want
+    inception = rows[:13]
+    total = {key: sum(r[key] for r in inception) for key in rows[0]
+             if key.endswith("_ms")}
+    for way in ("fwd", "fwd_record", "bwd"):
+        total[f"{way}_share"] = total[f"{way}_bound_ms"] / total[f"{way}_ms"]
+    total["train_ms"] = total["fwd_record_ms"] + total["bwd_ms"]
+    total["train_bound_ms"] = (total["fwd_record_bound_ms"]
+                               + total["bwd_bound_ms"])
+    total["library_train_ms"] = (total["library_fwd_ms"]
+                                 + total["library_bwd_ms"])
+    log("max pool, Inception-v1's 13 pools at B = 32: " + json.dumps(total))
+    return dict(inception=total, resnet50=rows[13],
+                autograd=_pool_autograd(dev, rs))
+
+
+def _pool_autograd(dev, rs):
+    """The main path's entry under autograd at one asymmetric B = 32 pool
+    (MaxPool_3a_3x3, pads (0, 1)): `pool.max_pool` (through the pool's
+    autograd Function: one forward and one backward launch) against
+    `F.pad` + `F.max_pool2d` and autograd's gradient of it; the output bit
+    for bit, dx bit-equal where an input wins one window and within one
+    bf16 ulp where it wins several."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.ops.pool import _pads, max_pool
+
+    name, h, c, k, s = POOL_SHAPES[1]
+    x = torch.from_numpy(rs.randn(POOL_IMAGES, c, h, h).astype(
+        np.float32)).to(dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    counter = pk.max_pool_same
+    before = (counter.launches, counter.launches_bwd)
+    y = max_pool(xa, (k, k), (s, s), "SAME")
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    torch.cuda.synchronize(dev)
+    moved = (counter.launches - before[0], counter.launches_bwd - before[1])
+    geo = ((k, k), (s, s), _pads(x, (k, k), (s, s), "SAME"))
+    want = pk.max_pool_plain(xb, *geo)
+    want.backward(dy)
+    with torch.no_grad():
+        _, slot = pk.max_pool_record_plain(x, *geo)
+        wins = pk.max_pool_backward_plain(
+            torch.ones_like(dy, dtype=torch.float32), slot, (h, h), *geo)
+        got, ref = xa.grad.float(), xb.grad.float()
+        gap = (got - ref).abs()
+        out = dict(pool=name, shape=[POOL_IMAGES, c, h, h],
+                   grad_fn=type(y.grad_fn).__name__, launches=list(moved),
+                   y_equal=bool(torch.equal(y, want)),
+                   dx_max_abs_gap=gap.max().item(),
+                   dx_single_win_equal=bool((gap[wins <= 1] == 0).all()),
+                   dx_within_ulp=bool((gap <= _bf16_ulp(ref)).all()))
+    log("max pool under autograd, pool.max_pool against F.max_pool2d: "
+        + json.dumps(out))
+    if not (out["y_equal"] and out["dx_single_win_equal"]
+            and out["dx_within_ulp"] and moved == (1, 1)
+            and "MaxPoolFunction" in out["grad_fn"]):
+        raise AssertionError(f"max pool {name} under autograd: {out}")
+    return out
 
 
 def _clear_scores(rs, b, v, m):
@@ -2851,6 +3012,10 @@ def phase_resident(card, dev):
     from gvcnn_tf_tpu_torch.data import DevicePrefetcher, make_dataset
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
 
+    # What the earlier phases left with the allocator: each capture below
+    # returns the cached part to the device first (`utils/graphs.py`).
+    log(f"allocator at phase 15: {torch.cuda.memory_allocated(dev)} B "
+        f"allocated, {torch.cuda.memory_reserved(dev)} B reserved")
     train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_resident"
     shutil.rmtree(root, ignore_errors=True)
@@ -3669,14 +3834,22 @@ def _hold_spread(what, eager, again, compiled):
 
 
 def _run_steps(fn, state, batches, cfg):
-    """(final model state dict, each step's metrics, launches a step)."""
+    """(final model state dict, each step's metrics, launches a step,
+    the max-pool kernels' (forward, backward) launches a step), the
+    counters taken from zero just before the steps."""
+    from gvcnn_tf_tpu_torch.ops.pool_kernel import max_pool_same
+
     _zero_counts()
+    max_pool_same.launches = max_pool_same.launches_bwd = 0
     mets = [{k: v.detach().clone() for k, v in fn(state, b, cfg).items()}
             for b in batches]
     torch.cuda.synchronize()
     launches = tuple(n / len(batches) for n in _counts())
+    pool = (max_pool_same.launches / len(batches),
+            max_pool_same.launches_bwd / len(batches))
     return ({k: v.detach().clone()
-             for k, v in state.model.state_dict().items()}, mets, launches)
+             for k, v in state.model.state_dict().items()}, mets, launches,
+            pool)
 
 
 def _profiled_idle(fn, steps, root, name):
@@ -3772,6 +3945,11 @@ def _compiled_steps(card, dev, root):
                 raise AssertionError(f"{what}: launches a step (bf16 stem, "
                                      f"fp32 stem, grouping) {compiled[2]}, "
                                      f"eager {eager[2]}, want {launches}")
+            if not compiled[3] == eager[3] == COMPILED_POOL_LAUNCHES[variant]:
+                raise AssertionError(
+                    f"{what}: max-pool launches a step (forward, backward) "
+                    f"{compiled[3]}, eager {eager[3]}, want "
+                    f"{COMPILED_POOL_LAUNCHES[variant]}")
             if (step.graph.captures, step.graph.replays) != (
                     1, COMPILED_STEPS - 1):
                 raise AssertionError(f"{what}: {step.graph.captures} "
@@ -3809,8 +3987,10 @@ def _compiled_steps(card, dev, root):
                 f"was resident, the graph's pool {pool_gb:.3f} GB reserved "
                 f"between steps (a replay's peak above resident "
                 f"{above['compiled']:.3f} GB); launches a step "
-                f"{compiled[2]} [{card}]")
+                f"{compiled[2]}, max pool (forward, backward) {compiled[3]} "
+                f"[{card}]")
             out[what] = dict(spread=spread, diff=diff, launches=compiled[2],
+                             pool_launches=compiled[3],
                              eager_ms=ms["eager"],
                              compiled_ms=ms["compiled"],
                              eager_idle=idle["eager"],
@@ -3848,7 +4028,12 @@ def _compiled_steps(card, dev, root):
         if compiled[2] != eager[2] or compiled[2] != want:
             raise AssertionError(f"{name}: launches a step {compiled[2]}, "
                                  f"eager {eager[2]}, want {want}")
+        if not compiled[3] == eager[3] == COMPILED_POOL_LAUNCHES[name]:
+            raise AssertionError(f"{name}: max-pool launches a step "
+                                 f"{compiled[3]}, eager {eager[3]}, want "
+                                 f"{COMPILED_POOL_LAUNCHES[name]}")
         out[name] = dict(spread=spread, diff=diff, launches=compiled[2],
+                         pool_launches=compiled[3],
                          replays=step.graph.replays)
         step.close()
         del eager, again, compiled, state, step, other
@@ -4123,6 +4308,8 @@ def main():
     compiled = phase_compiled(card, dev)
     log("phase 19 summary: " + json.dumps(compiled))
     mark(19)
+    pool = phase_pool(dev)
+    mark(20)
     replayed = compiled["steps"]
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
@@ -4212,6 +4399,13 @@ def main():
              step_tools_launches=step_tools["launches"][1],
              compiled_launches_per_step=replayed["mn10_single_view"][
                  "launches"][1], **stem32),
+        dict(name="max_pool_same_bf16", route="cuda",
+             source="gvcnn_tf_tpu_torch/csrc/max_pool.cu",
+             replaces=None,
+             compiled_launches_per_step={
+                 k: v["pool_launches"] for k, v in replayed.items()},
+             autograd_b32=pool["autograd"],
+             inception_b32=pool["inception"], resnet50_b32=pool["resnet50"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

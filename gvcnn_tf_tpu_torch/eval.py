@@ -176,20 +176,21 @@ def eval_graph(model: ViewModel, batch: Dict[str, torch.Tensor]
     and wire dtype (`_GRAPHS`), keyed on the model's parameters' and
     buffers' storages: `to_eval` loads weights into them in place, so a
     graph outlives a reload, and the capture reads the weights themselves
-    (`utils/graphs.py`)."""
+    (`utils/graphs.py`).  The graph's functions hold neither the graph
+    nor the model, so the graphs are freed with the model, at once."""
     views, labels = batch["views"], batch["label"]
     cache = _GRAPHS.setdefault(model, {})
     key = (tuple(views.shape), views.dtype)
     g = cache.get(key)
     if g is None:
         ref = weakref.ref(model)        # the graphs go with the model
+        static = {"views": torch.empty_like(views),
+                  "label": torch.empty_like(labels)}
         g = cache[key] = graphs.CapturedCall(
             f"the eval forward of {type(model).__name__} at "
             f"{tuple(views.shape)} {views.dtype}",
-            lambda: _scores(ref(), g.inputs["views"], g.inputs["label"]),
-            {"views": torch.empty_like(views),
-             "label": torch.empty_like(labels)},
-            device=views.device,
+            lambda: _scores(ref(), static["views"], static["label"]),
+            static, device=views.device,
             watch=lambda: graphs.model_tensors(ref()))
     return g
 

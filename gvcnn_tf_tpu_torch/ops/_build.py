@@ -42,6 +42,10 @@ _SIGNATURES = {
                            _I, _P),
     # scores, descs, fused, weights, scheme, b, v, c, m, ceil_sum, stream
     "group_and_fuse_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, slot (or None), n, h, w, c, ho, wo, k, s, pad_top, pad_left,
+    # stream; the backward's: dy, slot, dx, then the same
+    **{f"max_pool_same_{way}_{dtype}": (_P, _P, _P) + (_I,) * 10 + (_P,)
+       for way in ("fwd", "bwd") for dtype in ("bf16", "f32")},
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,20 @@
 `gvcnn_tf_tpu/ops/pool.py:41-58, 194-220` and of `flax.linen.avg_pool`).
 
 TF-'SAME' pads bottom/right-heavy: a 3x3/2 pool on an even size pads (0, 1).
-`F.max_pool2d`'s own padding is symmetric, so an asymmetric pad is applied
-explicitly with -inf before a padding-free pool.  Tensors are NCHW (any
-memory format).  Gradients are autograd's: `F.max_pool2d` credits each
-window's first maximum, as XLA's select-and-scatter does.
+Tensors are NCHW (any memory format).
+
+`max_pool` takes one of two paths by x's device (`ops/pool_kernel.py`):
+
+  CPU   `F.max_pool2d`, an asymmetric pad applied explicitly with -inf
+        before a padding-free pool (`F.max_pool2d`'s own padding is
+        symmetric); gradients are autograd's;
+  CUDA  the hand-written kernels (`csrc/max_pool.cu`), which pad inside
+        themselves; where x needs a gradient the forward also records each
+        window's winning slot in one byte and the backward gathers dy into
+        dx from that record.
+
+Both credit each window's first maximum, as XLA's select-and-scatter does.
+`avg_pool` is PyTorch's on every device.
 """
 
 from __future__ import annotations
@@ -14,6 +24,8 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from gvcnn_tf_tpu_torch.ops import pool_kernel
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -38,12 +50,8 @@ def max_pool(x: torch.Tensor, kernel: Sequence[int],
              strides: Sequence[int], padding: str = "SAME") -> torch.Tensor:
     """`flax.linen.max_pool(x, kernel, strides, padding)` on NCHW."""
     kernel, strides = tuple(kernel), tuple(strides)
-    ph, pw = _pads(x, kernel, strides, padding)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        # Symmetric: max_pool2d's implicit padding never wins the max.
-        return F.max_pool2d(x, kernel, strides, padding=(ph[0], pw[0]))
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=-torch.inf)
-    return F.max_pool2d(x, kernel, strides)
+    return pool_kernel.max_pool_same(x, kernel, strides,
+                                     _pads(x, kernel, strides, padding))
 
 
 def avg_pool(x: torch.Tensor, kernel: Sequence[int],

@@ -80,6 +80,13 @@ from gvcnn_tf_tpu_torch.utils import (
 _ENGINES = itertools.count()
 
 
+def _outputs(model, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    logits, ep = model(normalize_views(x))
+    prob, pred = torch.softmax(logits.float(), -1).max(-1)
+    return {"logits": logits, "pred": pred, "prob": prob,
+            "scores": ep.get("view_discrimination_scores")}
+
+
 class InferenceEngine:
     """Resident model, fixed batch buckets, pad-and-mask semantics."""
 
@@ -160,26 +167,24 @@ class InferenceEngine:
             self._forward_here, chunk, request, padded,
             profiling.now_ns()).result()
 
-    def _outputs(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        logits, ep = self.model(normalize_views(x))
-        prob, pred = torch.softmax(logits.float(), -1).max(-1)
-        return {"logits": logits, "pred": pred, "prob": prob,
-                "scores": ep.get("view_discrimination_scores")}
-
     def _graph(self, chunk: np.ndarray) -> graphs.CapturedCall:
         """The graph of the chunk's (bucket, dtype): its static input is
-        written by each request and read by the model's forward."""
+        written by each request and read by the model's forward.  The
+        graph's functions hold the model and the buffer, not the engine or
+        the graph, so a dropped graph is freed at once, with no cycle for
+        the garbage collector to find first."""
         key = (len(chunk), chunk.dtype)
         g = self.graphs.get(key)
         if g is None:
+            model = self.model
             static = torch.empty(chunk.shape, dtype=torch.from_numpy(
                 chunk[:0]).dtype, device=self.device)
             g = self.graphs[key] = graphs.CapturedCall(
                 f"the {self.config.name} forward at bucket {len(chunk)} "
                 f"({chunk.dtype} requests)",
-                lambda: self._outputs(g.inputs["x"]), {"x": static},
+                lambda: _outputs(model, static), {"x": static},
                 device=self.device, pool=self._pool,
-                watch=lambda: graphs.model_tensors(self.model))
+                watch=lambda: graphs.model_tensors(model))
         return g
 
     def _forward_here(self, chunk: np.ndarray, request=None,
@@ -200,7 +205,7 @@ class InferenceEngine:
             if self._capture:
                 out = self._graph(chunk)(x=x)
             else:
-                out = self._outputs(x.to(self.device))
+                out = _outputs(self.model, x.to(self.device))
             return {k: None if v is None else v.cpu().numpy()
                     for k, v in out.items()}
 

@@ -11,13 +11,14 @@ on (channels-last on a card).  Its input is a static float32
 for the single-view classifier); its outputs are `(logits, Predictions)`.
 `export_model` returns `torch.export.save`'s bytes.
 
-The stem conv and the grouping head are in the graph as the port's
-`torch.library` ops, `gvcnn::stem_conv7x7s2` and `gvcnn::group_and_fuse`,
-so the process that loads an artifact must have imported them first
-(`gvcnn_tf_tpu_torch.ops.stem_kernel` and `.grouping_kernel`; importing
-this module does).  On a card an artifact launches the CUDA kernels (built
-at first use, as every entry point of the port builds them), on the CPU it
-runs their plain versions.
+The stem conv, the grouping head and the max pools are in the graph as the
+port's `torch.library` ops, `gvcnn::stem_conv7x7s2`, `gvcnn::group_and_fuse`
+and `gvcnn::max_pool_same`, so the process that loads an artifact must have
+imported them first (`gvcnn_tf_tpu_torch.ops.stem_kernel`,
+`.grouping_kernel` and `.pool_kernel`; importing this module does).  On a
+card an artifact launches the CUDA kernels (built at first use, as every
+entry point of the port builds them), on the CPU it runs their plain
+versions.
 
 CLI:
     python -m gvcnn_tf_tpu_torch.tools.export_model --config mn40_12view \
@@ -42,7 +43,11 @@ from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.eval import scoring_model
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights, to_device
 # The artifact's graph calls these ops: importing the modules registers them.
-from gvcnn_tf_tpu_torch.ops import grouping_kernel, stem_kernel  # noqa: F401
+from gvcnn_tf_tpu_torch.ops import (  # noqa: F401
+    grouping_kernel,
+    pool_kernel,
+    stem_kernel,
+)
 from gvcnn_tf_tpu_torch.utils import fold_batch_norm, resolve_device
 
 

@@ -621,8 +621,10 @@ class CompiledTrainStep:
         static = {k: torch.empty_like(batch[k]) for k in self._keys}
         views = batch["idx" if self._resident else "views"]
 
+        # The graph's functions hold the state and the buffers, not this
+        # object or the graph: a dropped step frees its graph at once.
         def step():
-            return device_step(state, {**fixed, **self.graph.inputs}, config)
+            return device_step(state, {**fixed, **static}, config)
 
         def watched():
             return (graphs.model_tensors(state.model) + list(fixed.values())

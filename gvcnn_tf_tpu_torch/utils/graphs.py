@@ -16,25 +16,29 @@ arguments that reads its inputs from static buffers the class owns:
            eagerly on a side stream: the warm-up (the kernels' build and
            their one-time device attributes, cuDNN's plans, cuBLAS's
            workspace, autograd's device threads);
-  call 2   captures the function on that side stream
-           (`capture_error_mode="thread_local"`) with the generators it
-           draws from registered, into its owner's memory pool (one pool
-           for every graph of an owner: the engine's buckets), then
-           replays it;
+  call 2   returns the allocator's cached blocks to the device (a
+           capture that runs short cannot), captures the function on that
+           side stream (`capture_error_mode="thread_local"`) with the
+           generators it draws from registered, into its owner's memory
+           pool (one pool for every graph of an owner: the engine's
+           buckets), then replays it;
   later    copy the inputs in and replay.
 
 A replay runs no Python, so the hand-written kernels' wrappers, which count
 their launches (`stem_conv.launches`, `stem_conv.launches_f32`,
-`group_and_fuse.launches`), do not run: a capture measures how far it moved
-those counters, puts them back (a capture launches nothing), and every
-replay adds that much.  After a replay the version counters of the tensors
-the function mutates are bumped, so that the host-side caches keyed on a
-version (the stem's packed weight, BatchNorm's scale and shift) see the
-change; while a graph is captured those caches compute instead of looking
-up (`ops.capturing()`), so a graph reads the weights themselves and a weight
-reloaded in place changes what it computes.  A graph is keyed on the
+`group_and_fuse.launches`, `max_pool_same.launches` and `.launches_bwd`),
+do not run: a capture measures how far it moved those counters, puts them
+back (a capture launches nothing), and every replay adds that much.  After a
+replay the version counters of the tensors the function mutates are bumped,
+so that the host-side caches keyed on a version (the stem's packed weight,
+BatchNorm's scale and shift) see the change; while a graph is captured those
+caches compute instead of looking up (`ops.capturing()`), so a graph reads
+the weights themselves and a weight reloaded in place changes what it
+computes.  A graph is keyed on the
 storages of the tensors it watches (a model's parameters and buffers):
-when one of them moves, the graph is captured again.
+when one of them moves, the graph is captured again.  The function and the
+keys' functions must not hold the `CapturedCall` or its owner: a graph in a
+reference cycle keeps its pool until the garbage collector runs.
 
 Each warm-up, capture and replay's launch is a span (`utils/profiling.py`:
 `graph.warmup`, `graph.capture`, `graph.launch`, with the call's name as
@@ -56,6 +60,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+from gvcnn_tf_tpu_torch.ops.pool_kernel import max_pool_same
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
 from gvcnn_tf_tpu_torch.utils import profiling
 
@@ -86,12 +91,14 @@ def _new_graph(call: "CapturedCall"):
 
 def _counters():
     return (stem_conv.launches, stem_conv.launches_f32,
-            group_and_fuse.launches)
+            group_and_fuse.launches, max_pool_same.launches,
+            max_pool_same.launches_bwd)
 
 
 def _set_counters(values):
     (stem_conv.launches, stem_conv.launches_f32,
-     group_and_fuse.launches) = values
+     group_and_fuse.launches, max_pool_same.launches,
+     max_pool_same.launches_bwd) = values
 
 
 def _where(exc: BaseException) -> str:
@@ -200,7 +207,14 @@ class CapturedCall:
         for g in self.generators:
             graph.register_generator_state(g)
         if self._side is not None:
+            # A capture allocates from its graph's pool and, running short,
+            # cannot return the allocator's cached blocks to the device
+            # (the allocator frees them only while no capture is underway),
+            # so they are returned first: blocks earlier steps freed and
+            # the pools of graphs that were dropped.
             torch.cuda.synchronize(self.device)
+            with torch.cuda.device(self.device):
+                torch.cuda.empty_cache()
         before = _counters()
         try:
             self.outputs = self._on_side(lambda: self._record(graph))

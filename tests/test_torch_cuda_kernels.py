@@ -51,6 +51,16 @@ accumulate_steps = 2, cuDNN deterministic) with the eager launches;
 `train()` replays its step; an engine bucket's replay is its eager forward
 bit for bit, and a weight reload changes it; eval through its graph
 counts and scores as eager.
+
+Max pools (`csrc/max_pool.cu`), at every pool shape of Inception-v1 and
+ResNet-50 at N = 8 in bf16 and fp32: the forward equal to `F.pad` +
+`F.max_pool2d` and its record to the plain record, exactly; dx equal to
+autograd's through `F.max_pool2d` where an input wins one window, within
+one bf16 ulp (fp32: rtol 1e-6) where it wins several (fp32 sums in another
+order); ties, -inf windows, NaN, forward and backward; a C or an address
+that does not fill 16-byte channel vectors raising; a captured and replayed
+train step runs 13 forward and 13 backward pool kernels and none of
+PyTorch's, and three fewer fills than the same step on `F.max_pool2d`.
 """
 
 import numpy as np
@@ -1107,3 +1117,276 @@ def test_train_in_a_world_of_one_over_nccl_replays(cuda, tmp_path,
     assert [(s.graph.captures, s.graph.replays) for s in made] == [(1, 2)] * 2
     for k in states[0]:
         assert torch.equal(states[0][k], states[1][k]), k
+
+
+# ---------------------------------------------------------------------------
+# The max-pool kernels (csrc/max_pool.cu)
+# ---------------------------------------------------------------------------
+
+# (pool, H = W, C, k, s) of every max pool of Inception-v1 (13) and
+# ResNet-50 (1) at 224x224, as tests/test_torch_pool_kernel.py lists them.
+POOL_SHAPES = [
+    ("MaxPool_2a_3x3", 112, 64, 3, 2), ("MaxPool_3a_3x3", 56, 192, 3, 2),
+    ("Mixed_3b", 28, 192, 3, 1), ("Mixed_3c", 28, 256, 3, 1),
+    ("MaxPool_4a_3x3", 28, 480, 3, 2), ("Mixed_4b", 14, 480, 3, 1),
+    ("Mixed_4c", 14, 512, 3, 1), ("Mixed_4d", 14, 512, 3, 1),
+    ("Mixed_4e", 14, 512, 3, 1), ("Mixed_4f", 14, 528, 3, 1),
+    ("MaxPool_5a_2x2", 14, 832, 2, 2), ("Mixed_5b", 7, 832, 3, 1),
+    ("Mixed_5c", 7, 832, 3, 1), ("resnet50_pool1", 112, 64, 3, 2)]
+POOL_N = 8
+
+
+def _pool_input(cuda, n, h, c, dtype, seed):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(n, c, h, h).astype(np.float32))
+    return x.to(cuda, dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _geometry(x, k, s):
+    from gvcnn_tf_tpu_torch.ops.pool import _pads
+
+    return (k, k), (s, s), _pads(x, (k, k), (s, s), "SAME")
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,h,c,k,s", POOL_SHAPES)
+def test_pool_kernel_is_the_plain_pool_bit_for_bit(cuda, name, h, c, k, s,
+                                                   dtype, record):
+    """The forward kernel at N = 8 gives `F.pad` + `F.max_pool2d`'s output
+    bit for bit, and its record the plain record (bf16 draws hold ties,
+    which both credit to the first maximum)."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+
+    x = _pool_input(cuda, POOL_N, h, c, dtype, h + c + k)
+    geo = _geometry(x, k, s)
+    before = pk.max_pool_same.launches
+    with torch.no_grad():
+        y, slot = pk._forward(x, *geo, record)
+        want = pk.max_pool_plain(x, *geo)
+        torch.cuda.synchronize()
+    assert pk.max_pool_same.launches == before + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, want)
+    if record:
+        want_y, want_slot = pk.max_pool_record_plain(x, *geo)
+        assert torch.equal(want_y, want)
+        assert torch.equal(slot, want_slot)
+    else:
+        assert slot.numel() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,h,c,k,s", POOL_SHAPES)
+def test_pool_backward_kernel_matches_autograd(cuda, name, h, c, k, s,
+                                               dtype):
+    """The pool's Function at N = 8 against autograd through `F.pad` +
+    `F.max_pool2d`: dx bit-equal where an input wins one window (or none),
+    within one bf16 ulp (fp32: 1e-6 relative) where it wins several, the
+    fp32 sum taken in another order; the backward kernel launches once."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+
+    x = _pool_input(cuda, POOL_N, h, c, dtype, h + c + k + 1)
+    geo = _geometry(x, k, s)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = pk.max_pool_same.launches_bwd
+    y = pk.max_pool_same(xa, *geo)
+    dy = _pool_input(cuda, POOL_N, y.shape[2], c, dtype, 5)
+    y.backward(dy)
+    pk.max_pool_plain(xb, *geo).backward(dy)
+    torch.cuda.synchronize()
+    assert pk.max_pool_same.launches_bwd == before + 1
+    _, slot = pk.max_pool_record_plain(x, *geo)
+    wins = pk.max_pool_backward_plain(torch.ones_like(dy, dtype=torch.float32),
+                                      slot, (h, h), *geo)
+    got, want = xa.grad.float(), xb.grad.float()
+    once = wins <= 1
+    assert torch.equal(got[once], want[once])
+    if dtype == torch.bfloat16:
+        assert bool(((got - want).abs() <= _bf16_ulp(want)).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_pool_kernel_edges_on_the_card(cuda):
+    """Ties, all -inf windows and NaN by the first-maximum rule, SAME and
+    VALID, forward and backward, each against the plain record and the
+    plain gather from it; most windows are ties of zeros, so slot 0 wins
+    most of them.  A C that does not fill 16-byte channel vectors, and data
+    one element past an aligned address, raise in both directions."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.ops.pool import _pads
+
+    x = torch.zeros(2, 8, 9, 10, device=cuda)
+    x[0, 0, :3, :3] = -torch.inf
+    x[0, 1, 4, 4] = x[0, 1, 5, 6] = torch.nan
+    x[1, 2] = torch.randint(0, 3, (9, 10), device=cuda).float()
+    x[1, 5] = torch.randn(9, 10, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        for k, s in pk.GEOMETRIES:
+            for padding in ("SAME", "VALID"):
+                what = (dtype, k, s, padding)
+                geo = ((k, k), (s, s), _pads(xd, (k, k), (s, s), padding))
+                y, slot = pk._forward(xd, *geo, True)
+                want, want_slot = pk.max_pool_record_plain(xd, *geo)
+                assert torch.equal(y.isnan(), want.isnan()), what
+                assert torch.equal(torch.nan_to_num(y),
+                                   torch.nan_to_num(want)), what
+                assert torch.equal(slot, want_slot), what
+                dy = torch.randn(y.shape, device=cuda).to(dtype).contiguous(
+                    memory_format=torch.channels_last)
+                dx = pk._backward(dy, slot, (9, 10), *geo).float()
+                want_dx = pk.max_pool_backward_plain(dy, want_slot, (9, 10),
+                                                     *geo).float()
+                wins = pk.max_pool_backward_plain(
+                    torch.ones_like(dy, dtype=torch.float32), want_slot,
+                    (9, 10), *geo)
+                assert torch.equal(dx[wins <= 1], want_dx[wins <= 1]), what
+                if dtype == torch.bfloat16:
+                    assert bool(((dx - want_dx).abs()
+                                 <= _bf16_ulp(want_dx)).all()), what
+                else:
+                    torch.testing.assert_close(dx, want_dx, rtol=1e-6,
+                                               atol=1e-6)
+    for dtype, c in ((torch.bfloat16, 3), (torch.bfloat16, 4),
+                     (torch.float32, 6)):
+        xc = torch.zeros(2, c, 12, 12, device=cuda, dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        geo = _geometry(xc, 3, 2)
+        with pytest.raises(ValueError, match="multiple"):
+            pk._forward(xc, *geo, True)
+        y = torch.zeros(2, c, 6, 6, device=cuda, dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        with pytest.raises(ValueError, match="multiple"):
+            pk._backward(y, y.to(torch.uint8), (12, 12), *geo)
+    flat = torch.randn(1 + 2 * 12 * 12 * 16, device=cuda).to(torch.bfloat16)
+    view = flat[1:].view(2, 12, 12, 16).permute(0, 3, 1, 2)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    geo = _geometry(view, 3, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        pk.max_pool_same(view, *geo)
+    _, slot = pk._forward(view.clone(), *geo, True)
+    flat = torch.randn(1 + slot.numel(), device=cuda).to(torch.bfloat16)
+    dy = flat[1:].view(2, 6, 6, 16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        pk._backward(dy, slot, (12, 12), *geo)
+
+
+def test_pool_dtypes_and_geometries_on_the_card(cuda):
+    """bf16 and fp32 pick their kernels; another dtype or window raises; an
+    NCHW-contiguous input gives the channels-last input's result."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+
+    x = _pool_input(cuda, 2, 12, 16, torch.float32, 4)
+    geo = _geometry(x, 3, 2)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            pk.max_pool_same(x.to(dtype), *geo)
+    with pytest.raises(ValueError):
+        pk.max_pool_same(x, (5, 5), (2, 2), ((1, 2), (1, 2)))
+    with pytest.raises(ValueError):
+        pk.max_pool_same(x, (3, 3), (1, 2), geo[2])
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        want = pk.max_pool_same(xd, *geo)
+        got = pk.max_pool_same(xd.contiguous(), *geo)
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_pool_ops_opcheck_on_the_card(cuda):
+    """`torch.library.opcheck` of `gvcnn::max_pool_same` (with and without
+    the record) and `gvcnn::max_pool_same_backward` on CUDA tensors."""
+    x = _pool_input(cuda, 2, 12, 16, torch.bfloat16, 6)
+    for record in (False, True):
+        torch.library.opcheck(torch.ops.gvcnn.max_pool_same.default,
+                              (x, [3, 3], [2, 2], [0, 1, 0, 1], record))
+    y, slot = torch.ops.gvcnn.max_pool_same(x, [3, 3], [2, 2], [0, 1, 0, 1],
+                                            True)
+    dy = torch.randn_like(y)
+    torch.library.opcheck(torch.ops.gvcnn.max_pool_same_backward.default,
+                          (dy, slot, [12, 12], [3, 3], [2, 2], [0, 1, 0, 1]))
+
+
+def _replay_kernels(step, state, batch, cfg):
+    """({kernel name: launches} of one profiled replay of a compiled step,
+    the replays made): a window in which the profiler saw nothing is
+    profiled again, as `measure.kernel_us` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvcnn_tf_tpu_torch.tools.measure import PROFILE_TRIES
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batch, cfg)
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if seen:
+            return seen, tries
+    raise RuntimeError("the profiler saw no kernel in a replay")
+
+
+def test_compiled_step_runs_the_pool_kernels(cuda, monkeypatch):
+    """A captured and replayed B = 4 train step of mn40_12view (64x64, 4
+    views, bf16) runs the pool kernels, 13 forwards and 13 backwards a
+    step, and no `at::native` max-pool kernel; against the same step with
+    the pools on `F.pad` + `F.max_pool2d`, it runs three fewer fills (the
+    -inf pads) and at least three fewer copies.  Every pool's input is
+    already channels-last (the kernel's `.contiguous` copies nothing)."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.train import compile_train_step, create_train_state
+
+    cfg = _graph_cfg()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=4))
+    batches = _u8_batches(cfg, 3)
+    layouts = []
+    counter = pk.max_pool_same
+    real_forward, real_backward = pk._forward, pk._backward
+
+    def forward(x, *a):
+        layouts.append(x.is_contiguous(memory_format=torch.channels_last))
+        return real_forward(x, *a)
+
+    def backward(dy, *a):
+        layouts.append(dy.is_contiguous(memory_format=torch.channels_last))
+        return real_backward(dy, *a)
+
+    counts = {}
+    for path in ("kernel", "plain"):
+        with monkeypatch.context() as mp:
+            if path == "plain":
+                mp.setattr(pk, "max_pool_same",
+                           lambda x, k, s, p: pk.max_pool_plain(x, k, s, p))
+            else:
+                mp.setattr(pk, "_forward", forward)
+                mp.setattr(pk, "_backward", backward)
+            state = create_train_state(cfg, cuda)
+            step = compile_train_step(state, cfg, batches[0])
+            step(state, batches[0], cfg)          # the warm-up
+            step(state, batches[1], cfg)          # the capture, replayed
+            before = (counter.launches, counter.launches_bwd)
+            counts[path], replays = _replay_kernels(step, state, batches[2],
+                                                    cfg)
+            moved = (counter.launches - before[0],
+                     counter.launches_bwd - before[1])
+            per = (13, 13) if path == "kernel" else (0, 0)
+            assert moved == (per[0] * replays, per[1] * replays)
+    assert len(layouts) >= 2 * 26 and all(layouts)
+
+    def launches(path, part):
+        return sum(n for k, n in counts[path].items() if part in k.lower())
+
+    kern = counts["kernel"]
+    assert sum(n for k, n in kern.items()
+               if "max_pool_same_fwd_nhwc" in k) == 13
+    assert sum(n for k, n in kern.items()
+               if "max_pool_same_bwd_nhwc" in k) == 13
+    assert not any("max_pool" in k and "at::native" in k for k in kern)
+    assert launches("plain", "at::native") > 0
+    assert launches("kernel", "fill") <= launches("plain", "fill") - 3
+    assert launches("kernel", "copy") <= launches("plain", "copy") - 3

@@ -387,7 +387,7 @@ def test_replays_advance_the_launch_counters(recorder, counted):
     graph = step.graph
     graph._capture()                           # a capture alone
     assert _counts() == (start[0] + 1, start[1] + 1)
-    assert graph._delta == (1, 0, 1)
+    assert graph._delta == (1, 0, 1, 0, 0)
     for n in range(2, 5):
         graph._replay()
         assert _counts() == (start[0] + n, start[1] + n)
@@ -472,6 +472,43 @@ def test_the_caches_compute_while_capturing(monkeypatch):
 
 
 # ------------------------------------------------------- the entry points
+
+def test_a_dropped_graph_is_freed_without_the_collector(monkeypatch):
+    """The graphs of a train step, an eval model and an engine bucket hold
+    no reference cycle: with the garbage collector off, each is freed as
+    soon as its owner drops it (a graph left for the collector would keep
+    its memory pool, which a later capture cannot reach)."""
+    import gc
+    import weakref
+
+    from gvcnn_tf_tpu_torch.serve import InferenceEngine
+
+    cfg = _eval_cfg()
+    b = _batches(cfg, 1)[0]
+    engine = InferenceEngine(cfg, serve_batch_size=4, device="cpu")
+    monkeypatch.setattr(graphs, "capturable", lambda device: True)
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        state = port_train.create_train_state(cfg, "cpu")
+        step = port_train.compile_train_step(state, cfg, b)
+        step(state, b, cfg)                    # the warm-up
+        refs = [weakref.ref(step.graph)]
+        del step
+        model = _eval_model(cfg)
+        with torch.no_grad():
+            port_eval.eval_graph(model, b)(views=b["views"], label=b["label"])
+        refs += [weakref.ref(g) for g in port_eval._GRAPHS[model].values()]
+        del model
+        chunk = np.zeros((4, 2, 32, 32, 3), np.uint8)
+        refs.append(weakref.ref(engine._graph(chunk)))
+        engine.graphs.clear()
+        assert [r() for r in refs] == [None] * 3
+    finally:
+        if was_on:
+            gc.enable()
+        engine.close()
+
 
 def test_engine_replays_each_bucket(recorder):
     """The engine captures one graph a bucket at start-up (in one pool) and
