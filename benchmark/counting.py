@@ -4,10 +4,12 @@ implements them.
 
 Every conv and matmul counts 2 FLOP a multiply-add; nothing else counts
 (BatchNorm, pools, elementwise ops and the grouping head's compares are a
-rounding error beside them).  A train step counts 3x its forward (the
-forward, and the backward's input and weight gradients).  The stem conv
-(K2) reads its input and weight once and writes its output once, in the
-compute dtype."""
+rounding error beside them).  A conv's multiply-adds are cin cout kh kw
+h_out w_out, with the output size the backbone's own `conv_shapes` gives
+under its padding.  A train step counts 3x its forward (the forward, and
+the backward's input and weight gradients).  The stem conv (K2) reads its
+input and weight once and writes its output once, in the compute
+dtype."""
 
 from __future__ import annotations
 
@@ -16,22 +18,23 @@ from benchmark.reference import gvcnn
 DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
 
 
-def conv_flops(cin, cout, k, h_out, w_out) -> int:
-    return 2 * cin * cout * k * k * h_out * w_out
+def conv_flops(cin, cout, kernel, out) -> int:
+    """FLOPs of a conv with a (kh, kw) `kernel` and an (h, w) output."""
+    (kh, kw), (ho, wo) = kernel, out
+    return 2 * cin * cout * kh * kw * ho * wo
 
 
 def forward_flops(model: dict, shapes: int) -> int:
     """FLOPs of one forward over `shapes` shapes of `num_views` views."""
-    bb = gvcnn.BACKBONES[model["backbone"]]
+    bb = gvcnn.backbone(model["backbone"])
     h, w = model["height"], model["width"]
-    per_view = sum(conv_flops(cin, cout, k, -(-hi // s), -(-wi // s))
-                   for _, cin, cout, k, s, hi, wi
-                   in bb.conv_shapes(model["final_endpoint"], h, w))
+    per_view = sum(conv_flops(c.cin, c.cout, c.kernel, c.out)
+                   for c in bb.conv_shapes(model["final_endpoint"], h, w))
     ch = bb.channels(model["final_endpoint"])
-    rh, rw = bb.spatial(model["raw_endpoint"], h, w)
+    raw = bb.spatial(model["raw_endpoint"], h, w)
     hidden = gvcnn.SCORE_HIDDEN
-    per_view += conv_flops(ch[model["raw_endpoint"]], hidden, 1, rh, rw)
-    per_view += conv_flops(hidden, 1, 1, rh, rw)
+    per_view += conv_flops(ch[model["raw_endpoint"]], hidden, (1, 1), raw)
+    per_view += conv_flops(hidden, 1, (1, 1), raw)
     head = 2 * ch[model["final_endpoint"]] * model["num_classes"]
     return shapes * (model["num_views"] * per_view + head)
 

@@ -5,7 +5,10 @@ Everything a cell needs is found by name: the cell's entry in
 and a traffic mix (`benchmark/traffic/<mix>.json`), whose `kind` names the
 driver that runs it (`benchmark/traffic/<kind>.py`); the limits of its
 output check are `benchmark/limits/<cell>.json`; each per-layer metric is
-read by `benchmark/metrics/<metric>.py`.  Adding a configuration, a mix of
+read by `benchmark/metrics/<metric>.py`; the plain reference of the
+configuration's backbone is `benchmark/reference/<backbone>.py`, whose
+interface `benchmark/reference/__init__.py` states.  Adding a configuration
+(with a backbone the reference lacks: its reference module too), a mix of
 an existing kind, a cell or a per-layer metric adds files and edits none.
 
 A driver's `run(ctx)` builds the program from the seed, warms up every

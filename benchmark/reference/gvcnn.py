@@ -10,17 +10,59 @@ a linear head (with dropout in training).  float32 throughout."""
 from __future__ import annotations
 
 import collections
+import importlib.util
+import re
+import sys
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from benchmark.reference import inception_v1, resnet50
 from benchmark.reference.layers import Net, conv, gap, linear
 
-BACKBONES = {"inception_v1": inception_v1, "resnet50": resnet50}
 SCORE_HIDDEN = 128
-# Backbones whose BatchNorm has a learned scale (slim's resnet_arg_scope).
-_SCALED = {"resnet50"}
+# The grouping head's BatchNorm epsilon, whatever the backbone's.
+SCORE_BN_EPS = 1e-3
+# What `backbone` requires of a backbone's module (`reference/__init__.py`).
+INTERFACE = ("NAME", "BN_SCALE", "BN_EPS", "MIN_SIZE", "channels",
+             "conv_shapes", "spatial", "forward")
+_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+_NOT_BACKBONES = frozenset({"gvcnn", "layers", "train", "__init__"})
+_HERE = Path(__file__).resolve().parent
+
+
+def _refuse(why: str):
+    from benchmark.harness import Refused
+
+    raise Refused(why)
+
+
+def backbone(name: str):
+    """The backbone module `benchmark/reference/<name>.py`, loaded once.
+    A name outside the benchmark's name characters, one of the reference's
+    own modules, a missing file or a module without the whole interface is
+    refused (`harness.Refused`)."""
+    if not isinstance(name, str) or not _NAME.fullmatch(name) \
+            or name in _NOT_BACKBONES:
+        _refuse(f"{name!r} cannot name a backbone")
+    path = _HERE / f"{name}.py"
+    if not path.is_file():
+        _refuse(f"no reference backbone {path} for {name!r}")
+    modname = f"{__package__}.{name}"
+    mod = sys.modules.get(modname)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(modname, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[modname] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[modname]
+            raise
+    missing = [a for a in INTERFACE if not hasattr(mod, a)]
+    if missing:
+        _refuse(f"the reference backbone {path} lacks {missing}")
+    return mod
 
 
 def param_spec(model: dict) -> "collections.OrderedDict[str, Tuple]":
@@ -28,12 +70,12 @@ def param_spec(model: dict) -> "collections.OrderedDict[str, Tuple]":
     configuration file's `model` section describes, in a fixed order.
     Roles: conv, linear, score_logit, bias, bn_scale, bn_bias, bn_mean,
     bn_var."""
-    bb = BACKBONES[model["backbone"]]
+    bb = backbone(model["backbone"])
     final, raw = model["final_endpoint"], model["raw_endpoint"]
     spec = collections.OrderedDict()
 
-    def conv_bn(name, cin, cout, k, scaled):
-        spec[f"{name}.conv.weight"] = ((cout, cin, k, k), "conv")
+    def conv_bn(name, cin, cout, kernel, scaled):
+        spec[f"{name}.conv.weight"] = ((cout, cin) + tuple(kernel), "conv")
         bn = f"{name}.BatchNorm"
         if scaled:
             spec[f"{bn}.scale"] = ((cout,), "bn_scale")
@@ -41,10 +83,10 @@ def param_spec(model: dict) -> "collections.OrderedDict[str, Tuple]":
         spec[f"{bn}.running_mean"] = ((cout,), "bn_mean")
         spec[f"{bn}.running_var"] = ((cout,), "bn_var")
 
-    for name, cin, cout, k, *_ in bb.conv_shapes(final):
-        conv_bn(name, cin, cout, k, model["backbone"] in _SCALED)
+    for c in bb.conv_shapes(final, model["height"], model["width"]):
+        conv_bn(c.name, c.cin, c.cout, c.kernel, bb.BN_SCALE)
     ch = bb.channels(final)
-    conv_bn("GroupingModule.Conv2d_score_1x1", ch[raw], SCORE_HIDDEN, 1,
+    conv_bn("GroupingModule.Conv2d_score_1x1", ch[raw], SCORE_HIDDEN, (1, 1),
             False)
     spec["GroupingModule.Conv2d_score_logit.weight"] = (
         (1, SCORE_HIDDEN, 1, 1), "score_logit")
@@ -86,15 +128,16 @@ def forward(params: Dict[str, torch.Tensor], views: torch.Tensor,
     `mode`: "train" (batch statistics), "eval" or "folded" (see
     `layers.Net`); `keep`: the dropout mask of the shape descriptor (train
     mode), kept values scaled by 1 / keep_prob."""
-    bb = BACKBONES[model["backbone"]]
+    bb = backbone(model["backbone"])
     x = normalize(views)
     b, v = x.shape[:2]
     x = x.reshape((b * v,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
-    net = Net(params, mode, num)
+    net = Net(params, mode, num, bb.BN_EPS)
     raw_ep = model["raw_endpoint"]
     feats, ends = bb.forward(net, x, model["final_endpoint"], (raw_ep,))
     descs = gap(feats).reshape(b, v, -1)
-    h = net.conv_bn(ends.pop(raw_ep), "GroupingModule.Conv2d_score_1x1")
+    h = net.conv_bn(ends.pop(raw_ep), "GroupingModule.Conv2d_score_1x1",
+                    eps=SCORE_BN_EPS)
     raw = gap(conv(h, params["GroupingModule.Conv2d_score_logit.weight"], 1,
                    num, params["GroupingModule.Conv2d_score_logit.bias"]))
     if inside is not None:

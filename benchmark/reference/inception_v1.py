@@ -8,9 +8,13 @@ from typing import Dict, Tuple
 
 import torch
 
-from benchmark.reference.layers import Net, max_pool
+from benchmark.reference.layers import ConvShape, Net, max_pool, out_hw
 
 NAME = "InceptionV1"
+BN_SCALE = False
+BN_EPS = 1e-3
+# Every conv and pool is TF-'SAME', so any input reaches every endpoint.
+MIN_SIZE = 1
 
 # (endpoint, spec) in order: ("conv", out, kernel, stride) | ("pool",
 # kernel, stride) | ("mixed", b0, b1 reduce, b1, b2 reduce, b2, b3).
@@ -48,19 +52,19 @@ def channels(final: str) -> Dict[str, int]:
     return out
 
 
-def conv_shapes(final: str, height: int = 224, width: int = 224):
-    """[(layer name, cin, cout, kernel, stride, input H, input W)] of every
-    conv up to `final`, in order; the layer's weight is
-    `<name>.conv.weight`.  Every conv and pool is TF-'SAME': its output
-    is ceil(input / stride)."""
+def conv_shapes(final: str, height: int, width: int):
+    """`ConvShape` of every conv up to `final`, in order.  Every conv and
+    pool is TF-'SAME': its output is ceil(input / stride)."""
     out, ch, h, w = [], 3, height, width
     for name, spec in PLAN:
         if spec[0] == "conv":
-            out.append((f"{NAME}.{name}", ch, spec[1], spec[2], spec[3], h,
-                        w))
-            ch, h, w = spec[1], -(-h // spec[3]), -(-w // spec[3])
+            _, cout, k, s = spec
+            h, w = out_hw(h, w, k, s)
+            out.append(ConvShape(f"{NAME}.{name}", ch, cout, (k, k), (s, s),
+                                 (h, w)))
+            ch = cout
         elif spec[0] == "pool":
-            h, w = -(-h // spec[2]), -(-w // spec[2])
+            h, w = out_hw(h, w, spec[1], spec[2])
         else:
             b0, b1r, b1, b2r, b2, b3 = spec[1:]
             convs = (("Branch_0_Conv2d_0a_1x1", ch, b0, 1),
@@ -70,20 +74,22 @@ def conv_shapes(final: str, height: int = 224, width: int = 224):
                      ("Branch_2_Conv2d_0b_3x3", b2r, b2, 3),
                      ("Branch_3_Conv2d_0b_1x1", ch, b3, 1))
             for br, i, o, k in convs:
-                out.append((f"{NAME}.{name}.{br}", i, o, k, 1, h, w))
+                out.append(ConvShape(f"{NAME}.{name}.{br}", i, o, (k, k),
+                                     (1, 1), (h, w)))
             ch = b0 + b1 + b2 + b3
         if name == final:
             break
     return out
 
 
-def spatial(endpoint: str, height: int = 224, width: int = 224):
+def spatial(endpoint: str, height: int, width: int):
     """(H, W) of the activation at `endpoint`."""
     h, w = height, width
     for name, spec in PLAN:
-        if spec[0] in ("conv", "pool"):
-            s = spec[3] if spec[0] == "conv" else spec[2]
-            h, w = -(-h // s), -(-w // s)
+        if spec[0] == "conv":
+            h, w = out_hw(h, w, spec[2], spec[3])
+        elif spec[0] == "pool":
+            h, w = out_hw(h, w, spec[1], spec[2])
         if name == endpoint:
             return h, w
     raise ValueError(f"unknown endpoint {endpoint!r}")

@@ -6,7 +6,7 @@ e5m2: the lower precision a bf16 configuration's control computes in)."""
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +88,28 @@ class FP8:
         return _FP8.apply(x)
 
 
+class ConvShape(NamedTuple):
+    """One conv of a backbone, as its `conv_shapes` yields it: the layer
+    `name` (weight `<name>.conv.weight`, shape (cout, cin, kh, kw)), its
+    kernel and stride as (h, w) pairs, and the output (h, w) that the
+    backbone computes under its own padding."""
+
+    name: str
+    cin: int
+    cout: int
+    kernel: Tuple[int, int]
+    stride: Tuple[int, int]
+    out: Tuple[int, int]
+
+
+def pair(v) -> Tuple[int, int]:
+    """A kernel or stride given as an int or an (h, w) pair, as (h, w)."""
+    if isinstance(v, int):
+        return v, v
+    h, w = v
+    return int(h), int(w)
+
+
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     """TF-'SAME' (lo, hi) padding of one spatial dim: bottom/right heavy."""
     out = -(-size // s)
@@ -95,13 +117,37 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv(x: torch.Tensor, w: torch.Tensor, stride: int, num,
-         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """TF-'SAME' conv of NCHW x with OIHW w (zeros padded explicitly)."""
-    kh, kw = w.shape[2:]
-    ph = same_pads(x.shape[2], kh, stride)
-    pw = same_pads(x.shape[3], kw, stride)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+def out_hw(h: int, w: int, kernel, stride,
+           padding: str = "SAME") -> Tuple[int, int]:
+    """(H, W) out of a conv or pool over (h, w): ceil(size / stride) under
+    TF-'SAME', floor((size - kernel) / stride) + 1 under 'VALID'."""
+    (kh, kw), (sh, sw) = pair(kernel), pair(stride)
+    if padding == "SAME":
+        return -(-h // sh), -(-w // sw)
+    if padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
+    if h < kh or w < kw:
+        raise ValueError(f"a 'VALID' {kh}x{kw} window over {h}x{w}")
+    return (h - kh) // sh + 1, (w - kw) // sw + 1
+
+
+def pads(x: torch.Tensor, kernel, stride, padding: str):
+    """F.pad's (left, right, top, bottom) of NCHW x under `padding`."""
+    (kh, kw), (sh, sw) = pair(kernel), pair(stride)
+    if padding == "VALID":
+        return 0, 0, 0, 0
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}")
+    ph, pw = same_pads(x.shape[2], kh, sh), same_pads(x.shape[3], kw, sw)
+    return pw[0], pw[1], ph[0], ph[1]
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, stride, num,
+         bias: Optional[torch.Tensor] = None,
+         padding: str = "SAME") -> torch.Tensor:
+    """TF-'SAME' (zeros padded explicitly) or 'VALID' conv of NCHW x with
+    OIHW w; `stride` an int or an (h, w) pair."""
+    x = F.pad(x, pads(x, w.shape[2:], stride, padding))
     return F.conv2d(num.q(x), num.q(w), bias, stride=stride)
 
 
@@ -109,12 +155,27 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num):
     return F.linear(num.q(x), num.q(w), b)
 
 
-def max_pool(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """TF-'SAME' max pool: -inf padding, which never wins a window."""
-    ph = same_pads(x.shape[2], k, s)
-    pw = same_pads(x.shape[3], k, s)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=-torch.inf)
+def max_pool(x: torch.Tensor, k, s, padding: str = "SAME") -> torch.Tensor:
+    """TF-'SAME' max pool (-inf padding, which never wins a window) or
+    'VALID'; `k` and `s` ints or (h, w) pairs."""
+    x = F.pad(x, pads(x, k, s, padding), value=-torch.inf)
     return F.max_pool2d(x, k, s)
+
+
+def avg_pool(x: torch.Tensor, k, s, padding: str = "SAME", *,
+             count_include_pad: bool) -> torch.Tensor:
+    """TF-'SAME' (zeros padded) or 'VALID' average pool.  Under 'SAME' the
+    two conventions differ at the border: `count_include_pad=True` divides
+    every window by its full size, the padded zeros counted (Flax's
+    `avg_pool`, which the port follows); False divides by the number of
+    the window's elements inside the image (TF-Slim's `avg_pool2d`)."""
+    p = pads(x, k, s, padding)
+    y = F.avg_pool2d(F.pad(x, p), k, s)
+    if count_include_pad:
+        return y
+    # Each window's share of elements inside the image.
+    inside = F.avg_pool2d(F.pad(torch.ones_like(x[:1, :1]), p), k, s)
+    return y / inside
 
 
 def gap(x: torch.Tensor) -> torch.Tensor:
@@ -150,28 +211,33 @@ def batch_norm(x: torch.Tensor, bn: Dict[str, torch.Tensor], eps: float,
 class Net:
     """What a backbone's layers read: the weights by name, the mode
     ("train": batch statistics; "eval": running statistics; "folded": BN
-    folded into the convs by `fold`) and the numerics."""
+    folded into the convs by `fold`), the numerics and the BatchNorm's
+    epsilon."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], mode: str, num):
+    def __init__(self, params: Dict[str, torch.Tensor], mode: str, num,
+                 eps: float):
         if mode not in ("train", "eval", "folded"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.p, self.mode, self.num = params, mode, num
+        self.p, self.mode, self.num, self.eps = params, mode, num, eps
 
     def bn_params(self, name: str) -> Dict[str, torch.Tensor]:
         keys = ("scale", "bias", "running_mean", "running_var")
         return {k: self.p[f"{name}.{k}"] for k in keys
                 if f"{name}.{k}" in self.p}
 
-    def conv_bn(self, x: torch.Tensor, name: str, stride: int = 1,
-                relu: bool = True, eps: float = 1e-3) -> torch.Tensor:
+    def conv_bn(self, x: torch.Tensor, name: str, stride=1,
+                relu: bool = True, eps: Optional[float] = None,
+                padding: str = "SAME") -> torch.Tensor:
         """conv (no bias) + BatchNorm (+ ReLU): the layer `name` holds
-        `name.conv.weight` and `name.BatchNorm.*`."""
+        `name.conv.weight` and `name.BatchNorm.*`; `eps` defaults to the
+        net's (its backbone's `BN_EPS`)."""
+        eps = self.eps if eps is None else eps
         w = self.p[f"{name}.conv.weight"]
         bn = self.bn_params(f"{name}.BatchNorm")
         if self.mode == "folded":
             wf, bf = fold(w, bn, eps)
-            y = conv(x, wf, stride, self.num, bias=bf)
+            y = conv(x, wf, stride, self.num, bias=bf, padding=padding)
         else:
-            y = batch_norm(conv(x, w, stride, self.num), bn, eps,
-                           self.mode == "train")
+            y = batch_norm(conv(x, w, stride, self.num, padding=padding),
+                           bn, eps, self.mode == "train")
         return F.relu(y) if relu else y

@@ -10,6 +10,12 @@ from benchmark import harness
 BANNED = sorted(harness.BANNED)
 
 
+def _imports(folder):
+    """`import` lines for every module of `benchmark/<folder>`."""
+    return "".join(f"import benchmark.{folder}.{p.stem}\n" for p in sorted(
+        (harness.HERE / folder).glob("*.py")) if p.stem != "__init__")
+
+
 def _modules(code):
     out = subprocess.run(
         [sys.executable, "-c", code + "\nimport sys\nprint(' '.join(sorted("
@@ -22,9 +28,8 @@ def _modules(code):
 def test_harness_and_the_program_it_drives_load_no_jax():
     loaded = _modules(
         "import benchmark.run, benchmark.harness, benchmark.calibrate\n"
-        "import benchmark.counting, benchmark.traffic.train_stream\n"
-        "import benchmark.traffic.eval_pass\n"
-        "import gvcnn_tf_tpu_torch.train, gvcnn_tf_tpu_torch.eval\n"
+        "import benchmark.counting\n" + _imports("traffic")
+        + "import gvcnn_tf_tpu_torch.train, gvcnn_tf_tpu_torch.eval\n"
         "import gvcnn_tf_tpu_torch.serve, gvcnn_tf_tpu_torch.bridge\n"
         "import json\n"
         "from benchmark import harness\n"
@@ -35,10 +40,16 @@ def test_harness_and_the_program_it_drives_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
+    """Every module of the reference: its own, and each backbone file,
+    loaded by name as a run loads it (which also checks its interface)."""
+    own = ("gvcnn", "layers", "train")
+    backbones = sorted(p.stem for p in (harness.HERE / "reference").glob(
+        "*.py") if p.stem not in own + ("__init__",))
+    assert {"inception_v1", "resnet50"} <= set(backbones)
     loaded = _modules(
-        "import benchmark.reference.gvcnn, benchmark.reference.train\n"
-        "import benchmark.reference.layers, benchmark.reference.resnet50\n"
-        "import benchmark.reference.inception_v1")
+        "".join(f"import benchmark.reference.{m}\n" for m in own)
+        + "from benchmark.reference.gvcnn import backbone\n"
+        + "".join(f"backbone({b!r})\n" for b in backbones))
     assert not loaded & (set(BANNED) | {"gvcnn_tf_tpu_torch"})
 
 

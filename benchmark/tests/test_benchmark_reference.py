@@ -1,50 +1,46 @@
-"""The plain reference against the program on the CPU at 64x64 and B=2,
-in float32: the eval-mode and folded forwards, the train-mode forward
-with its dropout, and one train step's loss and gradients, for both
-backbones."""
+"""The plain reference against the program on the CPU at B=2, 3 views of
+max(64, the backbone's MIN_SIZE) squared, in float32: the eval-mode and
+folded forwards, the train-mode forward with its dropout, and one train
+step's loss and gradients, for every configuration file."""
 
 import dataclasses
 
 import pytest
 import torch
 
-from benchmark import compare
+from benchmark import compare, harness
 from benchmark.reference import gvcnn as ref, layers, train as ref_train
 from benchmark.inputs import make_views
+from benchmark.tests import tiny
 from benchmark.weights import make_weights
 
-MODELS = {
-    "mn40_12view": dict(backbone="inception_v1", raw_endpoint="Mixed_3c",
-                        final_endpoint="Mixed_5c"),
-    "mn40_12view_resnet50": dict(backbone="resnet50",
-                                 raw_endpoint="block2",
-                                 final_endpoint="block4"),
-}
-OPT = dict(optimizer="momentum", learning_rate=0.01, momentum=0.9,
-           lr_decay_rate=0.94, lr_decay_steps=2000, weight_decay=4e-5)
+CONFIGS = sorted(p.stem for p in (harness.HERE / "configs").glob("*.json"))
 
 
 def _setup(name):
     from gvcnn_tf_tpu_torch import get_config
 
-    cfg = get_config(name)
+    file = harness.load_json(harness.HERE / "configs" / f"{name}.json")
+    side = tiny.size(file["model"])
+    model = dict(file["model"], num_views=3, height=side, width=side,
+                 compute_dtype="float32")
+    cfg = get_config(file["port_config"])
     cfg = cfg.replace(compute_dtype="float32", data=dataclasses.replace(
-        cfg.data, num_views=3, height=64, width=64, batch_size=2),
+        cfg.data, num_views=3, height=side, width=side, batch_size=2,
+        num_classes=model["num_classes"]),
         train=dataclasses.replace(cfg.train, seed=11))
-    model = dict(MODELS[name], num_classes=40, num_group=8,
-                 dropout_keep_prob=0.8)
     w = make_weights(ref.param_spec(model), 123, "cpu")
-    views = make_views(torch.Generator().manual_seed(5), (2, 3, 64, 64, 3),
-                       "cpu")
-    return cfg, model, w, views
+    views = make_views(torch.Generator().manual_seed(5),
+                       (2, 3, side, side, 3), "cpu")
+    return cfg, model, w, views, file["optimizer"]
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_forwards_match(name):
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model
     from gvcnn_tf_tpu_torch.utils import fold_batch_norm
 
-    cfg, model, w, views = _setup(name)
+    cfg, model, w, views, opt = _setup(name)
     m = build_model(cfg)
     m.load_state_dict(w, strict=True)
     x = views.float() / 255.0 * 2.0 - 1.0
@@ -70,18 +66,18 @@ def test_forwards_match(name):
     assert (lp - lt).abs().max() <= 1e-4 * lt.abs().max()
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_one_train_step_matches(name):
     from gvcnn_tf_tpu_torch.train import create_train_state, train_step
 
-    cfg, model, w, views = _setup(name)
+    cfg, model, w, views, opt = _setup(name)
     state = create_train_state(cfg, "cpu")
     state.model.load_state_dict(w, strict=True)
     labels = torch.tensor([3, 17])
     mets = train_step(state, {"views": views, "label": labels}, cfg)
     trainable = [n for n, _ in state.model.named_parameters()]
     out = ref_train.train(w, trainable, [{"views": views, "label": labels}],
-                          model, OPT, 11, layers.Exact)
+                          model, opt, 11, layers.Exact)
     # float32 rounding: ResNet's 53 train-mode BatchNorms over 24 values a
     # channel at 2x2 (the program's one-pass variance, the reference's
     # two-pass one) move the loss by ~1.4e-5.
