@@ -85,7 +85,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    bound set beforehand from `measure.py serve-drift` / `train-drift` on
    the CPU; and one B = 1 forward through GVCNN on Inception-v2 and v3
    (`--backbone`) from seeded weights with BatchNorm statistics calibrated
-   to the request's views, card against CPU.
+   to the request's views, card against CPU.  The average-pool kernels'
+   launches on these main paths (engine forwards, the train step, the
+   v2/v3 forward) are counted from zero and held to FAMILY_AVG_POOLS a
+   forward (forward and backward kernel each a train step).
 11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
    made from a seed (1001-class head) written by the port's importer, then
    `train()` of mn40_12view at full width with `checkpoint_path` and the
@@ -263,6 +266,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    Inception-v1's 13 pools.  Then the main path's entry, `pool.max_pool`
    under autograd at MaxPool_3a_3x3 (B = 32), against `F.pad` +
    `F.max_pool2d` and autograd's gradient: one launch each way.
+21. The average-pool kernels (`phase_avg_pool`, csrc/avg_pool.cu) at
+   Inception-v4's 3x3/1 'SAME' pools at AVG_POOL_IMAGES images of 299x299
+   (B = 32 of 12 views), bf16: the forward within one bf16 ulp of
+   `F.avg_pool2d` counting the pads, the backward within one ulp of the
+   plain box sum of dy and of PyTorch's backward on fp32 NCHW copies,
+   rounded once (1e-6 more where a window cancels); each timed beside its
+   bytes bound, its plain version and one PyTorch call (`F.avg_pool2d` on
+   the channels-last input, and its backward), summed over the 14 pools
+   (3.90 ms bound a step).  How far
+   PyTorch's channels-last backward lies from the NCHW gradient is printed.
+   Then `pool.avg_pool` under autograd at Mixed_5b's pool: one launch each
+   way, and the launch counters.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -382,6 +397,15 @@ FAMILY_LAUNCHES = {"mn40_12view_resnet50": (0, 0, 1),
                    "mn40_12view_inception_v4": (0, 0, 1),
                    "mn40_12view_mvcnn": (1, 0, 0),
                    "mn10_single_view": (0, 1, 0)}
+# The 3x3/1 'SAME' average pools a forward (csrc/avg_pool.cu): a serving
+# forward launches that many forward kernels, a train step that many of
+# each kernel.  Inception-v4: Mixed_5b-5e, 6b-6h and 7b-7d; v2: 7; v3: 9.
+FAMILY_AVG_POOLS = {"mn40_12view_resnet50": 0,
+                    "mn40_12view_inception_v4": 14,
+                    "mn40_12view_mvcnn": 0,
+                    "mn10_single_view": 0,
+                    "inception_v2": 7,
+                    "inception_v3": 9}
 # mn10_single_view: fp32 on the card (TF32 convs outside the stem kernel)
 # against fp32 on the CPU, read at 224x224 with only the forward's conv
 # inputs TF32-rounded (the card's dgrad and wgrad run in TF32 too): worst
@@ -513,6 +537,12 @@ POOL_SHAPES = (
     ("Mixed_4e", 14, 512, 3, 1), ("Mixed_4f", 14, 528, 3, 1),
     ("MaxPool_5a_2x2", 14, 832, 2, 2), ("Mixed_5b", 7, 832, 3, 1),
     ("Mixed_5c", 7, 832, 3, 1), ("resnet50_pool1", 112, 64, 3, 2))
+
+# Phase 21: the average-pool kernels at the B = 32 Inception-v4 train
+# step's pools (AVG_POOL_IMAGES images): (blocks, H = W, C, pools).
+AVG_POOL_IMAGES = 384
+AVG_POOL_SHAPES = (("Mixed_5b-5e", 35, 384, 4), ("Mixed_6b-6h", 17, 1024, 7),
+                   ("Mixed_7b-7d", 8, 1536, 3))
 
 # Phase 17: the step-analysis tools.  bench_layers at the flagship's folded
 # B = 8 step (96 images of 224x224, bf16); a row whose time is under its
@@ -838,6 +868,105 @@ def _pool_autograd(dev, rs):
             and "MaxPoolFunction" in out["grad_fn"]):
         raise AssertionError(f"max pool {name} under autograd: {out}")
     return out
+
+
+def phase_avg_pool(dev):
+    """Phase 21: the average-pool kernels against their plain versions at
+    the B = 32 Inception-v4 pools, timed (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.ops.pool import avg_pool
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def draw(h, c):
+        return torch.randn(AVG_POOL_IMAGES, c, h, h, generator=gen,
+                           device=dev).to(torch.bfloat16).contiguous(
+                               memory_format=torch.channels_last)
+
+    def within_ulp(got, want):
+        """(max gap, within one bf16 ulp of want, plus 1e-6 where a window
+        cancels toward 0)."""
+        gap = (got.float() - want.float()).abs()
+        return gap.max().item(), bool(
+            (gap <= _bf16_ulp(want.float()) + 1e-6).all())
+
+    counter = pk.avg_pool_same
+    start = (counter.launches, counter.launches_bwd)
+    rows = []
+    for name, h, c, count in AVG_POOL_SHAPES:
+        x, dy = draw(h, c), draw(h, c)
+        with torch.no_grad():
+            y = pk._box(x, False)
+            dx = pk._box(dy, True)
+            checks = dict(
+                fwd=within_ulp(y, pk.avg_pool_plain(x)),
+                bwd_plain=within_ulp(dx, pk.avg_pool_backward_plain(dy)),
+                bwd_nchw=within_ulp(dx, torch.ops.aten.avg_pool2d_backward(
+                    dy.float().contiguous(), x.float().contiguous(), [3, 3],
+                    [1, 1], [1, 1], False, True, None).to(dx.dtype)))
+            lib_dx = torch.ops.aten.avg_pool2d_backward(
+                dy, x, [3, 3], [1, 1], [1, 1], False, True, None)
+            library_cl_bwd_gap = (lib_dx.float()
+                                  - dx.float()).abs().max().item()
+            if not all(ok for _, ok in checks.values()):
+                raise AssertionError(f"avg pool {name}: {checks}")
+            row = dict(
+                pools=name, shape=[AVG_POOL_IMAGES, c, h, h], count=count,
+                fwd_ms=cuda_ms(lambda: pk._box(x, False)),
+                bwd_ms=cuda_ms(lambda: pk._box(dy, True)),
+                plain_fwd_ms=cuda_ms(lambda: pk.avg_pool_plain(x)),
+                plain_bwd_ms=cuda_ms(
+                    lambda: pk.avg_pool_backward_plain(dy)),
+                library_fwd_ms=cuda_ms(lambda: F.avg_pool2d(
+                    x, 3, 1, padding=1, count_include_pad=True)),
+                library_bwd_ms=cuda_ms(
+                    lambda: torch.ops.aten.avg_pool2d_backward(
+                        dy, x, [3, 3], [1, 1], [1, 1], False, True, None)),
+                max_gap={k: v[0] for k, v in checks.items()},
+                library_cl_bwd_gap=library_cl_bwd_gap)
+        row["bound_ms"] = bound((x.numel() + y.numel()) * 2, 0,
+                                "bfloat16")[0]
+        for way in ("fwd", "bwd"):
+            row[f"{way}_share"] = row["bound_ms"] / row[f"{way}_ms"]
+        log("avg pool " + json.dumps(row))
+        rows.append(row)
+        del x, dy, y, dx, lib_dx
+    total = {key: sum(r[key] * r["count"] for r in rows)
+             for key in rows[0] if key.endswith("_ms")}
+    total["train_ms"] = total["fwd_ms"] + total["bwd_ms"]
+    total["train_bound_ms"] = 2 * total["bound_ms"]
+    total["train_share"] = total["train_bound_ms"] / total["train_ms"]
+    total["plain_train_ms"] = total["plain_fwd_ms"] + total["plain_bwd_ms"]
+    total["library_train_ms"] = (total["library_fwd_ms"]
+                                 + total["library_bwd_ms"])
+    log("avg pool, Inception-v4's 14 pools at B = 32: " + json.dumps(total))
+
+    # The main path's entry under autograd at Mixed_5b's pool.
+    _, h, c, _ = AVG_POOL_SHAPES[0]
+    xa = draw(h, c).requires_grad_()
+    before = (counter.launches, counter.launches_bwd)
+    y = avg_pool(xa, (3, 3), (1, 1), "SAME")
+    dy = draw(h, c)
+    y.backward(dy)
+    torch.cuda.synchronize(dev)
+    moved = (counter.launches - before[0], counter.launches_bwd - before[1])
+    with torch.no_grad():
+        autograd = dict(
+            grad_fn=type(y.grad_fn).__name__, launches=list(moved),
+            y=within_ulp(y, pk.avg_pool_plain(xa.detach())),
+            dx=within_ulp(xa.grad, pk.avg_pool_backward_plain(dy)))
+    log("avg pool under autograd, pool.avg_pool: " + json.dumps(autograd))
+    if not (moved == (1, 1) and "AvgPoolFunction" in autograd["grad_fn"]
+            and autograd["y"][1] and autograd["dx"][1]):
+        raise AssertionError(f"avg pool under autograd: {autograd}")
+    launches = dict(launches=counter.launches - start[0],
+                    launches_bwd=counter.launches_bwd - start[1])
+    log("avg pool launch counters over phase 21: " + json.dumps(launches))
+    return dict(inception_v4=total, by_shape=rows, autograd=autograd,
+                **launches)
 
 
 def _clear_scores(rs, b, v, m):
@@ -1706,12 +1835,21 @@ def _counts():
             stem_conv.launches_f32, group_and_fuse.launches)
 
 
+def _avg_counts():
+    """(forward, backward) launches of the average-pool kernels."""
+    from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same
+
+    return avg_pool_same.launches, avg_pool_same.launches_bwd
+
+
 def _zero_counts():
     from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
+    from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same
     from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
 
     stem_conv.launches = stem_conv.launches_f32 = 0
     group_and_fuse.launches = 0
+    avg_pool_same.launches = avg_pool_same.launches_bwd = 0
 
 
 def _card_vs_cpu_serving(engine, cfg, views, tol, what, variables=None):
@@ -1816,6 +1954,13 @@ def phase_families(card, dev):
                                      f"stem, grouping) {_counts()} over "
                                      f"{forwards} forwards, want {want}")
             row["serve_launches"] = _counts()
+            row["serve_avg_launches"] = _avg_counts()
+            if row["serve_avg_launches"] != (
+                    FAMILY_AVG_POOLS[name] * forwards, 0):
+                raise AssertionError(
+                    f"{name}: average-pool launches (forward, backward) "
+                    f"{row['serve_avg_launches']} over {forwards} forwards, "
+                    f"want {FAMILY_AVG_POOLS[name]} a forward")
             views2 = rs.uniform(-1, 1, (2,) + shape).astype(np.float32)
             row["logit_rel"] = _card_vs_cpu_serving(
                 engine, cfg, views2, FAMILY_SERVE_TOL[name], name)[0]
@@ -1825,7 +1970,8 @@ def phase_families(card, dev):
             f"{row['p50_ms_b1']:.2f} ms, B=8 {row['p50_ms_b8']:.2f} ms "
             f"({8 * d.num_views / row['p50_ms_b8'] * 1e3:.1f} views/s); "
             f"launches (bf16 stem, fp32 stem, grouping) over {forwards} "
-            f"forwards {row['serve_launches']} [{card}]")
+            f"forwards {row['serve_launches']}, average pool (forward, "
+            f"backward) {row['serve_avg_launches']} [{card}]")
 
         # One B = 8 train step on the card.
         state = create_train_state(cfg, dev)
@@ -1835,15 +1981,20 @@ def phase_families(card, dev):
         row["step_ms"] = cuda_ms(lambda: train_step(state, batch, cfg),
                                  runs=5, warmup=2)
         row["step_launches"] = tuple(k / 7 for k in _counts())
+        row["step_avg_launches"] = tuple(k / 7 for k in _avg_counts())
         row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         if row["step_launches"] != FAMILY_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches a step "
                                  f"{row['step_launches']}")
+        if row["step_avg_launches"] != (FAMILY_AVG_POOLS[name],) * 2:
+            raise AssertionError(f"{name}: average-pool launches a step "
+                                 f"{row['step_avg_launches']}")
         del state, batch
         vps = d.batch_size * d.num_views / row["step_ms"] * 1e3
         log(f"{name}: train step B={d.batch_size} {row['step_ms']:.3f} ms "
             f"median of 5 ({vps:.1f} views/s), peak memory {row['peak_gb']:.3f} GB, launches a "
-            f"step {row['step_launches']} [{card}]")
+            f"step {row['step_launches']}, average pool "
+            f"{row['step_avg_launches']} [{card}]")
 
         # One B = 2 train step, card vs CPU.
         drift = train_step_drift(
@@ -1881,9 +2032,13 @@ def phase_families(card, dev):
                 engine, cfg, views, FAMILY_BACKBONE_TOL[backbone],
                 f"mn40_12view --backbone {backbone} (calibrated BN)",
                 variables)
-            rows[backbone] = dict(logit_rel=rel, launches=launches)
-            if launches != (0, 0, 1):
-                raise AssertionError(f"{backbone}: launches {launches}")
+            avg = _avg_counts()
+            rows[backbone] = dict(logit_rel=rel, launches=launches,
+                                  avg_launches=avg)
+            if launches != (0, 0, 1) or avg != (FAMILY_AVG_POOLS[backbone],
+                                                0):
+                raise AssertionError(f"{backbone}: launches {launches}, "
+                                     f"average pool {avg}")
         finally:
             engine.close()
     return rows
@@ -4310,6 +4465,8 @@ def main():
     mark(19)
     pool = phase_pool(dev)
     mark(20)
+    avg = phase_avg_pool(dev)
+    mark(21)
     replayed = compiled["steps"]
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
@@ -4406,6 +4563,18 @@ def main():
                  k: v["pool_launches"] for k, v in replayed.items()},
              autograd_b32=pool["autograd"],
              inception_b32=pool["inception"], resnet50_b32=pool["resnet50"]),
+        dict(name="avg_pool_same_bf16", route="cuda",
+             source="gvcnn_tf_tpu_torch/csrc/avg_pool.cu", replaces=None,
+             serve_launches={k: v["serve_avg_launches"] for k, v in
+                             fam.items() if "serve_avg_launches" in v},
+             family_launches_per_step={
+                 k: v["step_avg_launches"] for k, v in fam.items()
+                 if "step_avg_launches" in v},
+             backbone_launches_per_forward={
+                 k: v["avg_launches"] for k, v in fam.items()
+                 if "avg_launches" in v},
+             autograd_b32=avg["autograd"],
+             inception_v4_b32=avg["inception_v4"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # stream; the backward's: dy, slot, dx, then the same
     **{f"max_pool_same_{way}_{dtype}": (_P, _P, _P) + (_I,) * 10 + (_P,)
        for way in ("fwd", "bwd") for dtype in ("bf16", "f32")},
+    # x, y, n, h, w, c, stream; the backward's: dy, dx, then the same
+    **{f"avg_pool_same_{way}_{dtype}": (_P, _P) + (_I,) * 4 + (_P,)
+       for way in ("fwd", "bwd") for dtype in ("bf16", "f32")},
 }
 
 _lock = threading.Lock()

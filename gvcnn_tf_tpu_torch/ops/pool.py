@@ -15,7 +15,15 @@ Tensors are NCHW (any memory format).
         dx from that record.
 
 Both credit each window's first maximum, as XLA's select-and-scatter does.
-`avg_pool` is PyTorch's on every device.
+
+`avg_pool` takes the one geometry of the backbones' average pools, a 3x3
+window at stride 1 with 'SAME' pads (1, 1), and raises on another; by x's
+device:
+
+  CPU   `F.avg_pool2d` with the padded zeros counted; gradients are
+        autograd's;
+  CUDA  the hand-written kernels (`csrc/avg_pool.cu`); the backward is the
+        same box mean over dy and saves nothing.
 """
 
 from __future__ import annotations
@@ -23,7 +31,6 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch.ops import pool_kernel
 
@@ -56,16 +63,15 @@ def max_pool(x: torch.Tensor, kernel: Sequence[int],
 
 def avg_pool(x: torch.Tensor, kernel: Sequence[int],
              strides: Sequence[int], padding: str = "SAME") -> torch.Tensor:
-    """`flax.linen.avg_pool(x, kernel, strides, padding)` on NCHW.
+    """`flax.linen.avg_pool(x, kernel, strides, padding)` on NCHW, for a
+    3x3 window at stride 1, 'SAME' (another raises).
 
     Flax's default `count_include_pad=True`: the padded zeros count in
     every window's mean (unlike TF-Slim's 'SAME' average pool, which
     divides by the window's in-image size); the port follows the JAX
     package."""
-    kernel, strides = tuple(kernel), tuple(strides)
-    ph, pw = _pads(x, kernel, strides, padding)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.avg_pool2d(x, kernel, strides, padding=(ph[0], pw[0]),
-                            count_include_pad=True)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.avg_pool2d(x, kernel, strides)
+    if (tuple(kernel), tuple(strides), padding) != ((3, 3), (1, 1), "SAME"):
+        raise ValueError(f"avg_pool: takes a 3x3 window at stride 1 with "
+                         f"'SAME' padding, got kernel {kernel}, strides "
+                         f"{strides}, padding {padding!r}")
+    return pool_kernel.avg_pool_same(x)

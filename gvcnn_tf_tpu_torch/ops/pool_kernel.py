@@ -1,8 +1,9 @@
-"""The TF-'SAME' / 'VALID' max pool as hand-written CUDA kernels, with its
-plain PyTorch versions.
+"""The TF-'SAME' / 'VALID' max pool and the 3x3/1 'SAME' average pool as
+hand-written CUDA kernels, with their plain PyTorch versions.
 
-Replaces no TPU kernel: the JAX package leaves pooling to XLA
-(`flax.linen.max_pool`, reduce_window; its gradient select_and_scatter).
+Replace no TPU kernel: the JAX package leaves pooling to XLA
+(`flax.linen.max_pool` / `avg_pool`, reduce_window; the max pool's gradient
+select_and_scatter).  The average pool is at the end of this docstring.
 The kernels are in `csrc/max_pool.cu` (its source note says what bounds
 them on the H100 and what their design does about it); x's dtype picks
 them:
@@ -58,6 +59,32 @@ artifact calls them, and a dispatch mode sees them as one op each
 implementation is `_forward` / `_backward`; their outputs are
 channels-last on every device, and so are their fake (shape-only) ones.
 An eager call reaches neither op and pays no dispatch.
+
+The average pool, `avg_pool_same(x)`: the one geometry of the port's
+backbones, a 3x3 window at stride 1 with TF-'SAME' pads (1, 1) on both
+dims, as Flax's `avg_pool` with `count_include_pad=True` (the padded zeros
+count in every window's mean), which the port follows.  The kernels
+(`csrc/avg_pool.cu`: `avg_pool_same_fwd_{bf16,f32}` and
+`avg_pool_same_bwd_{bf16,f32}`) take the same dtypes, layout and 16-byte
+channel vectors as the max pool's; anything else raises on a card.
+
+  CPU (and `meta`)  `avg_pool_plain`: `F.avg_pool2d` counting the pads,
+                    under autograd;
+  CUDA              the forward kernel, or where x needs a gradient
+                    `AvgPoolFunction`, whose backward is the same box mean
+                    over dy (`avg_pool_backward_plain` is its plain
+                    version): at stride 1 with symmetric pads the windows
+                    that hold an input are the outputs around it, so dx =
+                    boxsum3x3(dy) / 9 with zero padding, and nothing is
+                    saved for the backward.
+
+Both sum in fp32, divide by 9 and round once (as PyTorch's kernel does, in
+another order).  It never falls back to `F.avg_pool2d` on a card.
+`avg_pool_same.launches` counts the forward kernel's launches,
+`avg_pool_same.launches_bwd` the backward's.  The operators
+`gvcnn::avg_pool_same` (x) and `gvcnn::avg_pool_same_backward` (dy) are
+the 3x3/1 'SAME' pool and its backward, for `torch.export` and dispatch
+modes as above, with channels-last outputs and fake outputs.
 """
 
 from __future__ import annotations
@@ -74,6 +101,10 @@ GEOMETRIES = ((3, 2), (3, 1), (2, 2))
 KERNELS = {
     torch.bfloat16: ("max_pool_same_fwd_bf16", "max_pool_same_bwd_bf16"),
     torch.float32: ("max_pool_same_fwd_f32", "max_pool_same_bwd_f32"),
+}
+AVG_KERNELS = {
+    torch.bfloat16: ("avg_pool_same_fwd_bf16", "avg_pool_same_bwd_bf16"),
+    torch.float32: ("avg_pool_same_fwd_f32", "avg_pool_same_bwd_f32"),
 }
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -360,3 +391,115 @@ class MaxPoolFunction(torch.autograd.Function):
         else:
             dx = _backward(dy, slot, hw, kernel, strides, pads)
         return dx, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# The 3x3/1 'SAME' average pool (csrc/avg_pool.cu)
+# ---------------------------------------------------------------------------
+
+
+def avg_pool_plain(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3/1 'SAME' pool of x as `F.avg_pool2d`, the pads counted in
+    each window's mean.  Gradients are autograd's."""
+    return F.avg_pool2d(x, 3, 1, padding=1, count_include_pad=True)
+
+
+def avg_pool_backward_plain(dy: torch.Tensor) -> torch.Tensor:
+    """dx of the 3x3/1 'SAME' average pool from dy alone, in dy's dtype:
+    the sum of each 3x3 window of dy padded by one zero on every side, in
+    fp32, over 9, rounded once; the backward kernel's plain version."""
+    h, w = dy.shape[2:]
+    g = F.pad(dy.float(), (1, 1, 1, 1))
+    s = sum(g[:, :, i:i + h, j:j + w] for i in range(3) for j in range(3))
+    return (s / 9).to(dy.dtype)
+
+
+def _box(t: torch.Tensor, backward: bool) -> torch.Tensor:
+    """The 3x3/1 'SAME' pool of x, or its backward from dy, with no
+    autograd: the plain versions on the CPU, a kernel on CUDA;
+    channels-last."""
+    if t.device.type in ("cpu", "meta"):
+        out = avg_pool_backward_plain(t) if backward else avg_pool_plain(t)
+        return out.contiguous(memory_format=torch.channels_last)
+    if t.device.type != "cuda":
+        raise ValueError(f"avg_pool_same: unsupported device {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        with torch.cuda.device(t.device):
+            return _box(t, backward)
+    if t.dtype not in AVG_KERNELS:
+        raise TypeError(f"avg_pool_same: takes bfloat16 or float32, got "
+                        f"{t.dtype}")
+    name = AVG_KERNELS[t.dtype][backward]
+    t = t.contiguous(memory_format=torch.channels_last)
+    _check_vectors(name, t)
+    out = _empty(t.shape, t.dtype, t.device)
+    if out.numel() == 0:
+        return out
+    n, c, h, w = t.shape
+    code = getattr(_build.library(), name)(
+        t.data_ptr(), out.data_ptr(), n, h, w, c,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, name)
+    if backward:
+        avg_pool_same.launches_bwd += 1
+    else:
+        avg_pool_same.launches += 1
+    return out
+
+
+def avg_pool_same(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3/1 'SAME' average pool of NCHW x, the padded zeros counted:
+    the plain version on the CPU, the kernels on CUDA (see the module
+    docstring)."""
+    if x.device.type != "cuda" and not as_operator():
+        return avg_pool_plain(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return AvgPoolFunction.apply(x)
+    if as_operator():
+        return torch.ops.gvcnn.avg_pool_same(x)
+    return _box(x, False)
+
+
+avg_pool_same.launches = 0
+avg_pool_same.launches_bwd = 0
+
+
+@torch.library.custom_op("gvcnn::avg_pool_same", mutates_args=())
+def avg_pool_same_op(x: torch.Tensor) -> torch.Tensor:
+    """`gvcnn::avg_pool_same`: the 3x3/1 'SAME' pool as an operator (no
+    autograd)."""
+    return _box(x, False)
+
+
+@avg_pool_same_op.register_fake
+def _avg_pool_same_fake(x):
+    return _empty(x.shape, x.dtype, x.device)
+
+
+@torch.library.custom_op("gvcnn::avg_pool_same_backward", mutates_args=())
+def avg_pool_same_backward_op(dy: torch.Tensor) -> torch.Tensor:
+    """`gvcnn::avg_pool_same_backward`: dx from dy as an operator."""
+    return _box(dy, True)
+
+
+@avg_pool_same_backward_op.register_fake
+def _avg_pool_same_backward_fake(dy):
+    return _empty(dy.shape, dy.dtype, dy.device)
+
+
+class AvgPoolFunction(torch.autograd.Function):
+    """The 3x3/1 'SAME' pool under autograd: the forward kernel, and the
+    same box mean over dy as the backward (the plain versions on the CPU).
+    Nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, x):
+        if as_operator():
+            return torch.ops.gvcnn.avg_pool_same(x)
+        return _box(x, False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if as_operator():
+            return torch.ops.gvcnn.avg_pool_same_backward(dy)
+        return _box(dy, True)

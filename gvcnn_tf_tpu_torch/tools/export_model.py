@@ -11,9 +11,10 @@ on (channels-last on a card).  Its input is a static float32
 for the single-view classifier); its outputs are `(logits, Predictions)`.
 `export_model` returns `torch.export.save`'s bytes.
 
-The stem conv, the grouping head and the max pools are in the graph as the
-port's `torch.library` ops, `gvcnn::stem_conv7x7s2`, `gvcnn::group_and_fuse`
-and `gvcnn::max_pool_same`, so the process that loads an artifact must have
+The stem conv, the grouping head and the max and average pools are in the
+graph as the port's `torch.library` ops, `gvcnn::stem_conv7x7s2`,
+`gvcnn::group_and_fuse`, `gvcnn::max_pool_same` and `gvcnn::avg_pool_same`,
+so the process that loads an artifact must have
 imported them first (`gvcnn_tf_tpu_torch.ops.stem_kernel`,
 `.grouping_kernel` and `.pool_kernel`; importing this module does).  On a
 card an artifact launches the CUDA kernels (built at first use, as every

@@ -517,6 +517,7 @@ _CLASSES = (
     ("K2 stem kernel", ("stem_conv",)),
     ("K1 grouping kernel", ("group_and_fuse",)),
     ("max-pool", ("max_pool",)),
+    ("avg-pool", ("avg_pool",)),
     ("optimizer (foreach)", ("foreach", "multi_tensor")),
     ("conv (cuDNN)", ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop",
                       "implicit", "sm90_", "nhwc")),

@@ -26,7 +26,8 @@ arguments that reads its inputs from static buffers the class owns:
 
 A replay runs no Python, so the hand-written kernels' wrappers, which count
 their launches (`stem_conv.launches`, `stem_conv.launches_f32`,
-`group_and_fuse.launches`, `max_pool_same.launches` and `.launches_bwd`),
+`group_and_fuse.launches`, `max_pool_same.launches` and `.launches_bwd`,
+`avg_pool_same.launches` and `.launches_bwd`),
 do not run: a capture measures how far it moved those counters, puts them
 back (a capture launches nothing), and every replay adds that much.  After a
 replay the version counters of the tensors the function mutates are bumped,
@@ -60,7 +61,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-from gvcnn_tf_tpu_torch.ops.pool_kernel import max_pool_same
+from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same, max_pool_same
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
 from gvcnn_tf_tpu_torch.utils import profiling
 
@@ -92,13 +93,15 @@ def _new_graph(call: "CapturedCall"):
 def _counters():
     return (stem_conv.launches, stem_conv.launches_f32,
             group_and_fuse.launches, max_pool_same.launches,
-            max_pool_same.launches_bwd)
+            max_pool_same.launches_bwd, avg_pool_same.launches,
+            avg_pool_same.launches_bwd)
 
 
 def _set_counters(values):
     (stem_conv.launches, stem_conv.launches_f32,
      group_and_fuse.launches, max_pool_same.launches,
-     max_pool_same.launches_bwd) = values
+     max_pool_same.launches_bwd, avg_pool_same.launches,
+     avg_pool_same.launches_bwd) = values
 
 
 def _where(exc: BaseException) -> str:

@@ -61,6 +61,17 @@ order); ties, -inf windows, NaN, forward and backward; a C or an address
 that does not fill 16-byte channel vectors raising; a captured and replayed
 train step runs 13 forward and 13 backward pool kernels and none of
 PyTorch's, and three fewer fills than the same step on `F.max_pool2d`.
+
+Average pools (`csrc/avg_pool.cu`), at Inception-v4's three shapes at 384
+images in bf16 and fp32: the forward within one bf16 ulp (plus 1e-6 where a
+window cancels; fp32: 1e-6) of `F.avg_pool2d` counting the pads; dx within
+the same of the plain box sum and of autograd's through `F.avg_pool2d` on
+fp32 NCHW copies, rounded once (PyTorch's channels-last `avg_pool2d`
+backward on the card gave dx displaced by the pad, one row and one column,
+in torch 2.11.0+cu128; its NCHW backward gives the CPU's gradient); a
+captured and replayed Inception-v4 step runs 14
+forward and 14 backward average-pool kernels and none of PyTorch's; what
+the kernels do not take raises before a launch.
 """
 
 import numpy as np
@@ -827,17 +838,17 @@ def test_profiled_window_on_the_card(cuda, tmp_path):
 # CUDA graphs: the compiled step, the engine's buckets, eval
 # ---------------------------------------------------------------------------
 
-def _graph_cfg(**train_kw):
-    """mn40_12view at 64x64, 4 views, B = 2, bf16, dropout on, the decoded
-    loader's on-card flip on a uint8 wire."""
+def _graph_cfg(config="mn40_12view", size=64, **train_kw):
+    """`config` (mn40_12view) at size x size (64x64), 4 views, B = 2, bf16,
+    dropout on, the decoded loader's on-card flip on a uint8 wire."""
     import dataclasses
 
     from gvcnn_tf_tpu_torch import get_config
 
-    base = get_config("mn40_12view")
+    base = get_config(config)
     return base.replace(
         data=dataclasses.replace(
-            base.data, height=64, width=64, num_views=4, batch_size=2,
+            base.data, height=size, width=size, num_views=4, batch_size=2,
             loader="decoded", augment=True, device_flip=True,
             transfer_dtype="uint8"),
         train=dataclasses.replace(base.train, **train_kw))
@@ -1390,3 +1401,143 @@ def test_compiled_step_runs_the_pool_kernels(cuda, monkeypatch):
     assert launches("plain", "at::native") > 0
     assert launches("kernel", "fill") <= launches("plain", "fill") - 3
     assert launches("kernel", "copy") <= launches("plain", "copy") - 3
+
+
+# ---------------------------------------------------------------------------
+# The average-pool kernels (csrc/avg_pool.cu)
+# ---------------------------------------------------------------------------
+
+# (H = W, C) of Inception-v4's average pools at 299x299: 4, 7 and 3 of them.
+AVG_SHAPES = [(35, 384), (17, 1024), (8, 1536)]
+AVG_N = 384
+
+
+def _avg_input(cuda, n, h, c, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, c, h, h, generator=g, device=cuda)
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _within_avg_tolerance(got, want, dtype):
+    """bf16: one ulp of want (fp32 sums in another order may round the
+    other way), and 1e-6 more where a window's values cancel toward 0 (the
+    fp32 sums' own rounding); fp32: rtol = atol = 1e-6."""
+    got, want = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        assert bool(((got - want).abs() <= _bf16_ulp(want) + 1e-6).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,c", AVG_SHAPES)
+def test_avg_pool_forward_kernel_is_the_plain_pool(cuda, h, c, dtype):
+    """The forward kernel at 384 images against the plain forward
+    (`F.avg_pool2d` counting the pads): a channels-last output of x's shape
+    within the tolerance; it launches once."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+
+    x = _avg_input(cuda, AVG_N, h, c, dtype, h + c)
+    before = pk.avg_pool_same.launches
+    with torch.no_grad():
+        y = pk.avg_pool_same(x)
+        want = pk.avg_pool_plain(x)
+    torch.cuda.synchronize()
+    assert pk.avg_pool_same.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    _within_avg_tolerance(y, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,c", AVG_SHAPES)
+def test_avg_pool_backward_kernel_is_autograds(cuda, h, c, dtype):
+    """The pool's Function at 384 images: dx from the backward kernel
+    within the tolerance of autograd's through `F.avg_pool2d` and of the
+    plain box sum of dy; one launch each way, through `AvgPoolFunction`.
+    Autograd runs on fp32 NCHW copies of x and dy and its dx is rounded to
+    the dtype once: PyTorch's channels-last backward is displaced (module
+    docstring), and its bf16 NCHW backward lay up to 2 ulps from the
+    kernel's on the card (it divides each dy by 9 in bf16 before it
+    sums)."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+
+    x = _avg_input(cuda, AVG_N, h, c, dtype, h + c + 1)
+    dy = _avg_input(cuda, AVG_N, h, c, dtype, 5)
+    xa = x.clone().requires_grad_()
+    xb = x.float().contiguous().requires_grad_()
+    counter = pk.avg_pool_same
+    before = (counter.launches, counter.launches_bwd)
+    y = pk.avg_pool_same(xa)
+    y.backward(dy)
+    F.avg_pool2d(xb, 3, 1, padding=1, count_include_pad=True).backward(
+        dy.float().contiguous())
+    plain = pk.avg_pool_backward_plain(dy)
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0],
+            counter.launches_bwd - before[1]) == (1, 1)
+    assert "AvgPoolFunction" in type(y.grad_fn).__name__
+    assert xa.grad.is_contiguous(memory_format=torch.channels_last)
+    _within_avg_tolerance(xa.grad, xb.grad.to(dtype), dtype)
+    _within_avg_tolerance(xa.grad, plain, dtype)
+
+
+def test_compiled_inception_v4_step_runs_the_avg_pool_kernels(cuda):
+    """A captured and replayed B = 2 train step of
+    mn40_12view_inception_v4 (80x80, 4 views, bf16) runs the average-pool
+    kernels, 14 forwards and 14 backwards a step, as its launch counters
+    say, and no `avg_pool2d` kernel of PyTorch's."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.train import compile_train_step, create_train_state
+
+    cfg = _graph_cfg("mn40_12view_inception_v4", size=80)
+    batches = _u8_batches(cfg, 3)
+    counter = pk.avg_pool_same
+    state = create_train_state(cfg, cuda)
+    step = compile_train_step(state, cfg, batches[0])
+    step(state, batches[0], cfg)          # the warm-up
+    step(state, batches[1], cfg)          # the capture, replayed
+    before = (counter.launches, counter.launches_bwd)
+    kern, replays = _replay_kernels(step, state, batches[2], cfg)
+    assert (counter.launches - before[0],
+            counter.launches_bwd - before[1]) == (14 * replays,
+                                                  14 * replays)
+    assert sum(n for k, n in kern.items() if "avg_pool_same_fwd" in k) == 14
+    assert sum(n for k, n in kern.items() if "avg_pool_same_bwd" in k) == 14
+    assert not any("avg_pool2d" in k for k in kern)
+
+
+def test_avg_pool_refuses_on_the_card_without_launching(cuda):
+    """Another window, another dtype, a C that does not fill 16-byte
+    channel vectors and data off a 16-byte boundary raise, each before a
+    launch; an NCHW-contiguous input gives the channels-last input's
+    result."""
+    from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
+    from gvcnn_tf_tpu_torch.ops.pool import avg_pool
+
+    counter = pk.avg_pool_same
+    before = (counter.launches, counter.launches_bwd)
+    x = _avg_input(cuda, 2, 12, 16, torch.float32, 7)
+    with pytest.raises(ValueError, match="3x3 window at stride 1"):
+        avg_pool(x, (3, 3), (2, 2))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            pk.avg_pool_same(x.to(dtype))
+    for dtype, c in ((torch.bfloat16, 12), (torch.float32, 6)):
+        xc = _avg_input(cuda, 2, 12, c, dtype, 8)
+        with pytest.raises(ValueError, match="multiple"):
+            pk.avg_pool_same(xc)
+        with pytest.raises(ValueError, match="multiple"):
+            pk.AvgPoolFunction.apply(xc.requires_grad_()).sum().backward()
+    flat = torch.randn(1 + 2 * 12 * 12 * 16, device=cuda).to(torch.bfloat16)
+    view = flat[1:].view(2, 12, 12, 16).permute(0, 3, 1, 2)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="aligned"):
+        pk.avg_pool_same(view)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_bwd) == before
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        want = pk.avg_pool_same(xd)
+        got = pk.avg_pool_same(xd.contiguous())
+        assert got.dtype == dtype and torch.equal(got, want)

@@ -387,7 +387,7 @@ def test_replays_advance_the_launch_counters(recorder, counted):
     graph = step.graph
     graph._capture()                           # a capture alone
     assert _counts() == (start[0] + 1, start[1] + 1)
-    assert graph._delta == (1, 0, 1, 0, 0)
+    assert graph._delta == (1, 0, 1, 0, 0, 0, 0)
     for n in range(2, 5):
         graph._replay()
         assert _counts() == (start[0] + n, start[1] + n)

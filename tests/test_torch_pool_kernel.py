@@ -1,14 +1,17 @@
-"""The max pool's plain versions, its autograd Function, its ops and its
-export on the CPU (`gvcnn_tf_tpu_torch/ops/pool_kernel.py`).  The CUDA
-kernels are held to these plain versions on the card, in
-tests/test_torch_cuda_kernels.py.
+"""The max and average pools' plain versions, their autograd Functions,
+their ops and their export on the CPU (`gvcnn_tf_tpu_torch/ops/
+pool_kernel.py`).  The CUDA kernels are held to these plain versions on the
+card, in tests/test_torch_cuda_kernels.py.
 
-Every pool geometry of Inception-v1 (13) and ResNet-50 (1), cut to N = 2
-and to H = W = 12 where the published size is larger (12 keeps the parity
-of 112, 56 and 28, so each TF-'SAME' pad is the published one), with the
-published channels.  Tolerances: values, records and single-window
-gradients exact; a gradient summed over several windows in fp32 in another
-order than autograd's, rtol = atol = 1e-6.
+Max pools: every pool geometry of Inception-v1 (13) and ResNet-50 (1),
+cut to N = 2 and to H = W = 12 where the published size is larger (12
+keeps the parity of 112, 56 and 28, so each TF-'SAME' pad is the published
+one), with the published channels.  Tolerances: values, records and
+single-window gradients exact; a gradient summed over several windows in
+fp32 in another order than autograd's, rtol = atol = 1e-6.  Average pools:
+every 3x3/1 'SAME' pool of Inception-v2, v3 and v4 (`AVG_POOLS`), the
+forward equal to `F.avg_pool2d` counting the pads, the backward's box sum
+within rtol = atol = 1e-6 of autograd's gradient.
 """
 
 import numpy as np
@@ -24,7 +27,11 @@ from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (  # noqa: E402
 )
 from gvcnn_tf_tpu_torch.models.backbones.layers import remat  # noqa: E402
 from gvcnn_tf_tpu_torch.ops import pool_kernel as pk  # noqa: E402
-from gvcnn_tf_tpu_torch.ops.pool import _pads, max_pool  # noqa: E402
+from gvcnn_tf_tpu_torch.ops.pool import (  # noqa: E402
+    _pads,
+    avg_pool,
+    max_pool,
+)
 
 # (pool, H = W, C, k, s) of every max pool of Inception-v1 and ResNet-50 at
 # 224x224.
@@ -292,3 +299,208 @@ def test_the_kernels_take_whole_aligned_channel_vectors(dtype, c, offset,
     else:
         with pytest.raises(ValueError):
             pk._check_vectors("pool", data, record)
+
+
+# ---------------------------------------------------------------------------
+# The 3x3/1 'SAME' average pool (csrc/avg_pool.cu): plain versions, the
+# Function, the ops and the export, on the CPU.
+# ---------------------------------------------------------------------------
+
+# (pool, H = W, C) of every average pool of the backbones: Inception-v4's 14
+# at 299x299 (N cut to 2), Inception-v2's 7 at 224 and v3's 9 at 299, cut
+# to H = W = 12 where the published size is larger than 14 (the pads of a
+# 3x3/1 'SAME' pool are (1, 1) at every size).
+AVG_POOLS = (
+    [(f"v4_Mixed_5{b}", 35, 384) for b in "bcde"]
+    + [(f"v4_Mixed_6{b}", 17, 1024) for b in "bcdefgh"]
+    + [(f"v4_Mixed_7{b}", 8, 1536) for b in "bcd"]
+    + [("v2_Mixed_3b", 28, 192), ("v2_Mixed_3c", 28, 256)]
+    + [(f"v2_Mixed_4{b}", 14, 576) for b in "bcde"]
+    + [("v2_Mixed_5b", 7, 1024)]
+    + [("v3_Mixed_5b", 35, 192), ("v3_Mixed_5c", 35, 256),
+       ("v3_Mixed_5d", 35, 288)]
+    + [(f"v3_Mixed_6{b}", 17, 768) for b in "bcde"]
+    + [("v3_Mixed_7b", 8, 1280), ("v3_Mixed_7c", 8, 2048)])
+
+
+def _avg_case(name, h, c, seed=0):
+    """(x, dy) of one average pool, cut to size."""
+    small = h if name.startswith("v4") or h <= 14 else 12
+    rs = np.random.RandomState(seed + h + c)
+    x, dy = rs.randn(2, 2, c, small, small).astype(np.float32)
+    assert _pads(torch.empty(1, 1, h, h), (3, 3), (1, 1), "SAME") == (
+        (1, 1), (1, 1))
+    return torch.from_numpy(x), torch.from_numpy(dy)
+
+
+@pytest.mark.parametrize("name,h,c", AVG_POOLS)
+def test_avg_plain_is_avg_pool2d_counting_the_pads(name, h, c):
+    """The CPU path is `F.avg_pool2d` with `count_include_pad=True`, the
+    same through `pool.avg_pool` and the op's implementation (channels-last
+    there), and launches nothing."""
+    x, _ = _avg_case(name, h, c)
+    want = F.avg_pool2d(x, 3, 1, padding=1, count_include_pad=True)
+    launches = (pk.avg_pool_same.launches, pk.avg_pool_same.launches_bwd)
+    assert torch.equal(pk.avg_pool_plain(x), want)
+    assert torch.equal(avg_pool(x, (3, 3), (1, 1)), want)
+    got = pk._box(x, False)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    assert (pk.avg_pool_same.launches,
+            pk.avg_pool_same.launches_bwd) == launches
+
+
+@pytest.mark.parametrize("name,h,c", AVG_POOLS)
+def test_avg_backward_plain_is_autograds(name, h, c):
+    """`avg_pool_backward_plain(dy)`, the zero-padded box sum of dy over 9,
+    is autograd's gradient through `F.avg_pool2d` (rtol = atol = 1e-6: the
+    sums run in another order); the Function gives the plain forward and
+    that backward, and saves no tensor."""
+    x, dy = _avg_case(name, h, c, seed=1)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = pk.AvgPoolFunction.apply(xa)
+    want = F.avg_pool2d(xb, 3, 1, padding=1, count_include_pad=True)
+    assert saved == []
+    assert torch.equal(y, want)
+    y.backward(dy)
+    want.backward(dy)
+    plain = pk.avg_pool_backward_plain(dy)
+    assert torch.equal(xa.grad, plain)
+    torch.testing.assert_close(plain, xb.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_avg_backward_plain_rounds_once_in_dy_dtype():
+    """In bf16 the plain backward sums in fp32, divides by 9 and rounds
+    once: the fp32 result rounded to bf16, exactly."""
+    _, dy = _avg_case("v4_Mixed_6b", 17, 64, seed=2)
+    got = pk.avg_pool_backward_plain(dy.to(torch.bfloat16))
+    want = pk.avg_pool_backward_plain(dy.to(torch.bfloat16).float())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_avg_remat_saves_nothing_and_gives_the_gradient():
+    """Under `layers.remat` the Function's forward runs again in the
+    backward and the gradient is the same."""
+    x, _ = _avg_case("v2_Mixed_4b", 14, 32)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    pk.AvgPoolFunction.apply(xb).square().sum().backward()
+    calls = []
+    real = pk._box
+
+    def counted(t, backward):
+        calls.append(backward)
+        return real(t, backward)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pk, "_box", counted)
+        remat(lambda t: pk.AvgPoolFunction.apply(t).square(),
+              xa).sum().backward()
+    assert calls == [False, False, True]
+    assert torch.equal(xa.grad, xb.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_opcheck_avg_pool_ops(dtype, which):
+    """`torch.library.opcheck` of `gvcnn::avg_pool_same` and
+    `gvcnn::avg_pool_same_backward` on CPU tensors: schema, fake
+    implementation (channels-last outputs), AOT dispatch."""
+    x, dy = _avg_case("v2_Mixed_3b", 28, 16)
+    op = (torch.ops.gvcnn.avg_pool_same if which == "forward"
+          else torch.ops.gvcnn.avg_pool_same_backward)
+    torch.library.opcheck(op.default, ((x if which == "forward"
+                                        else dy).to(dtype),))
+
+
+def test_avg_fake_gives_channels_last_outputs_of_the_input_shape():
+    """Under fake tensors both ops give a channels-last tensor of their
+    input's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty(2, 384, 35, 35, dtype=torch.bfloat16)
+        y = torch.ops.gvcnn.avg_pool_same(x)
+        dx = torch.ops.gvcnn.avg_pool_same_backward(y)
+    for t in (y, dx):
+        assert (tuple(t.shape), t.dtype) == ((2, 384, 35, 35),
+                                             torch.bfloat16)
+        assert t.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_export_traces_inception_v4_through_the_avg_op():
+    """`torch.export` of Inception-v4 (eval, 80x80) holds its 14 average
+    pools as `gvcnn::avg_pool_same` and no `avg_pool2d`, and the artifact
+    gives the eager model's features."""
+    from gvcnn_tf_tpu_torch.models.backbones.inception_v4 import (
+        InceptionV4Base,
+    )
+
+    torch.manual_seed(0)
+    model = InceptionV4Base().eval().requires_grad_(False)
+    x = torch.rand(1, 80, 80, 3) * 2 - 1
+    ep = torch.export.export(model, (x,))
+    targets = [str(n.target) for n in ep.graph.nodes]
+    assert targets.count("gvcnn.avg_pool_same.default") == 14
+    assert not any("avg_pool2d" in t for t in targets)
+    torch.testing.assert_close(ep.module()(x)[0], model(x)[0], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_a_dispatch_mode_sees_one_avg_op_each_way():
+    """Under a dispatch mode a pool that takes a gradient is
+    `gvcnn::avg_pool_same` forward and `gvcnn::avg_pool_same_backward`
+    backward, with autograd's gradient."""
+    x, dy = _avg_case("v3_Mixed_6b", 17, 16)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    with _Ops() as ops:
+        avg_pool(xa, (3, 3), (1, 1)).backward(dy)
+    F.avg_pool2d(xb, 3, 1, padding=1).backward(dy)
+    assert "gvcnn::avg_pool_same" in ops.names
+    assert "gvcnn::avg_pool_same_backward" in ops.names
+    assert not any("avg_pool2d" in n for n in ops.names)
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel,strides,padding", [
+    ((3, 3), (2, 2), "SAME"), ((3, 3), (1, 1), "VALID"),
+    ((2, 2), (1, 1), "SAME"), ((5, 5), (1, 1), "SAME"),
+    ((3, 1), (1, 1), "SAME")])
+def test_avg_pool_refuses_another_geometry(kernel, strides, padding):
+    """`pool.avg_pool` takes the backbones' 3x3/1 'SAME' window alone:
+    another raises on the CPU as on a card, and under a dispatch mode,
+    before any pooling."""
+    x, _ = _avg_case("v2_Mixed_4b", 14, 16)
+    with pytest.raises(ValueError, match="3x3 window at stride 1"):
+        avg_pool(x, kernel, strides, padding)
+    with _Ops() as ops, pytest.raises(ValueError,
+                                      match="3x3 window at stride 1"):
+        avg_pool(x, kernel, strides, padding)
+    assert not any("avg_pool" in n for n in ops.names)
+
+
+def test_avg_pool_refuses_what_the_kernels_do_not_take():
+    """Only bf16 and fp32 have kernels (another dtype raises on a card:
+    `test_avg_pool_refuses_on_the_card_without_launching`), and C has to
+    fill 16-byte channel vectors: a multiple of 8 in bf16 (4 in fp32)."""
+    assert pk.AVG_KERNELS == {
+        torch.bfloat16: ("avg_pool_same_fwd_bf16", "avg_pool_same_bwd_bf16"),
+        torch.float32: ("avg_pool_same_fwd_f32", "avg_pool_same_bwd_f32")}
+    for dtype, c, fits in [(torch.bfloat16, 384, True),
+                           (torch.bfloat16, 12, False),
+                           (torch.float32, 12, True),
+                           (torch.float32, 6, False)]:
+        data = torch.zeros(2, c, 5, 5, dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        if fits:
+            pk._check_vectors("avg_pool_same_fwd", data)
+        else:
+            with pytest.raises(ValueError, match="multiple"):
+                pk._check_vectors("avg_pool_same_fwd", data)
