@@ -23,12 +23,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    requests; the card's logits and scores for a B=2 request against the
    same weights run in fp32 on the CPU through the plain versions; request
    latency at B=1 and B=8.
-6. The stem kernel's autograd Function (kernel forward, cuDNN weight
+6. The stem kernel's op and its gradient (kernel forward, cuDNN weight
    gradient backward) against autograd through the plain version: dw at the
    B=8 training shape (96, 224, 224, 3) and at (2, 30, 30, 3) and
-   (3, 8, 130, 3), and dx where x needs a gradient; the Function's forward
+   (3, 8, 130, 3), and dx where x needs a gradient; the op's forward
    + backward, its backward alone, and cuDNN's weight gradient alone.
-7. The grouping kernel's autograd Function against autograd through the
+7. The grouping kernel's op and its gradient against autograd through the
    plain version: both modes, M in {1, 8, 16}, scores on the j/M edges,
    empty groups; forward + backward and backward alone.
 8. The training slice: `train()` of mn40_12view at full width (B=8, 12
@@ -71,7 +71,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    unaligned width with a ragged band, 96 images and a row of two strips,
    timed against cuDNN's fp32 and TF32 convs, with its bound on the tensor
    cores and on the CUDA cores;
-   its autograd Function's dw (and dx at the other shapes) against autograd
+   its op's dw (and dx at the other shapes) against autograd
    through the plain version with TF32 off, and its forward + backward,
    backward alone and cuDNN's fp32 weight gradient timed;
    the grouping kernel at C = 1536 (Inception-v4) and 2048 (ResNet-50)
@@ -365,7 +365,7 @@ STEM_GRAD_SHAPES = [(96, 224, 224, 3), (2, 30, 30, 3), (3, 8, 130, 3)]
 STEM_F32_SHAPES = [(8, 224, 224, 3), (3, 31, 45, 3), (1, 18, 226, 3),
                    (96, 224, 224, 3), (2, 20, 300, 3)]
 STEM_F32_REL_TOL = 1e-5
-# The fp32 Function's dw (and dx) against the plain version's, both cuDNN
+# The fp32 stem op's dw (and dx) against the plain version's, both cuDNN
 # fp32 conv gradients with TF32 off, summed in whatever order cuDNN picks
 # (TF32 would round the inputs to 10 bits, ~1e-3).
 STEM_F32_GRAD_REL_TOL = 1e-4
@@ -827,7 +827,8 @@ def phase_pool(dev):
 def _pool_autograd(dev, rs):
     """The main path's entry under autograd at one asymmetric B = 32 pool
     (MaxPool_3a_3x3, pads (0, 1)): `pool.max_pool` (through the pool's
-    autograd Function: one forward and one backward launch) against
+    op and its registered gradient: one forward and one backward launch)
+    against
     `F.pad` + `F.max_pool2d` and autograd's gradient of it; the output bit
     for bit, dx bit-equal where an input wins one window and within one
     bf16 ulp where it wins several."""
@@ -839,13 +840,12 @@ def _pool_autograd(dev, rs):
         np.float32)).to(dev, torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-    counter = pk.max_pool_same
-    before = (counter.launches, counter.launches_bwd)
+    before = _pool_counts()
     y = max_pool(xa, (k, k), (s, s), "SAME")
     dy = torch.randn_like(y)
     y.backward(dy)
     torch.cuda.synchronize(dev)
-    moved = (counter.launches - before[0], counter.launches_bwd - before[1])
+    moved = tuple(a - b for a, b in zip(_pool_counts(), before))
     geo = ((k, k), (s, s), _pads(x, (k, k), (s, s), "SAME"))
     want = pk.max_pool_plain(xb, *geo)
     want.backward(dy)
@@ -865,7 +865,7 @@ def _pool_autograd(dev, rs):
         + json.dumps(out))
     if not (out["y_equal"] and out["dx_single_win_equal"]
             and out["dx_within_ulp"] and moved == (1, 1)
-            and "MaxPoolFunction" in out["grad_fn"]):
+            and "gvcnn_max_pool_same" in out["grad_fn"]):
         raise AssertionError(f"max pool {name} under autograd: {out}")
     return out
 
@@ -893,8 +893,7 @@ def phase_avg_pool(dev):
         return gap.max().item(), bool(
             (gap <= _bf16_ulp(want.float()) + 1e-6).all())
 
-    counter = pk.avg_pool_same
-    start = (counter.launches, counter.launches_bwd)
+    start = _avg_counts()
     rows = []
     for name, h, c, count in AVG_POOL_SHAPES:
         x, dy = draw(h, c), draw(h, c)
@@ -947,23 +946,23 @@ def phase_avg_pool(dev):
     # The main path's entry under autograd at Mixed_5b's pool.
     _, h, c, _ = AVG_POOL_SHAPES[0]
     xa = draw(h, c).requires_grad_()
-    before = (counter.launches, counter.launches_bwd)
+    before = _avg_counts()
     y = avg_pool(xa, (3, 3), (1, 1), "SAME")
     dy = draw(h, c)
     y.backward(dy)
     torch.cuda.synchronize(dev)
-    moved = (counter.launches - before[0], counter.launches_bwd - before[1])
+    moved = tuple(a - b for a, b in zip(_avg_counts(), before))
     with torch.no_grad():
         autograd = dict(
             grad_fn=type(y.grad_fn).__name__, launches=list(moved),
             y=within_ulp(y, pk.avg_pool_plain(xa.detach())),
             dx=within_ulp(xa.grad, pk.avg_pool_backward_plain(dy)))
     log("avg pool under autograd, pool.avg_pool: " + json.dumps(autograd))
-    if not (moved == (1, 1) and "AvgPoolFunction" in autograd["grad_fn"]
+    if not (moved == (1, 1) and "gvcnn_avg_pool_same" in autograd["grad_fn"]
             and autograd["y"][1] and autograd["dx"][1]):
         raise AssertionError(f"avg pool under autograd: {autograd}")
-    launches = dict(launches=counter.launches - start[0],
-                    launches_bwd=counter.launches_bwd - start[1])
+    end = _avg_counts()
+    launches = dict(launches=end[0] - start[0], launches_bwd=end[1] - start[1])
     log("avg pool launch counters over phase 21: " + json.dumps(launches))
     return dict(inception_v4=total, by_shape=rows, autograd=autograd,
                 **launches)
@@ -1065,8 +1064,6 @@ def _check_results(results, n, num_views):
 def phase_slice(card):
     from gvcnn_tf_tpu_torch import get_config
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
-    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
     from gvcnn_tf_tpu_torch.serve import serve
     from gvcnn_tf_tpu_torch.utils import fold_batch_norm
 
@@ -1084,11 +1081,10 @@ def phase_slice(card):
         u8 = lambda n: rs.randint(0, 256, (n,) + shape).astype(np.uint8)
         fl = lambda n: rs.uniform(-1, 1, (n,) + shape).astype(np.float32)
 
-        stem_conv.launches = group_and_fuse.launches = 0
+        _zero_counts()
         for n, views in [(1, u8(1)), (8, fl(8)), (11, fl(11))]:
             _check_results(_post(url, views), n, d.num_views)
-        launches = {"stem": stem_conv.launches,
-                    "grouping": group_and_fuse.launches}
+        launches = _by_kernel()
         log(f"launches over the B=1, 8, 11 requests: {launches} in "
             f"{FORWARDS} forwards")
         # 1 + 1 + 2 chunks (11 = 8 + 3 padded to 8), one launch each.
@@ -1211,7 +1207,7 @@ def phase_stem_backward(dev):
         timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
             x.numel() * 2 + g.numel() * 2 + w32.numel() * 2,
             2 * g.numel() * 147, "bfloat16")
-        log(f"stem backward {shape}: Function forward + backward "
+        log(f"stem backward {shape}: op forward + backward "
             f"{timed['fwd_bwd_ms']:.4f} ms (plain "
             f"{timed['plain_fwd_bwd_ms']:.4f}"
             f"), backward alone {timed['backward_ms']:.4f} ms, cuDNN weight "
@@ -1273,7 +1269,7 @@ def phase_grouping_backward(dev):
     # d_descs once (fp32); its work is the masked max's B*M*V*C compares.
     timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
         4 * (2 * b * v + 2 * b * v * c + b * c), b * m * v * c, "float32")
-    log(f"grouping backward ({b}, {v}, {c}, M={m}): Function forward + "
+    log(f"grouping backward ({b}, {v}, {c}, M={m}): op forward + "
         f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
         f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone (the plain "
         f"version's VJP replayed) {timed['backward_ms']:.4f} ms, bound "
@@ -1293,8 +1289,6 @@ def phase_train(card, dev):
 
     from gvcnn_tf_tpu_torch import get_config
     from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights
-    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
     from gvcnn_tf_tpu_torch.tools.measure import (
         cuda_ms,
         train_batch,
@@ -1313,10 +1307,9 @@ def phase_train(card, dev):
 
     # The main path: train(), then a second train() that resumes.
     t0 = time.perf_counter()
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     state, mets = train(cfg, num_steps=TRAIN_STEPS, device="cuda")
-    launches = {"stem": stem_conv.launches,
-                "grouping": group_and_fuse.launches}
+    launches = _by_kernel()
     wall = time.perf_counter() - t0
     log(f"train(): {TRAIN_STEPS} steps in {wall:.1f} s "
         f"({TRAIN_STEPS * views / wall:.1f} views/s end to end, first step "
@@ -1336,10 +1329,10 @@ def phase_train(card, dev):
     log(f"{len(moved)} of {len(init)} parameters and statistics moved, every "
         f"BN statistic among them")
 
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     resumed, _ = train(cfg, num_steps=TRAIN_STEPS + RESUME_STEPS,
                        device="cuda")
-    got = (resumed.step, stem_conv.launches, group_and_fuse.launches)
+    got = (resumed.step, *_by_kernel().values())
     if got != (TRAIN_STEPS + RESUME_STEPS, RESUME_STEPS, RESUME_STEPS):
         raise AssertionError(f"resume: (step, stem, grouping launches) "
                              f"{got}")
@@ -1367,11 +1360,10 @@ def phase_train(card, dev):
     # Step time on a batch already on the card (no input pipeline).
     tstate = create_train_state(cfg, dev)
     batch = train_batch(cfg, np.random.RandomState(9), dev)
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     step_ms = cuda_ms(lambda: train_step(tstate, batch, cfg), runs=20,
                       warmup=5)
-    per_step = {"stem": stem_conv.launches / 25,
-                "grouping": group_and_fuse.launches / 25}
+    per_step = {k: n / 25 for k, n in _by_kernel().items()}
     log(f"train step B=8: {step_ms:.3f} ms median, {views / step_ms * 1e3:.1f}"
         f" views/s, launches per step {per_step} [{card}]")
     return dict(launches=launches, per_step=per_step, step_ms=step_ms,
@@ -1442,16 +1434,13 @@ def phase_eval(card, dev):
     from gvcnn_tf_tpu_torch.checkpoint import Checkpointer, load_model
     from gvcnn_tf_tpu_torch.data import make_dataset
     from gvcnn_tf_tpu_torch.data.procedural import class_table
-    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
     from gvcnn_tf_tpu_torch.tools.make_demo_meshes import write_off
     from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_durations_us
     from gvcnn_tf_tpu_torch.utils import normalize_views
 
     train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
     predict_mod = importlib.import_module("gvcnn_tf_tpu_torch.predict")
-    counts = lambda: {"stem": stem_conv.launches,                # noqa: E731
-                      "grouping": group_and_fuse.launches}
+    counts = _by_kernel
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
     shutil.rmtree(root, ignore_errors=True)
@@ -1494,7 +1483,7 @@ def phase_eval(card, dev):
         return res
 
     train_mod.evaluate = recorded_evaluate
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     try:
         state, mets = train(cfg, num_steps=EVAL_TRAIN_STEPS, device="cuda")
@@ -1528,7 +1517,7 @@ def phase_eval(card, dev):
         one = root / f"step{step}"
         one.mkdir()
         shutil.copy(ckpt.path(step), one)
-        stem_conv.launches = group_and_fuse.launches = 0
+        _zero_counts()
         with eval_logits() as seen:
             res = evaluate(cfg, str(one), device="cuda")
         eval_launches = counts()
@@ -1546,7 +1535,7 @@ def phase_eval(card, dev):
             raise AssertionError(f"expected {EVAL_FORWARDS} launches of each "
                                  f"kernel, got {eval_launches}")
     # The end-to-end time, without the hook's copies: the main path.
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = evaluate(cfg, str(one), device="cuda")
     eval_wall = time.perf_counter() - t0
@@ -1580,7 +1569,7 @@ def phase_eval(card, dev):
     for i, name in enumerate(("chair", "bottle", "lamp")):
         meshes.append(str(root / f"{name}.off"))
         write_off(meshes[-1], *table[name](np.random.RandomState(i)))
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     recs = predict(cfg, str(logdir), mesh_files=meshes, device="cuda")
     got = [(r["shape"], r["class_index"], r["probability"]) for r in recs]
     log(f"predict() of 3 meshes: {got}; launches {counts()}")
@@ -1627,7 +1616,7 @@ def phase_eval(card, dev):
     # No evaluation, and no checkpoint inside the last logging window.
     rcfg = cfg.replace(train=dataclasses.replace(
         cfg.train, eval_every=0, checkpoint_every=EVAL_TRAIN_STEPS))
-    stem_conv.launches = group_and_fuse.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     resumed, rmets = train(rcfg, num_steps=2 * EVAL_TRAIN_STEPS,
                            device="cuda")
@@ -1742,7 +1731,7 @@ def phase_stem_f32(dev):
 
 
 def stem_f32_backward(dev, w32):
-    """The fp32 stem's autograd Function (fp32 kernel forward, cuDNN's fp32
+    """The fp32 stem's op and gradient (fp32 kernel forward, cuDNN's fp32
     weight gradient) against autograd through the plain version, TF32 off
     on both sides: dw at mn10_single_view's (8, 224, 224, 3), dw and dx at
     the other STEM_F32_SHAPES; then its times at the first, TF32 off."""
@@ -1816,7 +1805,7 @@ def stem_f32_backward(dev, w32):
         timed["backward_bound_ms"], timed["backward_bound_by"] = bound(
             (x.numel() + g.numel() + w32.numel()) * 4,
             2 * g.numel() * 147, "float32")
-        log(f"fp32 stem backward {shape}, TF32 off: Function forward + "
+        log(f"fp32 stem backward {shape}, TF32 off: op forward + "
             f"backward {timed['fwd_bwd_ms']:.4f} ms (plain "
             f"{timed['plain_fwd_bwd_ms']:.4f}), backward alone "
             f"{timed['backward_ms']:.4f} ms, cuDNN fp32 weight gradient on "
@@ -1828,28 +1817,40 @@ def stem_f32_backward(dev, w32):
 
 
 def _counts():
-    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+    """(bf16 stem, fp32 stem, grouping) launches (`ops.launches`)."""
+    from gvcnn_tf_tpu_torch.ops import launches
 
-    return (stem_conv.launches - stem_conv.launches_f32,
-            stem_conv.launches_f32, group_and_fuse.launches)
+    return (launches["stem_conv7x7s2_bf16"], launches["stem_conv7x7s2_f32"],
+            launches["group_and_fuse_f32"])
 
 
 def _avg_counts():
     """(forward, backward) launches of the average-pool kernels."""
-    from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same
+    from gvcnn_tf_tpu_torch.ops import launched
 
-    return avg_pool_same.launches, avg_pool_same.launches_bwd
+    return launched("avg_pool_same_fwd"), launched("avg_pool_same_bwd")
+
+
+def _by_kernel():
+    """{"stem": both stems' launches, "grouping": the grouping kernel's}."""
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    return {"stem": launched("stem_conv7x7s2"),
+            "grouping": launched("group_and_fuse")}
+
+
+def _pool_counts():
+    """(forward, backward) launches of the max-pool kernels."""
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    return launched("max_pool_same_fwd"), launched("max_pool_same_bwd")
 
 
 def _zero_counts():
-    from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-    from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+    """Every kernel's launch count back to 0."""
+    from gvcnn_tf_tpu_torch.ops import launches
 
-    stem_conv.launches = stem_conv.launches_f32 = 0
-    group_and_fuse.launches = 0
-    avg_pool_same.launches = avg_pool_same.launches_bwd = 0
+    launches.clear()
 
 
 def _card_vs_cpu_serving(engine, cfg, views, tol, what, variables=None):
@@ -3362,8 +3363,7 @@ def read_trace(path):
 _PROFILE_CHILD = """
 import dataclasses, importlib, json, sys
 from gvcnn_tf_tpu_torch import get_config
-from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+from gvcnn_tf_tpu_torch.ops import launches
 logdir, n_shapes, start, stop = sys.argv[1], *map(int, sys.argv[2:5])
 train = importlib.import_module("gvcnn_tf_tpu_torch.train").train
 base = get_config("mn40_12view")
@@ -3378,8 +3378,8 @@ state, mets = train(cfg, num_steps=stop + 1, profile_steps=(start, stop),
                     device="cuda")
 assert "jax" not in sys.modules and "gvcnn_tf_tpu" not in sys.modules
 print(json.dumps({"step": state.step, "mets": mets, "launches": [
-    stem_conv.launches - stem_conv.launches_f32, stem_conv.launches_f32,
-    group_and_fuse.launches]}))
+    launches["stem_conv7x7s2_bf16"], launches["stem_conv7x7s2_f32"],
+    launches["group_and_fuse_f32"]]}))
 """
 
 
@@ -3722,10 +3722,12 @@ def phase_analysis(card, dev):
         _zero_counts()
         out = bench_phases.run("mn40_12view", b, PHASES_ITERS, device=dev)
         per_call = out["launches_per_call"]
-        if any(v != [1, 0, 1] for v in per_call.values()):
+        want = {"stem_conv7x7s2_bf16": 1, "stem_conv7x7s2_f32": 0,
+                "group_and_fuse_f32": 1}
+        if any({k: v.get(k, 0) for k in want} != want
+               for v in per_call.values()):
             raise AssertionError(f"bench_phases B={b}: launches a call "
-                                 f"(bf16 stem, fp32 stem, grouping) "
-                                 f"{per_call}, want [1, 0, 1] each")
+                                 f"{per_call}, want {want} each")
         calls = len(per_call) * (1 + bench_phases.WARMUP + PHASES_ITERS)
         if _counts() != (calls, 0, calls):
             raise AssertionError(f"bench_phases B={b}: launches {_counts()},"
@@ -3992,16 +3994,12 @@ def _run_steps(fn, state, batches, cfg):
     """(final model state dict, each step's metrics, launches a step,
     the max-pool kernels' (forward, backward) launches a step), the
     counters taken from zero just before the steps."""
-    from gvcnn_tf_tpu_torch.ops.pool_kernel import max_pool_same
-
     _zero_counts()
-    max_pool_same.launches = max_pool_same.launches_bwd = 0
     mets = [{k: v.detach().clone() for k, v in fn(state, b, cfg).items()}
             for b in batches]
     torch.cuda.synchronize()
     launches = tuple(n / len(batches) for n in _counts())
-    pool = (max_pool_same.launches / len(batches),
-            max_pool_same.launches_bwd / len(batches))
+    pool = tuple(n / len(batches) for n in _pool_counts())
     return ({k: v.detach().clone()
              for k, v in state.model.state_dict().items()}, mets, launches,
             pool)
@@ -4502,11 +4500,12 @@ def main():
                  r["endpoint"]: r["k2_launches"]
                  for r in analysis["layers"]},
              bench_phases_launches_per_call={
-                 b: {k: v[0] for k, v in calls.items()}
+                 b: {k: v.get("stem_conv7x7s2_bf16", 0)
+                     for k, v in calls.items()}
                  for b, calls in phase_launches.items()},
              step_tools_launches=step_tools["launches"][0],
              profile_step_launches_per_step=step_tools["profile"][
-                 "launches_per_step"]["stem_bf16"],
+                 "launches_per_step"].get("stem_conv7x7s2_bf16", 0),
              compiled_launches_per_step={
                  k: v["launches"][0] for k, v in replayed.items()},
              **stem, **stem_bwd),
@@ -4530,11 +4529,12 @@ def main():
              remat_launches_per_step={k: v[2] for k, v in
                                       remat_launches.items()},
              bench_phases_launches_per_call={
-                 b: {k: v[2] for k, v in calls.items()}
+                 b: {k: v.get("group_and_fuse_f32", 0)
+                     for k, v in calls.items()}
                  for b, calls in phase_launches.items()},
              step_tools_launches=step_tools["launches"][2],
              profile_step_launches_per_step=step_tools["profile"][
-                 "launches_per_step"]["grouping"],
+                 "launches_per_step"].get("group_and_fuse_f32", 0),
              compiled_launches_per_step={
                  k: v["launches"][2] for k, v in replayed.items()},
              backward_library_ms=None,

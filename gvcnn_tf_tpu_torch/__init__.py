@@ -7,9 +7,10 @@ configs: serving (`serve.py::InferenceEngine`), training (`train.py`: the
 train-mode layers, the train step, the training loop with its own
 checkpoints and `--eval_every`), evaluation (`eval.py`) and prediction
 (`predict.py`), on the synthetic stream and the procedural split, with the
-stem conv, the grouping head and the max pools as hand-written CUDA kernels
-(`csrc/`), their gradients as autograd Functions, and all as `torch.library`
-ops that `torch.export` artifacts call (`tools/export_model.py`); the tools
+stem conv, the grouping head and the max and average pools as hand-written
+CUDA kernels (`csrc/`), each reached through one `torch.library` op with
+its gradient registered (`ops/`), which `torch.export` artifacts call
+(`tools/export_model.py`); the tools
 `tools/loadgen.py`, `tools/retrieval.py` and `tools/proc_benchmark.py`.
 
     from gvcnn_tf_tpu_torch import InferenceEngine, get_config

@@ -62,9 +62,8 @@ class Stem(nn.Module):
     once, in the compute dtype (both kernels on the tensor cores, the fp32
     one in 3xTF32); on the CPU the plain version applies
     the same affine in fp32 after the conv.  Otherwise (train mode: batch statistics; or a
-    gradient is needed) the kernel runs without its epilogue, through
-    `StemConvFunction`, and BatchNorm and the ReLU follow as their own
-    passes."""
+    gradient is needed) the kernel runs without its epilogue, and BatchNorm
+    and the ReLU follow as their own passes."""
 
     def __init__(self, features: int = 64):
         super().__init__()

@@ -1,18 +1,20 @@
 """Ops of the port: the grouping head and TF-'SAME' pooling in plain
 PyTorch, and the hand-written CUDA kernels with their wrappers
-(stem_kernel.py, grouping_kernel.py, pool_kernel.py), built by _build.py."""
+(stem_kernel.py, grouping_kernel.py, pool_kernel.py), built by _build.py.
+
+Each kernel is reached through one `torch.library` op (`torch.ops.gvcnn.*`)
+with its fake and its autograd registered; the op's implementation runs the
+plain version on the CPU and the kernel on a card.  The ops are made with
+`torch.library.define` and `impl`, not `torch.library.custom_op`, whose
+wrapper imports `torch._dynamo` at an op's first call: seconds of every
+process's set-up, for a compiler the port does not use.  Importing this
+package registers every op.  `launches` counts each entry point's launches
+by name (`_build.launch`); `launched(prefix)` sums those whose names start
+with `prefix`."""
 
 import torch
 
-
-def as_operator() -> bool:
-    """Whether a kernel wrapper should call its `torch.library` op rather
-    than its forward directly: while tracing (`torch.export`: a traced
-    tensor has no data pointer to launch with) and under a Python dispatch
-    mode (the work counter of `tools/bench_layers.py`), which then sees the
-    kernel as one operator, whichever implementation runs under it."""
-    return (torch.compiler.is_compiling()
-            or torch._C._len_torch_dispatch_stack() > 0)
+from gvcnn_tf_tpu_torch.ops._build import launched, launches  # noqa: F401
 
 
 def capturing() -> bool:
@@ -21,3 +23,11 @@ def capturing() -> bool:
     of looking up, so that the graph reads the weights themselves."""
     return torch.cuda.is_available() and (
         torch.cuda.is_current_stream_capturing())
+
+
+# Registers the ops; after `capturing`, which the modules import.
+from gvcnn_tf_tpu_torch.ops import (  # noqa: E402,F401
+    grouping_kernel,
+    pool_kernel,
+    stem_kernel,
+)

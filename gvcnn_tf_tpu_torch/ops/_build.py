@@ -6,12 +6,14 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), under `build/gvcnn_tf_tpu_torch/<hash of the sources>/` at
 the root of the checkout.  A library whose sources are unchanged is loaded
 without a rebuild.  Each entry point launches one kernel on the stream it is
-given and returns `cudaGetLastError()` as an int; the wrappers raise when it
-is not 0.  A failed build raises with nvcc's output: there is no fallback.
+given and returns `cudaGetLastError()` as an int; `launch` calls one, raises
+when that is not 0 and counts it in `launches` under its name.  A failed
+build raises with nvcc's output: there is no fallback.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,6 +23,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,6 +57,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# Launches of each entry point by its name in `_SIGNATURES`, in this
+# process; a CUDA graph's replay adds what its capture launched
+# (`utils/graphs.py`).
+launches: collections.Counter = collections.Counter()
 
 
 def _sources():
@@ -150,3 +158,19 @@ def check(code: int, name: str):
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch entry point `name` with `args` on `device`'s current stream,
+    raise if it failed and count it."""
+    with torch.cuda.device(device):
+        code = getattr(library(), name)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    check(code, name)
+    launches[name] += 1
+
+
+def launched(prefix: str = "") -> int:
+    """The launches counted so far of the entry points whose names start
+    with `prefix` (`"stem_conv7x7s2"`: both stems)."""
+    return sum(n for name, n in launches.items() if name.startswith(prefix))

@@ -7,37 +7,26 @@ what bounds it on the H100 and what the design does about it); the plain
 version is `ops/grouping.py::group_and_fuse`.
 
 The kernel's grid is (B, ceil(C / 128)) blocks, one channel a thread.
-`group_and_fuse` runs the plain version for CPU tensors only (and for
-`meta` tensors, which have shapes and no data).  For CUDA tensors it
-launches the kernel or raises: it never falls back.
 
-Gradients: the kernel is forward-only, as the Pallas kernel is.  Where the
-scores or the descriptors need a gradient, `group_and_fuse` goes through
-`GroupAndFuseFunction`, the counterpart of `_make_fused_op`'s custom VJP
-(`pallas_grouping.py:115-137`): the kernel forward (the plain version for a
-CPU tensor), and a backward that replays the plain version's VJP from the
-saved scores and descriptors.  That VJP keeps the scheme detached and the
-straight-through ceil of `ceil_sum`; the scheme's cotangent is accepted
-and is zero by construction.
-
-As an operator: `gvcnn::group_and_fuse` (`torch.ops.gvcnn.group_and_fuse`)
-is the same forward as a `torch.library` custom op, so that `torch.export`
-can trace it (a traced tensor has no data pointer to launch with) and an
-exported artifact calls it: its CPU and CUDA implementation is `_forward`,
-its fake (shape-only) implementation gives three contiguous fp32 tensors
-(B, C), (B, M), (B, M, V).  `group_and_fuse` reaches the op only while
-tracing (`torch.compiler.is_compiling()`) or under a Python dispatch mode
-(`ops.as_operator`; `GroupAndFuseFunction.forward` too); an eager call
-goes to `_forward` directly and pays no dispatch.
+`group_and_fuse` is the `torch.library` op `gvcnn::group_and_fuse`
+(`torch.ops.gvcnn.group_and_fuse`).  Its implementation, `_forward`, runs
+the plain version for CPU tensors and for CUDA tensors launches the kernel
+or raises: it never falls back.  Its fake (shape-only) implementation, which
+`meta` tensors reach too, gives three contiguous fp32 tensors (B, C),
+(B, M), (B, M, V), so that `torch.export` traces the op and an exported
+artifact calls it.  Its gradient, registered on the op, is
+the counterpart of `_make_fused_op`'s custom VJP (`pallas_grouping.py:
+115-137`): the kernel is forward-only, as the Pallas kernel is, and the
+backward replays the plain version's VJP from the saved scores and
+descriptors.  That VJP keeps the scheme detached (it is marked
+non-differentiable) and the straight-through ceil of `ceil_sum`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
-from gvcnn_tf_tpu_torch.ops import _build, as_operator
+from gvcnn_tf_tpu_torch.ops import _build
 from gvcnn_tf_tpu_torch.ops.grouping import group_and_fuse as group_and_fuse_plain
 
 KERNEL_NAME = "group_and_fuse_f32"
@@ -45,7 +34,7 @@ MAX_VIEWS = 16
 MAX_GROUPS = 16
 _MODES = {"mean": 0, "ceil_sum": 1}
 
-__all__ = ["GroupAndFuseFunction", "group_and_fuse", "group_and_fuse_plain"]
+__all__ = ["group_and_fuse", "group_and_fuse_plain"]
 
 
 def _check_cuda_args(scores, descs, num_group, weight_mode):
@@ -72,49 +61,31 @@ def _check_cuda_args(scores, descs, num_group, weight_mode):
 def group_and_fuse(scores: torch.Tensor, descs: torch.Tensor, num_group: int,
                    weight_mode: str = "mean"):
     """scores (B, V), descs (B, V, C) -> (fused (B, C), weights (B, M),
-    scheme (B, M, V)), all fp32 on CUDA.
-
-    CPU: the plain version.  CUDA: the kernel.  Where an input needs a
-    gradient: `GroupAndFuseFunction`.
-    """
-    if torch.is_grad_enabled() and (scores.requires_grad
-                                    or descs.requires_grad):
-        return GroupAndFuseFunction.apply(scores, descs, num_group,
+    scheme (B, M, V)), all fp32: `gvcnn::group_and_fuse`, the plain version
+    on the CPU, the kernel on CUDA."""
+    return torch.ops.gvcnn.group_and_fuse(scores, descs, num_group,
                                           weight_mode)
-    if as_operator():
-        return torch.ops.gvcnn.group_and_fuse(scores, descs, num_group,
-                                              weight_mode)
-    return _forward(scores, descs, num_group, weight_mode)
 
 
 def _forward(scores, descs, num_group, weight_mode):
     """The forward with no autograd: plain on the CPU, the kernel on CUDA;
     three contiguous outputs that share no memory."""
-    if scores.device.type in ("cpu", "meta"):
+    if scores.device.type == "cpu":
         fused, weights, scheme = group_and_fuse_plain(scores, descs,
                                                       num_group, weight_mode)
         return fused, weights, scheme.contiguous()
     if scores.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {scores.device}")
-    if scores.device.index != torch.cuda.current_device():
-        with torch.cuda.device(scores.device):
-            return _forward(scores, descs, num_group, weight_mode)
     _check_cuda_args(scores, descs, num_group, weight_mode)
     fused, weights, scheme = _empty_outputs(scores, descs, num_group)
     b, v, c = descs.shape
     m = num_group
     if b == 0:
         return fused, weights, scheme
-    code = _build.library().group_and_fuse_f32(
-        scores.data_ptr(), descs.data_ptr(), fused.data_ptr(),
-        weights.data_ptr(), scheme.data_ptr(), b, v, c, m,
-        _MODES[weight_mode], torch.cuda.current_stream().cuda_stream)
-    _build.check(code, KERNEL_NAME)
-    group_and_fuse.launches += 1
+    _build.launch(KERNEL_NAME, scores.device, scores.data_ptr(),
+                  descs.data_ptr(), fused.data_ptr(), weights.data_ptr(),
+                  scheme.data_ptr(), b, v, c, m, _MODES[weight_mode])
     return fused, weights, scheme
-
-
-group_and_fuse.launches = 0
 
 
 def _empty_outputs(scores, descs, num_group):
@@ -126,44 +97,41 @@ def _empty_outputs(scores, descs, num_group):
     return new(b, c), new(b, num_group), new(b, num_group, v)
 
 
-@torch.library.custom_op("gvcnn::group_and_fuse", mutates_args=())
-def group_and_fuse_op(scores: torch.Tensor, descs: torch.Tensor,
-                      num_group: int, weight_mode: str
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`gvcnn::group_and_fuse`: `_forward` as an operator (no autograd)."""
+def _group_and_fuse_op(scores, descs, num_group, weight_mode):
+    """`gvcnn::group_and_fuse`: `_forward` as an operator."""
     return _forward(scores, descs, num_group, weight_mode)
 
 
-@group_and_fuse_op.register_fake
 def _group_and_fuse_fake(scores, descs, num_group, weight_mode):
     return _empty_outputs(scores, descs, num_group)
 
 
-class GroupAndFuseFunction(torch.autograd.Function):
-    """The grouping head under autograd: the kernel forward (plain for a CPU
-    tensor), the plain version's VJP as the backward."""
+torch.library.define("gvcnn::group_and_fuse",
+                     "(Tensor scores, Tensor descs, SymInt num_group, "
+                     "str weight_mode) -> (Tensor, Tensor, Tensor)")
+torch.library.impl("gvcnn::group_and_fuse", "default", _group_and_fuse_op)
+torch.library.register_fake("gvcnn::group_and_fuse", _group_and_fuse_fake)
 
-    @staticmethod
-    def forward(ctx, scores, descs, num_group, weight_mode):
-        ctx.save_for_backward(scores, descs)
-        ctx.num_group, ctx.weight_mode = num_group, weight_mode
-        if as_operator():
-            fused, weights, scheme = torch.ops.gvcnn.group_and_fuse(
-                scores, descs, num_group, weight_mode)
-        else:
-            fused, weights, scheme = _forward(scores, descs, num_group,
-                                              weight_mode)
-        ctx.mark_non_differentiable(scheme)
-        return fused, weights, scheme
 
-    @staticmethod
-    def backward(ctx, d_fused, d_weights, d_scheme):
-        scores, descs = ctx.saved_tensors
-        with torch.enable_grad():
-            s = scores.detach().requires_grad_()
-            d = descs.detach().requires_grad_()
-            fused, weights, _ = group_and_fuse_plain(s, d, ctx.num_group,
-                                                     ctx.weight_mode)
-            ds, dd = torch.autograd.grad((fused, weights),
-                                         (s, d), (d_fused, d_weights))
-        return ds, dd, None, None
+def _setup_context(ctx, inputs, output):
+    scores, descs, ctx.num_group, ctx.weight_mode = inputs
+    ctx.save_for_backward(scores, descs)
+    ctx.mark_non_differentiable(output[2])
+
+
+def _backward(ctx, d_fused, d_weights, d_scheme):
+    """The plain version's VJP at the saved scores and descriptors; the
+    scheme's cotangent is accepted and is zero by construction."""
+    scores, descs = ctx.saved_tensors
+    with torch.enable_grad():
+        s = scores.detach().requires_grad_()
+        d = descs.detach().requires_grad_()
+        fused, weights, _ = group_and_fuse_plain(s, d, ctx.num_group,
+                                                 ctx.weight_mode)
+        ds, dd = torch.autograd.grad((fused, weights), (s, d),
+                                     (d_fused, d_weights))
+    return ds, dd, None, None
+
+
+torch.library.register_autograd("gvcnn::group_and_fuse", _backward,
+                                setup_context=_setup_context)

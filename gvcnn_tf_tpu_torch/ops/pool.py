@@ -4,26 +4,27 @@
 TF-'SAME' pads bottom/right-heavy: a 3x3/2 pool on an even size pads (0, 1).
 Tensors are NCHW (any memory format).
 
-`max_pool` takes one of two paths by x's device (`ops/pool_kernel.py`):
+`max_pool` is the op `gvcnn::max_pool_same` (`ops/pool_kernel.py`): where
+x needs a gradient the forward also records each window's winning slot in
+one byte and the backward gathers dy into dx from that record.  By x's
+device:
 
   CPU   `F.max_pool2d`, an asymmetric pad applied explicitly with -inf
         before a padding-free pool (`F.max_pool2d`'s own padding is
-        symmetric); gradients are autograd's;
+        symmetric), and the record and the gather as plain PyTorch;
   CUDA  the hand-written kernels (`csrc/max_pool.cu`), which pad inside
-        themselves; where x needs a gradient the forward also records each
-        window's winning slot in one byte and the backward gathers dy into
-        dx from that record.
+        themselves.
 
 Both credit each window's first maximum, as XLA's select-and-scatter does.
 
 `avg_pool` takes the one geometry of the backbones' average pools, a 3x3
-window at stride 1 with 'SAME' pads (1, 1), and raises on another; by x's
-device:
+window at stride 1 with 'SAME' pads (1, 1), and raises on another.  It is
+the op `gvcnn::avg_pool_same`, whose backward is the same box mean over dy
+and saves nothing; by x's device:
 
-  CPU   `F.avg_pool2d` with the padded zeros counted; gradients are
-        autograd's;
-  CUDA  the hand-written kernels (`csrc/avg_pool.cu`); the backward is the
-        same box mean over dy and saves nothing.
+  CPU   `F.avg_pool2d` with the padded zeros counted, and the box mean of
+        dy as plain PyTorch;
+  CUDA  the hand-written kernels (`csrc/avg_pool.cu`).
 """
 
 from __future__ import annotations

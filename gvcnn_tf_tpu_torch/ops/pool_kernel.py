@@ -23,23 +23,21 @@ every pool of the backbones has C a multiple of 64 and its input from the
 allocator, and anything else raises.
 
 `max_pool_same(x, kernel, strides, pads)`, pads ((top, bottom), (left,
-right)) as `pool._pads` gives them:
+right)) as `pool._pads` gives them, is the op `gvcnn::max_pool_same`.
+Where x needs a gradient (grad mode on) the forward also writes a one-byte
+record, the window slot (0 .. k*k-1, row-major) of each output's first
+maximum, and the backward (`gvcnn::max_pool_same_backward`) gathers dy into
+dx from it.  Nothing else is saved for the backward: neither x nor a padded
+copy.  Under `no_grad` (eval, serving, their graphs) the forward writes the
+output alone.  By x's device:
 
-  CPU (and `meta`)  `max_pool_plain`, `F.pad` with -inf where the pads are
-                    asymmetric and `F.max_pool2d`, under autograd;
-  CUDA              the forward kernel, which pads inside itself (a tap
-                    outside the image is no candidate).  Where x needs a
-                    gradient (grad mode on), through `MaxPoolFunction`: the
-                    forward also writes a one-byte record, the window slot
-                    (0 .. k*k-1, row-major) of each output's first maximum,
-                    and the backward kernel gathers dy into dx from it.
-                    Nothing else is saved for the backward: neither x nor
-                    a padded copy.  Under `no_grad` (eval, serving, their
-                    graphs) the forward writes the output alone.
+  CPU   the plain versions: `max_pool_plain` (`F.pad` with -inf where the
+        pads are asymmetric and `F.max_pool2d`), or `max_pool_record_plain`
+        with the record, and `max_pool_backward_plain`;
+  CUDA  the kernels; the forward pads inside itself (a tap outside the
+        image is no candidate).
 
-It never falls back to `F.max_pool2d` on a card.  `max_pool_same.launches`
-counts the forward kernel's launches, `max_pool_same.launches_bwd` the
-backward's.
+It never falls back to `F.max_pool2d` on a card.
 
 Ties go to the first maximum in row-major window order and a window that
 holds a NaN gives NaN, its first NaN winning, as `F.max_pool2d` and XLA's
@@ -50,15 +48,13 @@ in-image tap.  The kernel's output equals `F.max_pool2d`'s value for value
 plain versions under the same rules (the backward sums in fp32 and rounds
 once, as the kernel does, in another order).
 
-As operators: `gvcnn::max_pool_same` (x, kernel, strides, pads as [top,
+The ops: `gvcnn::max_pool_same` (x, kernel, strides, pads as [top,
 bottom, left, right], record) -> (y, slot; an empty uint8 tensor without
 the record) and `gvcnn::max_pool_same_backward`, so that `torch.export`
 traces them (a traced tensor has no data pointer to launch with) and an
-artifact calls them, and a dispatch mode sees them as one op each
-(`ops.as_operator`, as for `gvcnn::stem_conv7x7s2`).  Their CPU and CUDA
-implementation is `_forward` / `_backward`; their outputs are
+artifact calls them, and a dispatch mode sees them as one op each.  Their
+implementations are `_forward` / `_backward`; their outputs are
 channels-last on every device, and so are their fake (shape-only) ones.
-An eager call reaches neither op and pays no dispatch.
 
 The average pool, `avg_pool_same(x)`: the one geometry of the port's
 backbones, a 3x3 window at stride 1 with TF-'SAME' pads (1, 1) on both
@@ -68,23 +64,19 @@ count in every window's mean), which the port follows.  The kernels
 `avg_pool_same_bwd_{bf16,f32}`) take the same dtypes, layout and 16-byte
 channel vectors as the max pool's; anything else raises on a card.
 
-  CPU (and `meta`)  `avg_pool_plain`: `F.avg_pool2d` counting the pads,
-                    under autograd;
-  CUDA              the forward kernel, or where x needs a gradient
-                    `AvgPoolFunction`, whose backward is the same box mean
-                    over dy (`avg_pool_backward_plain` is its plain
-                    version): at stride 1 with symmetric pads the windows
-                    that hold an input are the outputs around it, so dx =
-                    boxsum3x3(dy) / 9 with zero padding, and nothing is
-                    saved for the backward.
+It is the op `gvcnn::avg_pool_same` (x), whose backward
+`gvcnn::avg_pool_same_backward` (dy) is the same box mean over dy: at
+stride 1 with symmetric pads the windows that hold an input are the
+outputs around it, so dx = boxsum3x3(dy) / 9 with zero padding, and nothing
+is saved for the backward.  Both ops give channels-last outputs and fake
+outputs; by x's device:
+
+  CPU   `avg_pool_plain` (`F.avg_pool2d` counting the pads) and
+        `avg_pool_backward_plain`;
+  CUDA  the kernels.
 
 Both sum in fp32, divide by 9 and round once (as PyTorch's kernel does, in
 another order).  It never falls back to `F.avg_pool2d` on a card.
-`avg_pool_same.launches` counts the forward kernel's launches,
-`avg_pool_same.launches_bwd` the backward's.  The operators
-`gvcnn::avg_pool_same` (x) and `gvcnn::avg_pool_same_backward` (dy) are
-the 3x3/1 'SAME' pool and its backward, for `torch.export` and dispatch
-modes as above, with channels-last outputs and fake outputs.
 """
 
 from __future__ import annotations
@@ -94,7 +86,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from gvcnn_tf_tpu_torch.ops import _build, as_operator
+from gvcnn_tf_tpu_torch.ops import _build
 
 # (kernel, stride) of one dim that the kernels take.
 GEOMETRIES = ((3, 2), (3, 1), (2, 2))
@@ -174,7 +166,11 @@ def max_pool_backward_plain(dy: torch.Tensor, slot: torch.Tensor,
                             strides: Sequence[int], pads: Pads
                             ) -> torch.Tensor:
     """dx (N, C, H, W) in dy's dtype: each output's dy added, in fp32, at
-    the input its record names; the backward kernel's plain version."""
+    the input its record names; the backward kernel's plain version.  An
+    input's terms are added in the outputs' row-major order (the slots in
+    reverse), as autograd through `F.max_pool2d` and XLA's
+    select-and-scatter add them on the CPU, so the sums are theirs bit for
+    bit."""
     (kh, kw), (sh, sw), (ph, pw) = tuple(kernel), tuple(strides), pads
     (h, w), (ho, wo) = hw, dy.shape[2:]
     rows, cols = (ho - 1) * sh + 1, (wo - 1) * sw + 1
@@ -182,8 +178,8 @@ def max_pool_backward_plain(dy: torch.Tensor, slot: torch.Tensor,
                         max(ph[0] + h, rows + kh - 1),
                         max(pw[0] + w, cols + kw - 1)), dtype=torch.float32)
     g = dy.float()
-    for dr in range(kh):
-        for dc in range(kw):
+    for dr in reversed(range(kh)):
+        for dc in reversed(range(kw)):
             dxp[:, :, dr:dr + rows:sh, dc:dc + cols:sw] += torch.where(
                 slot == dr * kw + dc, g, 0.0)
     return dxp[:, :, ph[0]:ph[0] + h, pw[0]:pw[0] + w].to(dy.dtype)
@@ -234,7 +230,7 @@ def _empty(shape, dtype, device) -> torch.Tensor:
 def _forward(x, kernel, strides, pads, record: bool):
     """(y, slot or an empty uint8 tensor) with no autograd: the plain
     versions on the CPU, the forward kernel on CUDA; channels-last."""
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "cpu":
         if record:
             y, slot = max_pool_record_plain(x, kernel, strides, pads)
         else:
@@ -245,9 +241,6 @@ def _forward(x, kernel, strides, pads, record: bool):
                 slot.contiguous(memory_format=cl) if record else slot)
     if x.device.type != "cuda":
         raise ValueError(f"max_pool_same: unsupported device {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            return _forward(x, kernel, strides, pads, record)
     name = kernel_names(x.dtype)[0]
     k, s = _check_geometry(kernel, strides, pads)
     x = x.contiguous(memory_format=torch.channels_last)
@@ -259,27 +252,21 @@ def _forward(x, kernel, strides, pads, record: bool):
             else x.new_empty((0,), dtype=torch.uint8))
     if y.numel() == 0:
         return y, slot
-    code = getattr(_build.library(), name)(
-        x.data_ptr(), y.data_ptr(), slot.data_ptr() if record else None,
-        n, h, w, c, ho, wo, k, s, pads[0][0], pads[1][0],
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, name)
-    max_pool_same.launches += 1
+    _build.launch(name, x.device, x.data_ptr(), y.data_ptr(),
+                  slot.data_ptr() if record else None, n, h, w, c, ho, wo,
+                  k, s, pads[0][0], pads[1][0])
     return y, slot
 
 
 def _backward(dy, slot, hw, kernel, strides, pads):
     """dx with no autograd: the plain version on the CPU, the backward
     kernel on CUDA; channels-last."""
-    if dy.device.type in ("cpu", "meta"):
+    if dy.device.type == "cpu":
         return max_pool_backward_plain(dy, slot, hw, kernel, strides,
                                        pads).contiguous(
             memory_format=torch.channels_last)
     if dy.device.type != "cuda":
         raise ValueError(f"max_pool_same: unsupported device {dy.device}")
-    if dy.device.index != torch.cuda.current_device():
-        with torch.cuda.device(dy.device):
-            return _backward(dy, slot, hw, kernel, strides, pads)
     name = kernel_names(dy.dtype)[1]
     k, s = _check_geometry(kernel, strides, pads)
     dy = dy.contiguous(memory_format=torch.channels_last)
@@ -295,11 +282,9 @@ def _backward(dy, slot, hw, kernel, strides, pads):
     dx = _empty((n, c, h, w), dy.dtype, dy.device)
     if dx.numel() == 0:
         return dx
-    code = getattr(_build.library(), name)(
-        dy.data_ptr(), slot.data_ptr(), dx.data_ptr(), n, h, w, c, ho, wo,
-        k, s, pads[0][0], pads[1][0], torch.cuda.current_stream().cuda_stream)
-    _build.check(code, name)
-    max_pool_same.launches_bwd += 1
+    _build.launch(name, dy.device, dy.data_ptr(), slot.data_ptr(),
+                  dx.data_ptr(), n, h, w, c, ho, wo, k, s, pads[0][0],
+                  pads[1][0])
     return dx
 
 
@@ -314,32 +299,18 @@ def _nested(pads: Sequence[int]) -> Pads:
 def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
                   strides: Sequence[int], pads: Pads) -> torch.Tensor:
     """Max pool of NCHW x by `kernel` windows at `strides` over x padded by
-    `pads` ((top, bottom), (left, right)): the plain version on the CPU,
-    the kernels on CUDA (see the module docstring)."""
-    kernel, strides = tuple(kernel), tuple(strides)
-    if x.device.type != "cuda" and not as_operator():
-        return max_pool_plain(x, kernel, strides, pads)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return MaxPoolFunction.apply(x, kernel, strides, pads)
-    if as_operator():
-        return torch.ops.gvcnn.max_pool_same(x, list(kernel), list(strides),
-                                             _flat(pads), False)[0]
-    return _forward(x, kernel, strides, pads, False)[0]
+    `pads` ((top, bottom), (left, right)): `gvcnn::max_pool_same`, with the
+    record where x needs a gradient (see the module docstring)."""
+    record = torch.is_grad_enabled() and x.requires_grad
+    return torch.ops.gvcnn.max_pool_same(x, list(kernel), list(strides),
+                                         _flat(pads), record)[0]
 
 
-max_pool_same.launches = 0
-max_pool_same.launches_bwd = 0
-
-
-@torch.library.custom_op("gvcnn::max_pool_same", mutates_args=())
-def max_pool_same_op(x: torch.Tensor, kernel: List[int], strides: List[int],
-                     pads: List[int], record: bool
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`gvcnn::max_pool_same`: `_forward` as an operator (no autograd)."""
+def _max_pool_same_op(x, kernel, strides, pads, record):
+    """`gvcnn::max_pool_same`: `_forward` as an operator."""
     return _forward(x, tuple(kernel), tuple(strides), _nested(pads), record)
 
 
-@max_pool_same_op.register_fake
 def _max_pool_same_fake(x, kernel, strides, pads, record):
     n, c, h, w = x.shape
     shape = (n, c, out_size(h, kernel[0], strides[0], pads[:2]),
@@ -349,48 +320,49 @@ def _max_pool_same_fake(x, kernel, strides, pads, record):
             else x.new_empty((0,), dtype=torch.uint8))
 
 
-@torch.library.custom_op("gvcnn::max_pool_same_backward", mutates_args=())
-def max_pool_same_backward_op(dy: torch.Tensor, slot: torch.Tensor,
-                              hw: List[int], kernel: List[int],
-                              strides: List[int], pads: List[int]
-                              ) -> torch.Tensor:
+def _max_pool_same_backward_op(dy, slot, hw, kernel, strides, pads):
     """`gvcnn::max_pool_same_backward`: `_backward` as an operator."""
     return _backward(dy, slot, tuple(hw), tuple(kernel), tuple(strides),
                      _nested(pads))
 
 
-@max_pool_same_backward_op.register_fake
 def _max_pool_same_backward_fake(dy, slot, hw, kernel, strides, pads):
     return _empty((dy.shape[0], dy.shape[1], hw[0], hw[1]), dy.dtype,
                   dy.device)
 
 
-class MaxPoolFunction(torch.autograd.Function):
-    """The pool under autograd: the forward with its record (the kernel on
-    CUDA, `max_pool_record_plain` on the CPU), the gather backward from the
-    record alone (`max_pool_backward_plain` on the CPU)."""
+torch.library.define("gvcnn::max_pool_same",
+                     "(Tensor x, SymInt[] kernel, SymInt[] strides, "
+                     "SymInt[] pads, bool record) -> (Tensor, Tensor)")
+torch.library.impl("gvcnn::max_pool_same", "default", _max_pool_same_op)
+torch.library.register_fake("gvcnn::max_pool_same", _max_pool_same_fake)
+torch.library.define("gvcnn::max_pool_same_backward",
+                     "(Tensor dy, Tensor slot, SymInt[] hw, SymInt[] kernel, "
+                     "SymInt[] strides, SymInt[] pads) -> Tensor")
+torch.library.impl("gvcnn::max_pool_same_backward", "default",
+                   _max_pool_same_backward_op)
+torch.library.register_fake("gvcnn::max_pool_same_backward",
+                            _max_pool_same_backward_fake)
 
-    @staticmethod
-    def forward(ctx, x, kernel, strides, pads):
-        if as_operator():
-            y, slot = torch.ops.gvcnn.max_pool_same(
-                x, list(kernel), list(strides), _flat(pads), True)
-        else:
-            y, slot = _forward(x, kernel, strides, pads, True)
-        ctx.save_for_backward(slot)
-        ctx.geometry = ((x.shape[2], x.shape[3]), kernel, strides, pads)
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        (slot,) = ctx.saved_tensors
-        hw, kernel, strides, pads = ctx.geometry
-        if as_operator():
-            dx = torch.ops.gvcnn.max_pool_same_backward(
-                dy, slot, list(hw), list(kernel), list(strides), _flat(pads))
-        else:
-            dx = _backward(dy, slot, hw, kernel, strides, pads)
-        return dx, None, None, None
+def _max_pool_setup_context(ctx, inputs, output):
+    x, kernel, strides, pads, _ = inputs
+    ctx.save_for_backward(output[1])
+    ctx.geometry = ([x.shape[2], x.shape[3]], kernel, strides, pads)
+
+
+def _max_pool_backward(ctx, dy, _):
+    """The gather of dy into dx from the saved record."""
+    (slot,) = ctx.saved_tensors
+    if slot.numel() == 0 and dy.numel():
+        raise RuntimeError("max_pool_same: a forward without its record has "
+                           "no gradient")
+    dx = torch.ops.gvcnn.max_pool_same_backward(dy, slot, *ctx.geometry)
+    return dx, None, None, None, None
+
+
+torch.library.register_autograd("gvcnn::max_pool_same", _max_pool_backward,
+                                setup_context=_max_pool_setup_context)
 
 
 # ---------------------------------------------------------------------------
@@ -418,14 +390,11 @@ def _box(t: torch.Tensor, backward: bool) -> torch.Tensor:
     """The 3x3/1 'SAME' pool of x, or its backward from dy, with no
     autograd: the plain versions on the CPU, a kernel on CUDA;
     channels-last."""
-    if t.device.type in ("cpu", "meta"):
+    if t.device.type == "cpu":
         out = avg_pool_backward_plain(t) if backward else avg_pool_plain(t)
         return out.contiguous(memory_format=torch.channels_last)
     if t.device.type != "cuda":
         raise ValueError(f"avg_pool_same: unsupported device {t.device}")
-    if t.device.index != torch.cuda.current_device():
-        with torch.cuda.device(t.device):
-            return _box(t, backward)
     if t.dtype not in AVG_KERNELS:
         raise TypeError(f"avg_pool_same: takes bfloat16 or float32, got "
                         f"{t.dtype}")
@@ -436,70 +405,42 @@ def _box(t: torch.Tensor, backward: bool) -> torch.Tensor:
     if out.numel() == 0:
         return out
     n, c, h, w = t.shape
-    code = getattr(_build.library(), name)(
-        t.data_ptr(), out.data_ptr(), n, h, w, c,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, name)
-    if backward:
-        avg_pool_same.launches_bwd += 1
-    else:
-        avg_pool_same.launches += 1
+    _build.launch(name, t.device, t.data_ptr(), out.data_ptr(), n, h, w, c)
     return out
 
 
 def avg_pool_same(x: torch.Tensor) -> torch.Tensor:
     """The 3x3/1 'SAME' average pool of NCHW x, the padded zeros counted:
-    the plain version on the CPU, the kernels on CUDA (see the module
-    docstring)."""
-    if x.device.type != "cuda" and not as_operator():
-        return avg_pool_plain(x)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return AvgPoolFunction.apply(x)
-    if as_operator():
-        return torch.ops.gvcnn.avg_pool_same(x)
-    return _box(x, False)
+    `gvcnn::avg_pool_same` (see the module docstring)."""
+    return torch.ops.gvcnn.avg_pool_same(x)
 
 
-avg_pool_same.launches = 0
-avg_pool_same.launches_bwd = 0
+def _box_fake(t):
+    return _empty(t.shape, t.dtype, t.device)
 
 
-@torch.library.custom_op("gvcnn::avg_pool_same", mutates_args=())
-def avg_pool_same_op(x: torch.Tensor) -> torch.Tensor:
-    """`gvcnn::avg_pool_same`: the 3x3/1 'SAME' pool as an operator (no
-    autograd)."""
-    return _box(x, False)
+torch.library.define("gvcnn::avg_pool_same", "(Tensor x) -> Tensor")
+torch.library.impl("gvcnn::avg_pool_same", "default",
+                   lambda x: _box(x, False))
+torch.library.register_fake("gvcnn::avg_pool_same", _box_fake)
+torch.library.define("gvcnn::avg_pool_same_backward", "(Tensor dy) -> Tensor")
+torch.library.impl("gvcnn::avg_pool_same_backward", "default",
+                   lambda dy: _box(dy, True))
+torch.library.register_fake("gvcnn::avg_pool_same_backward", _box_fake)
+torch.library.register_autograd(
+    "gvcnn::avg_pool_same",
+    lambda ctx, dy: torch.ops.gvcnn.avg_pool_same_backward(dy),
+    setup_context=lambda ctx, inputs, output: None)
 
 
-@avg_pool_same_op.register_fake
-def _avg_pool_same_fake(x):
-    return _empty(x.shape, x.dtype, x.device)
+def _no_second_derivative(ctx, grad):
+    raise NotImplementedError("the pools' backward ops have no gradient: "
+                              "the port takes no second derivative")
 
 
-@torch.library.custom_op("gvcnn::avg_pool_same_backward", mutates_args=())
-def avg_pool_same_backward_op(dy: torch.Tensor) -> torch.Tensor:
-    """`gvcnn::avg_pool_same_backward`: dx from dy as an operator."""
-    return _box(dy, True)
-
-
-@avg_pool_same_backward_op.register_fake
-def _avg_pool_same_backward_fake(dy):
-    return _empty(dy.shape, dy.dtype, dy.device)
-
-
-class AvgPoolFunction(torch.autograd.Function):
-    """The 3x3/1 'SAME' pool under autograd: the forward kernel, and the
-    same box mean over dy as the backward (the plain versions on the CPU).
-    Nothing is saved."""
-
-    @staticmethod
-    def forward(ctx, x):
-        if as_operator():
-            return torch.ops.gvcnn.avg_pool_same(x)
-        return _box(x, False)
-
-    @staticmethod
-    def backward(ctx, dy):
-        if as_operator():
-            return torch.ops.gvcnn.avg_pool_same_backward(dy)
-        return _box(dy, True)
+# Registered so that the backward ops run below autograd, as the forwards
+# do, and refuse a gradient instead of recording their plain versions' ops.
+for _op in ("gvcnn::max_pool_same_backward", "gvcnn::avg_pool_same_backward"):
+    torch.library.register_autograd(
+        _op, _no_second_derivative,
+        setup_context=lambda ctx, inputs, output: None)

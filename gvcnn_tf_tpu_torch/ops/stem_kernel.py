@@ -25,37 +25,28 @@ and shift = bias - mean * scale it is eval-mode BatchNorm and its ReLU
 (`BatchNorm.scale_shift`); the kernel applies it to the fp32 accumulator
 and rounds once.
 
-`stem_conv` runs the plain version for a CPU tensor only (and for a `meta`
-tensor, which has a shape and no data).  For a CUDA tensor it launches the
-kernel of x's dtype or raises: it never falls back.  `stem_conv.launches`
-counts the launches of both kernels, `stem_conv.launches_f32` those of the
-fp32 one.
+`stem_conv` is the `torch.library` op `gvcnn::stem_conv7x7s2`
+(`torch.ops.gvcnn.stem_conv7x7s2`).  Its implementation, `_stem_forward`,
+runs the plain version for a CPU tensor and for a CUDA tensor launches the
+kernel of x's dtype or raises: it never falls back.  Its fake (shape-only)
+implementation, which a `meta` tensor reaches too, gives a contiguous
+(N, ceil(H/2), ceil(W/2), 64) tensor in x's dtype, so that `torch.export`
+traces the op and an exported artifact calls it.  The packed weight is made
+inside the implementation, so an artifact packs it at its first call and
+keeps it as an eager forward does (`_packed_weight`) when run with grad
+mode off.
 
 Gradients (counterpart of `stem_conv`'s custom VJP, `pallas_stem.py:
-145-164`, which is XLA's conv VJP and no Pallas kernel): where x or the
-weight needs a gradient, `stem_conv` goes through `StemConvFunction`.  Its
-forward is the kernel (the plain version for a CPU tensor) without the
-epilogue; its backward is cuDNN's (on the CPU, PyTorch's) gradient of the
-same stride-2 conv on the explicitly padded input,
-`aten.convolution_backward`: dw always, dx only when x needs one (for a
+145-164`, which is XLA's conv VJP and no Pallas kernel), registered on the
+op: the forward saves x and the weight, and the backward is cuDNN's (on the
+CPU, PyTorch's) gradient of the same stride-2 conv on the explicitly padded
+input, `stem_conv_backward`: dw always, dx only when x needs one (for a
 data input it is dead, as in JAX).  The only full-size tensor the backward
 reads is the incoming gradient, used in place as a channels-last NCHW view
 of the NHWC output; the padded copy of x is the input's size (3 channels).
-The epilogue is eval-only: a call with scale/shift that needs a gradient
-raises (`Stem` runs its train-mode BatchNorm as its own pass).
-
-As an operator: `gvcnn::stem_conv7x7s2` (`torch.ops.gvcnn.stem_conv7x7s2`)
-is the same forward as a `torch.library` custom op, so that `torch.export`
-can trace it (a traced tensor has no data pointer to launch with) and an
-exported artifact calls it: its CPU and CUDA implementation is
-`_stem_forward`, its fake (shape-only) implementation gives a contiguous
-(N, ceil(H/2), ceil(W/2), 64) tensor in x's dtype.  `stem_conv` reaches the
-op only while tracing (`torch.compiler.is_compiling()`) or under a Python
-dispatch mode (`ops.as_operator`; `StemConvFunction.forward` too); an eager
-call goes to `_stem_forward` directly and pays no dispatch.  The packed
-weight is made inside the implementation, so an artifact packs it at its
-first call and keeps it as an eager forward does (`_packed_weight`) when
-run with grad mode off.
+The epilogue is eval-only: `stem_conv` with scale/shift or `relu` refuses
+an input that needs a gradient (`Stem` runs its train-mode BatchNorm as its
+own pass), and the op's backward raises after such a forward.
 """
 
 from __future__ import annotations
@@ -65,7 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gvcnn_tf_tpu_torch.ops import _build, as_operator, capturing
+from gvcnn_tf_tpu_torch.ops import _build, capturing
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 KERNEL_NAME = "stem_conv7x7s2_bf16"
@@ -111,11 +102,10 @@ def _packed_weight(weight: torch.Tensor) -> torch.Tensor:
     """The weight in the layout of its dtype's kernel (`pack_stem_weight`
     for bf16, `pack_stem_weight_f32` for fp32), kept on the weight while
     its storage and version counter stay the same and grad mode is off, so
-    a serving forward pays no packing launches.  (Inside
-    `StemConvFunction.forward` grad mode is off too, and the pack stays out
-    of the autograd graph.)  While a CUDA graph is captured the pack is
-    computed, not looked up, so the graph packs the weight as it finds it
-    at every replay."""
+    a serving forward pays no packing launches.  (Inside the op grad mode
+    is off too, and the pack stays out of the autograd graph.)  While a
+    CUDA graph is captured the pack is computed, not looked up, so the
+    graph packs the weight as it finds it at every replay."""
     pack = (pack_stem_weight_f32 if weight.dtype == torch.float32
             else pack_stem_weight)
     if torch.is_grad_enabled() or weight.is_inference() or capturing():
@@ -196,9 +186,9 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
     """x (N, H, W, 3), weight (64, 3, 7, 7) -> (N, Ho, Wo, 64), NHWC, with
     the optional epilogue relu(conv * scale + shift).
 
-    CPU: the plain version, in x's dtype.  CUDA: the kernel of x's dtype
-    (bf16 or fp32; another dtype raises).  Where x or the weight needs a
-    gradient: `StemConvFunction` (no epilogue).
+    `gvcnn::stem_conv7x7s2`.  CPU: the plain version, in x's dtype.
+    CUDA: the kernel of x's dtype (bf16 or fp32; another dtype raises).
+    Where an input needs a gradient, the epilogue is refused.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -208,21 +198,15 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor,
                 f"{KERNEL_NAME}: the scale/shift/ReLU epilogue is eval-only "
                 "and has no gradient; run the conv alone and BatchNorm after "
                 "it (Stem does so in train mode)")
-        return StemConvFunction.apply(x, weight)
-    if as_operator():
-        return torch.ops.gvcnn.stem_conv7x7s2(x, weight, scale, shift, relu)
-    return _stem_forward(x, weight, scale, shift, relu)
+    return torch.ops.gvcnn.stem_conv7x7s2(x, weight, scale, shift, relu)
 
 
 def _stem_forward(x, weight, scale=None, shift=None, relu=False):
     """The forward with no autograd: plain on the CPU, the kernel on CUDA."""
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "cpu":
         return stem_conv_plain(x, weight, scale, shift, relu)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_NAME}: unsupported device {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            return _stem_forward(x, weight, scale, shift, relu)
     name = _check_cuda_args(x, weight, scale, shift)
     n, h, w, _ = x.shape
     ho, wo = -(-h // _STRIDE), -(-w // _STRIDE)
@@ -230,22 +214,13 @@ def _stem_forward(x, weight, scale=None, shift=None, relu=False):
     if out.numel() == 0:
         return out
     packed = _packed_weight(weight)
-    code = getattr(_build.library(), name)(
-        x.data_ptr(), packed.data_ptr(),
+    _build.launch(
+        name, x.device, x.data_ptr(), packed.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), out.data_ptr(),
         n, h, w, ho, wo, same_pads(h, _KSIZE, _STRIDE)[0],
-        same_pads(w, _KSIZE, _STRIDE)[0], int(relu),
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, name)
-    stem_conv.launches += 1
-    if name == KERNEL_NAME_F32:
-        stem_conv.launches_f32 += 1
+        same_pads(w, _KSIZE, _STRIDE)[0], int(relu))
     return out
-
-
-stem_conv.launches = 0
-stem_conv.launches_f32 = 0
 
 
 def _empty_output(x: torch.Tensor) -> torch.Tensor:
@@ -254,19 +229,20 @@ def _empty_output(x: torch.Tensor) -> torch.Tensor:
     return x.new_empty((n, -(-h // _STRIDE), -(-w // _STRIDE), _COUT))
 
 
-@torch.library.custom_op("gvcnn::stem_conv7x7s2", mutates_args=())
-def stem_conv_op(x: torch.Tensor, weight: torch.Tensor,
-                 scale: Optional[torch.Tensor] = None,
-                 shift: Optional[torch.Tensor] = None,
-                 relu: bool = False) -> torch.Tensor:
-    """`gvcnn::stem_conv7x7s2`: `_stem_forward` as an operator (no
-    autograd)."""
+def _stem_conv_op(x, weight, scale=None, shift=None, relu=False):
+    """`gvcnn::stem_conv7x7s2`: `_stem_forward` as an operator."""
     return _stem_forward(x, weight, scale, shift, relu)
 
 
-@stem_conv_op.register_fake
 def _stem_conv_fake(x, weight, scale=None, shift=None, relu=False):
     return _empty_output(x)
+
+
+torch.library.define("gvcnn::stem_conv7x7s2",
+                     "(Tensor x, Tensor weight, Tensor? scale=None, "
+                     "Tensor? shift=None, bool relu=False) -> Tensor")
+torch.library.impl("gvcnn::stem_conv7x7s2", "default", _stem_conv_op)
+torch.library.register_fake("gvcnn::stem_conv7x7s2", _stem_conv_fake)
 
 
 def stem_conv_backward(x: torch.Tensor, weight: torch.Tensor,
@@ -293,20 +269,21 @@ def stem_conv_backward(x: torch.Tensor, weight: torch.Tensor,
     return dx, dw
 
 
-class StemConvFunction(torch.autograd.Function):
-    """The stem conv under autograd: the kernel forward (plain for a CPU
-    tensor), the reference conv's VJP backward (`stem_conv_backward`)."""
+def _setup_context(ctx, inputs, output):
+    x, weight, scale, shift, relu = inputs
+    ctx.epilogue = scale is not None or shift is not None or relu
+    ctx.save_for_backward(x, weight)
 
-    @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x, weight)
-        if as_operator():
-            return torch.ops.gvcnn.stem_conv7x7s2(x, weight, None, None,
-                                                  False)
-        return _stem_forward(x, weight)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        x, weight = ctx.saved_tensors
-        need_dx, need_dw = ctx.needs_input_grad
-        return stem_conv_backward(x, weight, grad_out, need_dx, need_dw)
+def _backward(ctx, grad_out):
+    if ctx.epilogue:
+        raise NotImplementedError(
+            f"{KERNEL_NAME}: the scale/shift/ReLU epilogue has no gradient")
+    x, weight = ctx.saved_tensors
+    need_dx, need_dw = ctx.needs_input_grad[:2]
+    return (*stem_conv_backward(x, weight, grad_out, need_dx, need_dw),
+            None, None, None)
+
+
+torch.library.register_autograd("gvcnn::stem_conv7x7s2", _backward,
+                                setup_context=_setup_context)

@@ -47,14 +47,14 @@ counts each aten op: FLOPs by `torch.utils.flop_counter`'s formulas (convs
 and matrix products; elementwise ops, pools and BatchNorm count none), and
 bytes as the op's tensor inputs read once and outputs written once (views
 and allocations move none).  The hand-written kernels are counted from
-their shapes: under a dispatch mode their wrappers call their
-`torch.library` ops (`ops.as_operator`), which the counter sees as one op
-whichever implementation runs under it, the CUDA kernel on the card or the
-plain version on the CPU.  K2 (`gvcnn::stem_conv7x7s2`): 2 N Ho Wo 64 147
-FLOPs; x, the weight (and the epilogue's scale and shift) read, the output
-written.  K1 (`gvcnn::group_and_fuse`): B M V C compares and 2 B M C
-FLOPs; scores and descriptors read, the three outputs written.  The count
-is unfused, where XLA's "bytes accessed" is fused.
+their shapes: their wrappers call their `torch.library` ops, which the
+counter sees as one op whichever implementation runs under it, the CUDA
+kernel on the card or the plain version on the CPU.  K2
+(`gvcnn::stem_conv7x7s2`): 2 N Ho Wo 64 147 FLOPs; x, the weight (and the
+epilogue's scale and shift) read, the output written.  K1
+(`gvcnn::group_and_fuse`): B M V C compares and 2 B M C FLOPs; scores and
+descriptors read, the three outputs written.  The count is unfused, where
+XLA's "bytes accessed" is fused.
 
 Peaks: `PEAKS`, keyed on the card's name (NVIDIA's data sheet for the H100
 SXM part); in float32 the TF32 rate where `torch.backends.cudnn.
@@ -212,12 +212,12 @@ class WorkCounter(TorchDispatchMode):
 def count_work(fn: Callable[[], object]) -> WorkCounter:
     """Run fn() once under a `WorkCounter`; the counter (`k2_launches`: 0 on
     the CPU, where the plain version runs)."""
-    from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+    from gvcnn_tf_tpu_torch.ops import launched
 
-    before = stem_conv.launches
+    before = launched("stem_conv7x7s2")
     with WorkCounter() as counter:
         fn()
-    counter.k2_launches = stem_conv.launches - before
+    counter.k2_launches = launched("stem_conv7x7s2") - before
     return counter
 
 

@@ -32,12 +32,14 @@ batch is the same and every op's shape is fixed.
 
 On the card `mn40_12view` launches the bf16 stem kernel (K2) and the
 grouping kernel (K1) once in every call of each variant, `mn10_single_view`
-the fp32 stem kernel; `launches_per_call` gives (K2 bf16, K2 fp32, K1).
+the fp32 stem kernel; `launches_per_call` gives each variant's launches of
+every hand-written kernel by its entry point's name (`ops.launches`).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -49,8 +51,7 @@ import numpy as np
 import torch
 
 from gvcnn_tf_tpu_torch.configs import get_config, resolve_transfer_dtype
-from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+from gvcnn_tf_tpu_torch.ops import launches
 from gvcnn_tf_tpu_torch.tools.measure import card_line, cuda_ms
 from gvcnn_tf_tpu_torch.train import (
     create_train_state,
@@ -61,11 +62,6 @@ from gvcnn_tf_tpu_torch.train import (
 from gvcnn_tf_tpu_torch.utils import normalize_views, resolve_device
 
 WARMUP = 3
-
-
-def _launches():
-    return (stem_conv.launches - stem_conv.launches_f32,
-            stem_conv.launches_f32, group_and_fuse.launches)
 
 
 def median_ms(fn: Callable[[], object], iters: int, dev: torch.device,
@@ -146,9 +142,9 @@ def run(config: str = "mn40_12view", batch: int = 32, iters: int = 30,
              copy.deepcopy(state.optimizer.state_dict()), state.step)
     times, per_call = {}, {}
     for name, fn in (("fwd", fwd), ("grad", grad), ("full", full)):
-        before = _launches()
+        before = collections.Counter(launches)
         fn()
-        per_call[name] = [a - z for a, z in zip(_launches(), before)]
+        per_call[name] = dict(launches - before)
         times[name] = median_ms(fn, iters, dev)
         model.load_state_dict(saved[0])
         state.optimizer.load_state_dict(saved[1])

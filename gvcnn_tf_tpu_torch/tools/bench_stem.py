@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch.configs import get_config
-from gvcnn_tf_tpu_torch.ops import stem_kernel
+from gvcnn_tf_tpu_torch.ops import launched, stem_kernel
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 from gvcnn_tf_tpu_torch.tools.bench_variants import (
     step_seconds,
@@ -87,9 +87,9 @@ def bench_dtype(x: torch.Tensor, w: torch.Tensor, iters: int) -> dict:
     ph, pw = same_pads(x.shape[1], 7, 2), same_pads(x.shape[2], 7, 2)
     with torch.inference_mode():
         xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-        before = stem_kernel.stem_conv.launches
+        before = launched("stem_conv7x7s2")
         t_ker = _ms(lambda: stem_kernel.stem_conv(x, w), dev, iters)
-        launches = stem_kernel.stem_conv.launches - before
+        launches = launched("stem_conv7x7s2") - before
         t_lib = _ms(lambda: F.conv2d(xn, w, stride=2), dev, iters)
         got = stem_kernel.stem_conv(x, w).float()
         with _tf32(False):
@@ -130,7 +130,7 @@ def run(batch: int = 384, height: int = 224, iters: int = 20,
         steps = {}
         for name, route in (("stem_kernel", contextlib.nullcontext),
                             ("stem_cudnn", cudnn_stem)):
-            before = stem_kernel.stem_conv.launches
+            before = launched("stem_conv7x7s2")
             with route():
                 dt, _, loss = time_variant(cfg, shapes, iters=iters,
                                            device=dev)
@@ -140,7 +140,7 @@ def run(batch: int = 384, height: int = 224, iters: int = 20,
                     "views_per_sec": round(
                         shapes * cfg.data.num_views / dt, 1),
                     "first_loss": loss,
-                    "stem_launches": stem_kernel.stem_conv.launches - before,
+                    "stem_launches": launched("stem_conv7x7s2") - before,
                     **where}
             lines.append(line)
             print(json.dumps(line), flush=True)

@@ -14,12 +14,11 @@ for the single-view classifier); its outputs are `(logits, Predictions)`.
 The stem conv, the grouping head and the max and average pools are in the
 graph as the port's `torch.library` ops, `gvcnn::stem_conv7x7s2`,
 `gvcnn::group_and_fuse`, `gvcnn::max_pool_same` and `gvcnn::avg_pool_same`,
-so the process that loads an artifact must have
-imported them first (`gvcnn_tf_tpu_torch.ops.stem_kernel`,
-`.grouping_kernel` and `.pool_kernel`; importing this module does).  On a
-card an artifact launches the CUDA kernels (built at first use, as every
-entry point of the port builds them), on the CPU it runs their plain
-versions.
+so the process that loads an artifact must have imported them first
+(importing `gvcnn_tf_tpu_torch.ops` registers every op; importing this
+module does).  On a card an artifact launches the CUDA kernels (built at
+first use, as every entry point of the port builds them), on the CPU it
+runs their plain versions.
 
 CLI:
     python -m gvcnn_tf_tpu_torch.tools.export_model --config mn40_12view \
@@ -43,12 +42,8 @@ import torch.nn as nn
 from gvcnn_tf_tpu_torch.configs import GVCNNConfig, add_flags, config_from_flags
 from gvcnn_tf_tpu_torch.eval import scoring_model
 from gvcnn_tf_tpu_torch.models.gvcnn import build_model, init_weights, to_device
-# The artifact's graph calls these ops: importing the modules registers them.
-from gvcnn_tf_tpu_torch.ops import (  # noqa: F401
-    grouping_kernel,
-    pool_kernel,
-    stem_kernel,
-)
+# The artifact's graph calls the port's ops: importing `ops` registers them.
+import gvcnn_tf_tpu_torch.ops  # noqa: F401
 from gvcnn_tf_tpu_torch.utils import fold_batch_norm, resolve_device
 
 

@@ -49,9 +49,9 @@ named scope.
   the model that take a gradient (the loss).
 
 The hand-written kernels are launched through ctypes, which a dispatch mode
-cannot see; under any Python dispatch mode their wrappers call their
-`torch.library` ops (`ops.as_operator`), which the tracker sees, and the
-kernel launched inside the op falls under the op's range.  On the card a
+cannot see; their wrappers call their `torch.library` ops, which the
+tracker sees, and the kernel launched inside the op falls under the op's
+range.  On the card a
 kernel is tied to the range around its launch (the CUDA runtime event with
 the kernel's correlation id, on the launching thread; else the CPU op with
 its external id); a kernel tied to no range is `unattributed`, and the
@@ -104,8 +104,7 @@ from gvcnn_tf_tpu_torch.models.gvcnn import (
     init_weights,
     to_device,
 )
-from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+from gvcnn_tf_tpu_torch.ops import launches as kernel_launches
 from gvcnn_tf_tpu_torch.tools.bench_layers import (
     CPU_PEAKS,
     PEAKS,
@@ -603,12 +602,6 @@ def make_step(cfg, mode: str, dev: torch.device,
     return fwd, model, batch
 
 
-def _launches():
-    return {"stem_bf16": stem_conv.launches - stem_conv.launches_f32,
-            "stem_f32": stem_conv.launches_f32,
-            "grouping": group_and_fuse.launches}
-
-
 def run(config: str = "mn40_12view", mode: str = "train", batch: int = 32,
         top: int = 25, trace: Optional[str] = None, residual: bool = False,
         device="cuda", cfg=None, channels_last: Optional[bool] = None,
@@ -621,10 +614,10 @@ def run(config: str = "mn40_12view", mode: str = "train", batch: int = 32,
     fn, model, data = make_step(cfg, mode, dev, channels_last)
     fn()                                   # warm: allocations, plans
     tracker = LayerTracker(model, step, exclude=data)
-    before = _launches()
+    before = collections.Counter(kernel_launches)
     with tracker:
         fn()
-    launches = {k: v - before[k] for k, v in _launches().items()}
+    launches = dict(kernel_launches - before)
     op_counts, saved = tracker.op_counts(), dict(tracker.saved)
     n_ops = sum(tracker.ops.values())
     taken = [kernel_rows(trace_events(fn, dev, tracker), dev)

@@ -2,13 +2,13 @@
 
 The step is plain functions on tensors: `train_step(state, batch, config)`
 runs the model in train mode (batch-statistics BatchNorm with its EMA
-update, dropout before `Logits`), backpropagates through both hand-written
-kernels' autograd Functions, and applies an optimizer with optax's
-semantics.  Loss: softmax cross-entropy (optional label smoothing) plus
-slim's L2 term, 0.5 * weight_decay * sum(||kernel||^2) over every conv and
-`Logits` weight, never a BatchNorm scale or a bias.  The L2 term's gradient,
-weight_decay * w, is added to the kernels' gradients directly instead of
-through autograd (the same sum, without ~250 small ops a step).
+update, dropout before `Logits`), backpropagates through the hand-written
+kernels' ops and their registered gradients, and applies an optimizer with
+optax's semantics.  Loss: softmax cross-entropy (optional label smoothing)
+plus slim's L2 term, 0.5 * weight_decay * sum(||kernel||^2) over every conv
+and `Logits` weight, never a BatchNorm scale or a bias.  The L2 term's
+gradient, weight_decay * w, is added to the kernels' gradients directly
+instead of through autograd (the same sum, without ~250 small ops a step).
 
 `train(config)` is the training loop: an optional warm start from
 `checkpoint_path` (`checkpoint.warm_start_model`: an Orbax directory of the

@@ -25,17 +25,14 @@ arguments that reads its inputs from static buffers the class owns:
   later    copy the inputs in and replay.
 
 A replay runs no Python, so the hand-written kernels' wrappers, which count
-their launches (`stem_conv.launches`, `stem_conv.launches_f32`,
-`group_and_fuse.launches`, `max_pool_same.launches` and `.launches_bwd`,
-`avg_pool_same.launches` and `.launches_bwd`),
-do not run: a capture measures how far it moved those counters, puts them
-back (a capture launches nothing), and every replay adds that much.  After a
-replay the version counters of the tensors the function mutates are bumped,
-so that the host-side caches keyed on a version (the stem's packed weight,
-BatchNorm's scale and shift) see the change; while a graph is captured those
-caches compute instead of looking up (`ops.capturing()`), so a graph reads
-the weights themselves and a weight reloaded in place changes what it
-computes.  A graph is keyed on the
+their launches in `ops.launches`, do not run: a capture measures how far it
+moved that counter, puts it back (a capture launches nothing), and every
+replay adds that much.  After a replay the version counters of the tensors
+the function mutates are bumped, so that the host-side caches keyed on a
+version (the stem's packed weight, BatchNorm's scale and shift) see the
+change; while a graph is captured those caches compute instead of looking
+up (`ops.capturing()`), so a graph reads the weights themselves and a
+weight reloaded in place changes what it computes.  A graph is keyed on the
 storages of the tensors it watches (a model's parameters and buffers):
 when one of them moves, the graph is captured again.  The function and the
 keys' functions must not hold the `CapturedCall` or its owner: a graph in a
@@ -54,15 +51,14 @@ the entry points run their eager code.
 
 from __future__ import annotations
 
+import collections
 import os
 import traceback
 from typing import Callable, Dict, List, Sequence
 
 import torch
 
-from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
-from gvcnn_tf_tpu_torch.ops.pool_kernel import avg_pool_same, max_pool_same
-from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv
+from gvcnn_tf_tpu_torch.ops import launches
 from gvcnn_tf_tpu_torch.utils import profiling
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,18 +86,10 @@ def _new_graph(call: "CapturedCall"):
     return torch.cuda.CUDAGraph()
 
 
-def _counters():
-    return (stem_conv.launches, stem_conv.launches_f32,
-            group_and_fuse.launches, max_pool_same.launches,
-            max_pool_same.launches_bwd, avg_pool_same.launches,
-            avg_pool_same.launches_bwd)
-
-
-def _set_counters(values):
-    (stem_conv.launches, stem_conv.launches_f32,
-     group_and_fuse.launches, max_pool_same.launches,
-     max_pool_same.launches_bwd, avg_pool_same.launches,
-     avg_pool_same.launches_bwd) = values
+def _restore(counts: collections.Counter):
+    """Set `ops.launches` to `counts`, every name in it."""
+    launches.clear()
+    launches.update(counts)
 
 
 def _where(exc: BaseException) -> str:
@@ -155,7 +143,7 @@ class CapturedCall:
         self.captures = 0
         self._graph = None
         self._key = None
-        self._delta = (0, 0, 0)
+        self._delta = collections.Counter()
         self._warm = False
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
@@ -218,13 +206,12 @@ class CapturedCall:
             torch.cuda.synchronize(self.device)
             with torch.cuda.device(self.device):
                 torch.cuda.empty_cache()
-        before = _counters()
+        before = collections.Counter(launches)
         try:
             self.outputs = self._on_side(lambda: self._record(graph))
         finally:
-            after = _counters()
-            _set_counters(before)
-        self._delta = tuple(a - b for a, b in zip(after, before))
+            self._delta = collections.Counter(launches) - before
+            _restore(before)
         self._graph = graph
         self.captures += 1
 
@@ -249,10 +236,10 @@ class CapturedCall:
         return out
 
     def _replay(self):
-        before = _counters()
+        before = collections.Counter(launches)
         with profiling.span("graph.launch", call=self.name):
             self._graph.replay()
-        _set_counters(tuple(b + d for b, d in zip(before, self._delta)))
+        _restore(before + self._delta)
         mutated = list(self.mutates())
         if mutated:
             torch.autograd.graph.increment_version(mutated)

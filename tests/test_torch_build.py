@@ -6,7 +6,11 @@ import pytest
 torch = pytest.importorskip("torch")
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
-from gvcnn_tf_tpu_torch.ops import _build  # noqa: E402
+from gvcnn_tf_tpu_torch.ops import (  # noqa: E402
+    _build,
+    grouping_kernel,
+    stem_kernel,
+)
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv  # noqa: E402
 
@@ -50,9 +54,10 @@ def test_nonzero_launch_code_raises():
 
 
 def test_wrappers_refuse_other_devices():
-    """A device other than the CPU, a card or `meta` (shapes only: the
-    plain version, no data) is refused.  The stand-ins carry only what the
-    wrappers read before they refuse."""
+    """The ops' implementations refuse a device other than the CPU, a card
+    or `meta` (shapes only: the fake implementation, no data).  The
+    stand-ins carry only what the implementations read before they
+    refuse."""
     import types
 
     def on(shape, device):
@@ -60,9 +65,11 @@ def test_wrappers_refuse_other_devices():
                                      device=torch.device(device))
 
     with pytest.raises(ValueError, match="unsupported device"):
-        stem_conv(on((1, 16, 16, 3), "mps"), on((64, 3, 7, 7), "mps"))
+        stem_kernel._stem_forward(on((1, 16, 16, 3), "mps"),
+                                  on((64, 3, 7, 7), "mps"))
     with pytest.raises(ValueError, match="unsupported device"):
-        group_and_fuse(on((1, 4), "mps"), on((1, 4, 8), "mps"), 8)
+        grouping_kernel._forward(on((1, 4), "mps"), on((1, 4, 8), "mps"), 8,
+                                 "mean")
     x = torch.zeros((1, 16, 16, 3), device="meta")
     assert stem_conv(x, torch.zeros((64, 3, 7, 7), device="meta")).shape == (
         1, 8, 8, 64)

@@ -14,10 +14,10 @@ Tolerances: the stem (bf16 out, both sides accumulate in fp32) rtol = atol
 weights rtol 1e-6, fused rtol 1e-5 / atol 1e-6.  TF32 is turned off for the
 fp32 comparisons, so the plain version's einsums run in full fp32.
 
-Gradients: the stem's autograd Function against autograd through the plain
+Gradients: the stem op's gradient against autograd through the plain
 version (both end in cuDNN's conv gradient, fp32 accumulation, in whatever
 order cuDNN picks) within 1% of max|dw| and max|dx| in bf16, 1e-4 in fp32;
-the grouping head's Function against autograd through its plain version,
+the grouping op's gradient against autograd through its plain version,
 rtol 1e-5 / atol 1e-6.  One mn40_12view train step at 64x64, 4 views,
 B = 2, bf16 on the card against the same step in fp32 on the CPU: loss within
 5%, grad norm within 10% (bf16 through ~60 layers with batch statistics).
@@ -81,6 +81,7 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
+from gvcnn_tf_tpu_torch.ops import launched  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.grouping_kernel import (  # noqa: E402
     group_and_fuse,
     group_and_fuse_plain,
@@ -120,12 +121,12 @@ def test_stem_kernel_matches_plain(cuda, shape):
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
     w = torch.from_numpy((rs.randn(64, 3, 7, 7) * 0.1).astype(np.float32))
     xd, wd = x.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
-    before = stem_conv.launches
+    before = launched("stem_conv7x7s2")
     with torch.inference_mode():
         got = stem_conv(xd, wd)
         torch.cuda.synchronize()
         want = stem_conv_plain(xd, wd)
-    assert stem_conv.launches == before + 1
+    assert launched("stem_conv7x7s2") == before + 1
     assert got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
@@ -152,13 +153,13 @@ def test_stem_epilogue_matches_plain(cuda, shape, relu):
     shift = torch.from_numpy(rs.uniform(-1.0, 1.0, 64).astype(np.float32))
     xd, wd = x.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
     sd, hd = scale.to(cuda), shift.to(cuda)
-    before = stem_conv.launches
+    before = launched("stem_conv7x7s2")
     with torch.inference_mode():
         got = stem_conv(xd, wd, sd, hd, relu=relu)
         torch.cuda.synchronize()
         want = stem_conv_plain(xd, wd, sd, hd, relu=relu).float()
         conv = stem_conv_plain(xd, wd).float()
-    assert stem_conv.launches == before + 1
+    assert launched("stem_conv7x7s2") == before + 1
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     bound = sd.abs() * (_bf16_ulp(conv) + 1e-5) + _bf16_ulp(want)
     err = (got.float() - want).abs()
@@ -189,7 +190,7 @@ def test_stem_module_runs_the_epilogue_in_the_kernel(cuda):
     stem.to(cuda)
     x = torch.from_numpy(rs.randn(2, 64, 64, 3).astype(np.float32))
     xd = x.to(cuda, torch.bfloat16)
-    launches = stem_conv.launches
+    launches = launched("stem_conv7x7s2")
     with torch.inference_mode():
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -197,7 +198,7 @@ def test_stem_module_runs_the_epilogue_in_the_kernel(cuda):
         torch.cuda.synchronize()
         y = stem_conv_plain(xd, stem.conv.weight).permute(0, 3, 1, 2)
         want = F.relu(stem.BatchNorm(y))
-    assert stem_conv.launches == launches + 1
+    assert launched("stem_conv7x7s2") == launches + 1
     ops = {e.key for e in prof.key_averages()}
     assert not ops & {"aten::batch_norm", "aten::relu", "aten::relu_"}, ops
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -229,12 +230,12 @@ def test_stem_f32_kernel_matches_plain(cuda, shape, epilogue):
                        for a in (rs.uniform(0.5, 2.0, 64),
                                  rs.uniform(-1.0, 1.0, 64)))
     relu = epilogue == "relu"
-    before = (stem_conv.launches, stem_conv.launches_f32)
+    before = (launched("stem_conv7x7s2"), launched("stem_conv7x7s2_f32"))
     with torch.inference_mode():
         got = stem_conv(x, w, *affine, relu=relu)
         torch.cuda.synchronize()
         want = stem_conv_plain(x, w, *affine, relu=relu)
-    assert (stem_conv.launches, stem_conv.launches_f32) == (
+    assert (launched("stem_conv7x7s2"), launched("stem_conv7x7s2_f32")) == (
         before[0] + 1, before[1] + 1)
     assert got.shape == want.shape and got.dtype == torch.float32
     err = (got - want).abs().max().item()
@@ -254,7 +255,7 @@ def test_stem_kernel_refuses_what_it_does_not_take(cuda):
     one = torch.ones(64, device=cuda)
     with pytest.raises(NotImplementedError):                  # epilogue
         stem_conv(x.bfloat16(), wg, one, one, relu=True)
-    y = stem_conv(x.bfloat16(), wg)                 # the autograd Function
+    y = stem_conv(x.bfloat16(), wg)                 # the op's gradient
     y.float().sum().backward()
     assert wg.grad is not None and wg.grad.shape == w.shape
 
@@ -289,12 +290,12 @@ def test_grouping_kernel_matches_plain(cuda, mode, b, v, c, m, edges):
               else _scores_clear_of_edges(rs, b, v, m))
     s = torch.from_numpy(scores).to(cuda)
     d = torch.from_numpy(rs.randn(b, v, c).astype(np.float32)).to(cuda)
-    before = group_and_fuse.launches
+    before = launched("group_and_fuse")
     with torch.inference_mode():
         got = group_and_fuse(s, d, m, mode)
         torch.cuda.synchronize()
         want = group_and_fuse_plain(s, d, m, mode)
-    assert group_and_fuse.launches == before + 1
+    assert launched("group_and_fuse") == before + 1
     (fused, weights, scheme), (wf, ww, ws) = ([t.cpu().numpy() for t in r]
                                               for r in (got, want))
     np.testing.assert_array_equal(scheme, ws)
@@ -312,7 +313,7 @@ def test_grouping_kernel_refuses_what_it_does_not_take(cuda):
                                       dtype=torch.float64), 8)
     sg = s.clone().requires_grad_()
     fused, _, _ = group_and_fuse(sg, torch.ones((1, 4, 8), device=cuda), 8)
-    fused.sum().backward()                          # the autograd Function
+    fused.sum().backward()                          # the op's gradient
     assert sg.grad is not None and torch.isfinite(sg.grad).all()
 
 
@@ -322,7 +323,7 @@ def test_grouping_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("need_dx", [False, True])
 def test_stem_function_gradients_match_plain(cuda, dtype, shape, need_dx):
     """bf16: within 1% of max|dw| and max|dx|.  fp32 (the fp32 kernel's
-    Function, TF32 off on both sides by the `cuda` fixture): within 1e-4
+    op, TF32 off on both sides by the `cuda` fixture): within 1e-4
     of max, cuDNN's fp32 gradients summed in another order."""
     dt = getattr(torch, dtype)
     rs = np.random.RandomState(sum(shape) + need_dx)
@@ -335,12 +336,12 @@ def test_stem_function_gradients_match_plain(cuda, dtype, shape, need_dx):
     for fn in (stem_conv, stem_conv_plain):
         xd = x.to(cuda, dt).requires_grad_(need_dx)
         wd32 = w.to(cuda).requires_grad_()
-        before = (stem_conv.launches, stem_conv.launches_f32)
+        before = (launched("stem_conv7x7s2"), launched("stem_conv7x7s2_f32"))
         fn(xd, wd32.to(dt)).backward(g)
-        launched = int(fn is stem_conv)
-        assert (stem_conv.launches, stem_conv.launches_f32) == (
-            before[0] + launched,
-            before[1] + launched * (dt == torch.float32))
+        ran = int(fn is stem_conv)
+        assert (launched("stem_conv7x7s2"),
+                launched("stem_conv7x7s2_f32")) == (
+            before[0] + ran, before[1] + ran * (dt == torch.float32))
         grads.append((wd32.grad, xd.grad))
     (dw, dx), (dw_ref, dx_ref) = grads
     rel = 1e-2 if dt == torch.bfloat16 else 1e-4
@@ -370,10 +371,10 @@ def test_grouping_function_gradients_match_plain(cuda, mode, b, v, c, m,
     for fn in (group_and_fuse, group_and_fuse_plain):
         sd = torch.from_numpy(scores).to(cuda).requires_grad_()
         dd = torch.from_numpy(d).to(cuda).requires_grad_()
-        before = group_and_fuse.launches
+        before = launched("group_and_fuse")
         fused, weights, _ = fn(sd, dd, m, mode)
         ((fused * gf).sum() + (weights * gw).sum()).backward()
-        assert group_and_fuse.launches == before + (fn is group_and_fuse)
+        assert launched("group_and_fuse") == before + (fn is group_and_fuse)
         grads.append((sd.grad, dd.grad))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
@@ -397,10 +398,10 @@ def test_one_train_step_on_the_card(cuda):
     want = train_step(ref, batch, cfg.replace(compute_dtype="float32"))
     state = create_train_state(cfg, cuda)
     before = [p.detach().clone() for p in state.kernels]
-    launches = (stem_conv.launches, group_and_fuse.launches)
+    launches = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     got = train_step(state, {k: t.to(cuda) for k, t in batch.items()}, cfg)
-    assert (stem_conv.launches - launches[0],
-            group_and_fuse.launches - launches[1]) == (1, 1)
+    assert (launched("stem_conv7x7s2") - launches[0],
+            launched("group_and_fuse") - launches[1]) == (1, 1)
     assert state.step == 1
     assert all(torch.isfinite(t) for t in got.values())
     assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=0.05)
@@ -442,13 +443,14 @@ def test_families_on_the_card(cuda, name, launches):
                        cfg.train.seed).eval()
     model = to_device(init_weights(build_model(cfg), cfg.train.seed),
                       cuda).eval()
-    before = (stem_conv.launches, stem_conv.launches_f32,
-              group_and_fuse.launches)
+    before = (launched("stem_conv7x7s2"), launched("stem_conv7x7s2_f32"),
+              launched("group_and_fuse"))
     with torch.no_grad():
         got = model(x.to(cuda))[0].float().cpu()
         want = ref(x)[0]
-    assert (stem_conv.launches - before[0], stem_conv.launches_f32
-            - before[1], group_and_fuse.launches - before[2]) == launches
+    assert (launched("stem_conv7x7s2") - before[0],
+            launched("stem_conv7x7s2_f32") - before[1],
+            launched("group_and_fuse") - before[2]) == launches
     assert (got - want).abs().max() <= 3e-2 * want.abs().max()
 
 
@@ -485,10 +487,10 @@ def test_eval_on_the_card(cuda, tmp_path):
         train=dataclasses.replace(base.train, train_logdir=str(tmp_path),
                                   checkpoint_every=2, eval_every=2,
                                   log_every=1))
-    launches = (stem_conv.launches, group_and_fuse.launches)
+    launches = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     state, _ = train(cfg, num_steps=2, device=cuda)
-    assert (stem_conv.launches - launches[0],
-            group_and_fuse.launches - launches[1]) == (5, 5)
+    assert (launched("stem_conv7x7s2") - launches[0],
+            launched("group_and_fuse") - launches[1]) == (5, 5)
     assert state.model.training
     rec = [json.loads(line) for line in
            (tmp_path / "metrics.jsonl").read_text().splitlines()]
@@ -552,10 +554,10 @@ def test_world_of_one_over_nccl_is_the_plain_step(cuda, tmp_path):
                 -1, 1, (2, 4, 64, 64, 3)).astype(np.float32)).to(cuda),
                 "label": torch.from_numpy(rs.randint(0, 40, 2)).to(cuda)}
             want = train_step(plain, batch, cfg)
-            launches = (stem_conv.launches, group_and_fuse.launches)
+            launches = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
             got = train_step(dp, batch, cfg)
-            assert (stem_conv.launches - launches[0],
-                    group_and_fuse.launches - launches[1]) == (1, 1)
+            assert (launched("stem_conv7x7s2") - launches[0],
+                    launched("group_and_fuse") - launches[1]) == (1, 1)
             for k in want:
                 assert torch.equal(got[k], want[k]), k
         a, b = plain.model.state_dict(), dp.model.state_dict()
@@ -628,13 +630,13 @@ def small_artifact():
 
 def test_artifact_launches_each_kernel_once_a_forward(cuda, small_artifact):
     module, _, x = small_artifact
-    before = (stem_conv.launches, group_and_fuse.launches)
+    before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     with torch.inference_mode():
         module(x)
         module(x)
     torch.cuda.synchronize()
-    assert (stem_conv.launches - before[0],
-            group_and_fuse.launches - before[1]) == (2, 2)
+    assert (launched("stem_conv7x7s2") - before[0],
+            launched("group_and_fuse") - before[1]) == (2, 2)
 
 
 def test_artifact_equals_the_eager_forward(cuda, small_artifact):
@@ -705,24 +707,24 @@ def test_device_flip_on_the_card(cuda, tmp_path):
     rate = float(torch.stack(masks).float().mean())
     assert abs(rate - 0.5) < 5 * 0.5 / np.sqrt(20 * 96)
     state.step = 0
-    before = (stem_conv.launches, group_and_fuse.launches)
+    before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     batch = {"views": views.new_zeros((2, 4, 64, 64, 3)).cuda(),
              "label": torch.zeros(2, dtype=torch.long, device="cuda")}
     mets = train_mod.train_step(state, batch, cfg)
     assert np.isfinite(float(mets["loss"]))
-    assert (stem_conv.launches - before[0],
-            group_and_fuse.launches - before[1]) == (1, 1)
+    assert (launched("stem_conv7x7s2") - before[0],
+            launched("group_and_fuse") - before[1]) == (1, 1)
 
 
 def _train_three_steps(cfg):
     import importlib
 
     train_mod = importlib.import_module("gvcnn_tf_tpu_torch.train")
-    before = (stem_conv.launches, group_and_fuse.launches)
+    before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     state, mets = train_mod.train(cfg, num_steps=3, device="cuda")
     assert state.step == 3 and np.isfinite(mets["loss"])
-    assert (stem_conv.launches - before[0],
-            group_and_fuse.launches - before[1]) == (3, 3)
+    assert (launched("stem_conv7x7s2") - before[0],
+            launched("group_and_fuse") - before[1]) == (3, 3)
 
 
 def test_native_train_on_the_card(cuda, tmp_path):
@@ -788,10 +790,10 @@ def test_resident_step_is_the_streaming_step_on_the_card(cuda):
             with DevicePrefetcher(it, cuda) as pf:
                 batch = next(pf)
             state = create_train_state(cfg, cuda)
-            launches = (stem_conv.launches, group_and_fuse.launches)
+            launches = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
             outs.append(train_step(state, batch, cfg))
-            assert (stem_conv.launches - launches[0],
-                    group_and_fuse.launches - launches[1]) == (1, 1)
+            assert (launched("stem_conv7x7s2") - launches[0],
+                    launched("group_and_fuse") - launches[1]) == (1, 1)
             states.append(state.model.state_dict())
             if it is resident:
                 assert batch["views"].data_ptr() == resident.views.data_ptr()
@@ -935,14 +937,14 @@ def test_compiled_step_is_the_eager_step_on_the_card(cuda):
         state = create_train_state(cfg, cuda)
         step = compile_train_step(state, cfg, batches[0])
         for b in batches:
-            before = (stem_conv.launches, group_and_fuse.launches)
+            before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
             want = train_step(ref, b, cfg)
-            eager = (stem_conv.launches - before[0],
-                     group_and_fuse.launches - before[1])
-            before = (stem_conv.launches, group_and_fuse.launches)
+            eager = (launched("stem_conv7x7s2") - before[0],
+                     launched("group_and_fuse") - before[1])
+            before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
             got = step(state, b, cfg)
-            assert (stem_conv.launches - before[0],
-                    group_and_fuse.launches - before[1]) == eager == (2, 2)
+            assert (launched("stem_conv7x7s2") - before[0],
+                    launched("group_and_fuse") - before[1]) == eager == (2, 2)
             for k in want:
                 assert torch.equal(got[k], want[k]), k
         a, b = ref.model.state_dict(), state.model.state_dict()
@@ -971,11 +973,11 @@ def test_train_replays_its_step_on_the_card(cuda, tmp_path, monkeypatch):
     cfg = _procedural_cfg(tmp_path, "auto")
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 checkpoint_every=0))
-    before = (stem_conv.launches, group_and_fuse.launches)
+    before = (launched("stem_conv7x7s2"), launched("group_and_fuse"))
     state, mets = train_mod.train(cfg, num_steps=4, device="cuda")
     assert state.step == 4 and np.isfinite(mets["loss"])
-    assert (stem_conv.launches - before[0],
-            group_and_fuse.launches - before[1]) == (4, 4)
+    assert (launched("stem_conv7x7s2") - before[0],
+            launched("group_and_fuse") - before[1]) == (4, 4)
     [step] = made
     assert (step.graph.captures, step.graph.replays) == (1, 3)
 
@@ -1171,12 +1173,12 @@ def test_pool_kernel_is_the_plain_pool_bit_for_bit(cuda, name, h, c, k, s,
 
     x = _pool_input(cuda, POOL_N, h, c, dtype, h + c + k)
     geo = _geometry(x, k, s)
-    before = pk.max_pool_same.launches
+    before = launched("max_pool_same_fwd")
     with torch.no_grad():
         y, slot = pk._forward(x, *geo, record)
         want = pk.max_pool_plain(x, *geo)
         torch.cuda.synchronize()
-    assert pk.max_pool_same.launches == before + 1
+    assert launched("max_pool_same_fwd") == before + 1
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(y, want)
     if record:
@@ -1191,7 +1193,7 @@ def test_pool_kernel_is_the_plain_pool_bit_for_bit(cuda, name, h, c, k, s,
 @pytest.mark.parametrize("name,h,c,k,s", POOL_SHAPES)
 def test_pool_backward_kernel_matches_autograd(cuda, name, h, c, k, s,
                                                dtype):
-    """The pool's Function at N = 8 against autograd through `F.pad` +
+    """The pool's op at N = 8 against autograd through `F.pad` +
     `F.max_pool2d`: dx bit-equal where an input wins one window (or none),
     within one bf16 ulp (fp32: 1e-6 relative) where it wins several, the
     fp32 sum taken in another order; the backward kernel launches once."""
@@ -1200,13 +1202,13 @@ def test_pool_backward_kernel_matches_autograd(cuda, name, h, c, k, s,
     x = _pool_input(cuda, POOL_N, h, c, dtype, h + c + k + 1)
     geo = _geometry(x, k, s)
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-    before = pk.max_pool_same.launches_bwd
+    before = launched("max_pool_same_bwd")
     y = pk.max_pool_same(xa, *geo)
     dy = _pool_input(cuda, POOL_N, y.shape[2], c, dtype, 5)
     y.backward(dy)
     pk.max_pool_plain(xb, *geo).backward(dy)
     torch.cuda.synchronize()
-    assert pk.max_pool_same.launches_bwd == before + 1
+    assert launched("max_pool_same_bwd") == before + 1
     _, slot = pk.max_pool_record_plain(x, *geo)
     wins = pk.max_pool_backward_plain(torch.ones_like(dy, dtype=torch.float32),
                                       slot, (h, h), *geo)
@@ -1356,7 +1358,6 @@ def test_compiled_step_runs_the_pool_kernels(cuda, monkeypatch):
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=4))
     batches = _u8_batches(cfg, 3)
     layouts = []
-    counter = pk.max_pool_same
     real_forward, real_backward = pk._forward, pk._backward
 
     def forward(x, *a):
@@ -1380,11 +1381,12 @@ def test_compiled_step_runs_the_pool_kernels(cuda, monkeypatch):
             step = compile_train_step(state, cfg, batches[0])
             step(state, batches[0], cfg)          # the warm-up
             step(state, batches[1], cfg)          # the capture, replayed
-            before = (counter.launches, counter.launches_bwd)
+            before = (launched("max_pool_same_fwd"),
+                      launched("max_pool_same_bwd"))
             counts[path], replays = _replay_kernels(step, state, batches[2],
                                                     cfg)
-            moved = (counter.launches - before[0],
-                     counter.launches_bwd - before[1])
+            moved = (launched("max_pool_same_fwd") - before[0],
+                     launched("max_pool_same_bwd") - before[1])
             per = (13, 13) if path == "kernel" else (0, 0)
             assert moved == (per[0] * replays, per[1] * replays)
     assert len(layouts) >= 2 * 26 and all(layouts)
@@ -1438,12 +1440,12 @@ def test_avg_pool_forward_kernel_is_the_plain_pool(cuda, h, c, dtype):
     from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
 
     x = _avg_input(cuda, AVG_N, h, c, dtype, h + c)
-    before = pk.avg_pool_same.launches
+    before = launched("avg_pool_same_fwd")
     with torch.no_grad():
         y = pk.avg_pool_same(x)
         want = pk.avg_pool_plain(x)
     torch.cuda.synchronize()
-    assert pk.avg_pool_same.launches == before + 1
+    assert launched("avg_pool_same_fwd") == before + 1
     assert y.shape == x.shape and y.dtype == dtype
     assert y.is_contiguous(memory_format=torch.channels_last)
     _within_avg_tolerance(y, want, dtype)
@@ -1452,9 +1454,9 @@ def test_avg_pool_forward_kernel_is_the_plain_pool(cuda, h, c, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,c", AVG_SHAPES)
 def test_avg_pool_backward_kernel_is_autograds(cuda, h, c, dtype):
-    """The pool's Function at 384 images: dx from the backward kernel
+    """The pool's op at 384 images: dx from the backward kernel
     within the tolerance of autograd's through `F.avg_pool2d` and of the
-    plain box sum of dy; one launch each way, through `AvgPoolFunction`.
+    plain box sum of dy; one launch each way, through the op's gradient.
     Autograd runs on fp32 NCHW copies of x and dy and its dx is rounded to
     the dtype once: PyTorch's channels-last backward is displaced (module
     docstring), and its bf16 NCHW backward lay up to 2 ulps from the
@@ -1466,17 +1468,16 @@ def test_avg_pool_backward_kernel_is_autograds(cuda, h, c, dtype):
     dy = _avg_input(cuda, AVG_N, h, c, dtype, 5)
     xa = x.clone().requires_grad_()
     xb = x.float().contiguous().requires_grad_()
-    counter = pk.avg_pool_same
-    before = (counter.launches, counter.launches_bwd)
+    before = (launched("avg_pool_same_fwd"), launched("avg_pool_same_bwd"))
     y = pk.avg_pool_same(xa)
     y.backward(dy)
     F.avg_pool2d(xb, 3, 1, padding=1, count_include_pad=True).backward(
         dy.float().contiguous())
     plain = pk.avg_pool_backward_plain(dy)
     torch.cuda.synchronize()
-    assert (counter.launches - before[0],
-            counter.launches_bwd - before[1]) == (1, 1)
-    assert "AvgPoolFunction" in type(y.grad_fn).__name__
+    assert (launched("avg_pool_same_fwd") - before[0],
+            launched("avg_pool_same_bwd") - before[1]) == (1, 1)
+    assert "gvcnn_avg_pool_same" in type(y.grad_fn).__name__
     assert xa.grad.is_contiguous(memory_format=torch.channels_last)
     _within_avg_tolerance(xa.grad, xb.grad.to(dtype), dtype)
     _within_avg_tolerance(xa.grad, plain, dtype)
@@ -1492,15 +1493,14 @@ def test_compiled_inception_v4_step_runs_the_avg_pool_kernels(cuda):
 
     cfg = _graph_cfg("mn40_12view_inception_v4", size=80)
     batches = _u8_batches(cfg, 3)
-    counter = pk.avg_pool_same
     state = create_train_state(cfg, cuda)
     step = compile_train_step(state, cfg, batches[0])
     step(state, batches[0], cfg)          # the warm-up
     step(state, batches[1], cfg)          # the capture, replayed
-    before = (counter.launches, counter.launches_bwd)
+    before = (launched("avg_pool_same_fwd"), launched("avg_pool_same_bwd"))
     kern, replays = _replay_kernels(step, state, batches[2], cfg)
-    assert (counter.launches - before[0],
-            counter.launches_bwd - before[1]) == (14 * replays,
+    assert (launched("avg_pool_same_fwd") - before[0],
+            launched("avg_pool_same_bwd") - before[1]) == (14 * replays,
                                                   14 * replays)
     assert sum(n for k, n in kern.items() if "avg_pool_same_fwd" in k) == 14
     assert sum(n for k, n in kern.items() if "avg_pool_same_bwd" in k) == 14
@@ -1515,8 +1515,7 @@ def test_avg_pool_refuses_on_the_card_without_launching(cuda):
     from gvcnn_tf_tpu_torch.ops import pool_kernel as pk
     from gvcnn_tf_tpu_torch.ops.pool import avg_pool
 
-    counter = pk.avg_pool_same
-    before = (counter.launches, counter.launches_bwd)
+    before = (launched("avg_pool_same_fwd"), launched("avg_pool_same_bwd"))
     x = _avg_input(cuda, 2, 12, 16, torch.float32, 7)
     with pytest.raises(ValueError, match="3x3 window at stride 1"):
         avg_pool(x, (3, 3), (2, 2))
@@ -1528,14 +1527,15 @@ def test_avg_pool_refuses_on_the_card_without_launching(cuda):
         with pytest.raises(ValueError, match="multiple"):
             pk.avg_pool_same(xc)
         with pytest.raises(ValueError, match="multiple"):
-            pk.AvgPoolFunction.apply(xc.requires_grad_()).sum().backward()
+            pk.avg_pool_same(xc.requires_grad_()).sum().backward()
     flat = torch.randn(1 + 2 * 12 * 12 * 16, device=cuda).to(torch.bfloat16)
     view = flat[1:].view(2, 12, 12, 16).permute(0, 3, 1, 2)
     assert view.is_contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="aligned"):
         pk.avg_pool_same(view)
     torch.cuda.synchronize()
-    assert (counter.launches, counter.launches_bwd) == before
+    assert (launched("avg_pool_same_fwd"),
+            launched("avg_pool_same_bwd")) == before
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
         want = pk.avg_pool_same(xd)

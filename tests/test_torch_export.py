@@ -1,10 +1,11 @@
-"""The port's export (tools/export_model.py) and its two `torch.library`
-ops on the CPU, against the live port model and the JAX package's model.
+"""The port's export (tools/export_model.py) and its `torch.library` ops
+on the CPU, against the live port model and the JAX package's model.
 
 The ops: `torch.library.opcheck` of `gvcnn::stem_conv7x7s2` and
 `gvcnn::group_and_fuse` (schema, fake implementation, autograd
 registration, AOT dispatch) on CPU tensors, where their implementation is
-the plain version.
+the plain version, and of all six ops (the two pools' backward ops too)
+with inputs that require a gradient.
 
 The model: mn40_12view (and its MVCNN and single-view relatives) with 10
 classes, cut to Mixed_3b (scoring FCN on Conv2d_2c_3x3), fp32, 32x32, 2
@@ -126,6 +127,47 @@ def test_opcheck_grouping(num_group, mode):
     descs = _rs_tensor(rs, (3, 5, 16))
     torch.library.opcheck(torch.ops.gvcnn.group_and_fuse.default,
                           (scores, descs, num_group, mode))
+
+
+def _grad_case(op, rs):
+    """(the op, its arguments with every float tensor requiring a gradient)
+    at small CPU shapes."""
+    pool_x = _rs_tensor(rs, (2, 16, 12, 12))
+    if op == "stem_conv7x7s2":
+        args = (_rs_tensor(rs, (2, 17, 20, 3)),
+                _rs_tensor(rs, (64, 3, 7, 7)) * 0.1, None, None, False)
+    elif op == "group_and_fuse":
+        args = (torch.softmax(_rs_tensor(rs, (3, 5)), -1),
+                _rs_tensor(rs, (3, 5, 16)), 4, "ceil_sum")
+    elif op == "max_pool_same":
+        args = (pool_x, [3, 3], [2, 2], [0, 1, 0, 1], True)
+    elif op == "max_pool_same_backward":
+        _, slot = torch.ops.gvcnn.max_pool_same(pool_x, [3, 3], [2, 2],
+                                                [0, 1, 0, 1], True)
+        args = (_rs_tensor(rs, tuple(slot.shape)), slot, [12, 12], [3, 3],
+                [2, 2], [0, 1, 0, 1])
+    else:                                      # avg_pool_same(_backward)
+        args = (pool_x,)
+    return (getattr(torch.ops.gvcnn, op).default,
+            tuple(a.detach().requires_grad_()
+                  if isinstance(a, torch.Tensor) and a.is_floating_point()
+                  else a for a in args))
+
+
+@pytest.mark.parametrize("op", [
+    "stem_conv7x7s2", "group_and_fuse", "max_pool_same",
+    "max_pool_same_backward", "avg_pool_same", "avg_pool_same_backward"])
+def test_opcheck_with_inputs_that_require_grad(op):
+    """`torch.library.opcheck` of each of the six ops with float inputs that
+    require a gradient, on CPU tensors: schema, fake, the registered
+    autograd and, for the four forwards, AOT dispatch through that autograd
+    (the two backward ops refuse a gradient of their own: the port takes no
+    second derivative)."""
+    fn, args = _grad_case(op, np.random.RandomState(len(op)))
+    tests = ("test_schema", "test_autograd_registration", "test_faketensor")
+    if not op.endswith("_backward"):
+        tests += ("test_aot_dispatch_dynamic",)
+    torch.library.opcheck(fn, args, test_utils=tests)
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

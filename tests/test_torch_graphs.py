@@ -48,7 +48,12 @@ from gvcnn_tf_tpu_torch.bridge import (  # noqa: E402
     jax_to_state_dict,
     state_dict_to_jax,
 )
-from gvcnn_tf_tpu_torch.ops import grouping_kernel, stem_kernel  # noqa: E402
+from gvcnn_tf_tpu_torch.ops import (  # noqa: E402
+    grouping_kernel,
+    launched,
+    launches,
+    stem_kernel,
+)
 from gvcnn_tf_tpu_torch.utils import graphs  # noqa: E402
 
 jax_train = importlib.import_module("gvcnn_tf_tpu.train")
@@ -113,12 +118,12 @@ def counted(monkeypatch):
     """The plain versions count as the kernels do where they launch."""
     stem, group = stem_kernel._stem_forward, grouping_kernel._forward
 
-    def stem_counted(*a, **kw):
-        stem_kernel.stem_conv.launches += 1
-        return stem(*a, **kw)
+    def stem_counted(x, *a, **kw):
+        launches[stem_kernel.kernel_name(x.dtype)] += 1
+        return stem(x, *a, **kw)
 
     def group_counted(*a, **kw):
-        grouping_kernel.group_and_fuse.launches += 1
+        launches[grouping_kernel.KERNEL_NAME] += 1
         return group(*a, **kw)
 
     monkeypatch.setattr(stem_kernel, "_stem_forward", stem_counted)
@@ -126,8 +131,7 @@ def counted(monkeypatch):
 
 
 def _counts():
-    return (stem_kernel.stem_conv.launches,
-            grouping_kernel.group_and_fuse.launches)
+    return launched("stem_conv7x7s2"), launched("group_and_fuse")
 
 
 def _tiny(mod=port_configs, keep=0.5, flip=False, **train_kw):
@@ -387,10 +391,35 @@ def test_replays_advance_the_launch_counters(recorder, counted):
     graph = step.graph
     graph._capture()                           # a capture alone
     assert _counts() == (start[0] + 1, start[1] + 1)
-    assert graph._delta == (1, 0, 1, 0, 0, 0, 0)
+    assert graph._delta == {"stem_conv7x7s2_f32": 1, "group_and_fuse_f32": 1}
     for n in range(2, 5):
         graph._replay()
         assert _counts() == (start[0] + n, start[1] + n)
+
+
+def test_the_counter_carries_a_name_the_graphs_were_never_told(recorder):
+    """The graphs snapshot, restore and add the launch counter as a whole:
+    an entry point no module names before the call is put back after the
+    capture and advanced by each replay like the kernels' own."""
+    name = "an_entry_point_of_no_kernel_module"
+    x = torch.zeros(3)
+
+    def fn():
+        launches[name] += 1
+        return x + 1
+
+    call = graphs.CapturedCall("counted", fn, {"x": x}, device="cpu")
+    try:
+        call(x=x)                              # the warm-up, eager
+        assert launches[name] == 1
+        call._capture()                        # a capture alone
+        assert launches[name] == 1
+        assert call._delta == {name: 1}
+        for n in range(2, 5):
+            call._replay()
+            assert launches[name] == n
+    finally:
+        del launches[name]
 
 
 # ------------------------------------------------------ graphs in general

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 import torch.nn.functional as F  # noqa: E402
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
-from gvcnn_tf_tpu_torch.ops import pool  # noqa: E402
+from gvcnn_tf_tpu_torch.ops import launched, pool  # noqa: E402
 from gvcnn_tf_tpu_torch.ops import pool_kernel as pk  # noqa: E402
 
 # (pool, input H = W, channels) of the 'VALID' 3x3/2 max pools at 299x299.
@@ -104,12 +104,12 @@ def test_valid_pool_forward_is_max_pool2d_with_indices(cuda, name, h, c,
     values bit for bit, and the record the window slot of its indices
     (bf16 draws hold ties; both credit the first maximum)."""
     x = _draw((IMAGES, c, h, h), dtype, h + c, cuda)
-    before = pk.max_pool_same.launches
+    before = launched("max_pool_same_fwd")
     with torch.no_grad():
         y, slot = pk._forward(x, *VALID, True)
         want, idx = F.max_pool2d(x, 3, 2, return_indices=True)
     torch.cuda.synchronize()
-    assert pk.max_pool_same.launches == before + 1
+    assert launched("max_pool_same_fwd") == before + 1
     ho = (h - 3) // 2 + 1
     assert y.shape == (IMAGES, c, ho, ho)
     assert torch.equal(y, want)
@@ -123,20 +123,20 @@ def test_valid_pool_forward_is_max_pool2d_with_indices(cuda, name, h, c,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name,h,c", VALID_POOLS)
 def test_valid_pool_backward_is_max_pool2d_backward(cuda, name, h, c, dtype):
-    """The pool's Function at 384 images against autograd through
+    """The pool's op at 384 images against autograd through
     `F.max_pool2d` (its indices' backward): dx bit-equal where an input
     wins one window or none, within one bf16 ulp (fp32: 1e-6 relative)
     where it wins two; the backward kernel launches once."""
     x = _draw((IMAGES, c, h, h), dtype, h + c + 1, cuda)
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-    before = pk.max_pool_same.launches_bwd
+    before = launched("max_pool_same_bwd")
     y = pk.max_pool_same(xa, *VALID)
     dy = _draw(tuple(y.shape), dtype, 5, cuda)
     y.backward(dy)
     want_y, idx = F.max_pool2d(xb, 3, 2, return_indices=True)
     want_y.backward(dy)
     torch.cuda.synchronize()
-    assert pk.max_pool_same.launches_bwd == before + 1
+    assert launched("max_pool_same_bwd") == before + 1
     wins = torch.zeros(IMAGES, c, h * h, device=cuda)
     wins.scatter_add_(2, idx.flatten(2), torch.ones_like(
         idx, dtype=torch.float32).flatten(2))

@@ -1,5 +1,5 @@
-"""The max and average pools' plain versions, their autograd Functions,
-their ops and their export on the CPU (`gvcnn_tf_tpu_torch/ops/
+"""The max and average pools' plain versions, their ops with their
+registered gradients, and their export on the CPU (`gvcnn_tf_tpu_torch/ops/
 pool_kernel.py`).  The CUDA kernels are held to these plain versions on the
 card, in tests/test_torch_cuda_kernels.py.
 
@@ -26,6 +26,7 @@ from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (  # noqa: E402
     InceptionV1Base,
 )
 from gvcnn_tf_tpu_torch.models.backbones.layers import remat  # noqa: E402
+from gvcnn_tf_tpu_torch.ops import launched  # noqa: E402
 from gvcnn_tf_tpu_torch.ops import pool_kernel as pk  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.pool import (  # noqa: E402
     _pads,
@@ -69,12 +70,11 @@ def test_plain_is_the_padded_pool(name, h, c, k, s):
     launches nothing; the plain record's values are the same."""
     x, geo = _case(h, c, k, s)
     want = F.max_pool2d(_padded(x, geo[2]), geo[0], geo[1])
-    launches = (pk.max_pool_same.launches, pk.max_pool_same.launches_bwd)
+    launches = launched()
     assert torch.equal(pk.max_pool_plain(x, *geo), want)
     assert torch.equal(max_pool(x, geo[0], geo[1]), want)
     assert torch.equal(pk.max_pool_record_plain(x, *geo)[0], want)
-    assert (pk.max_pool_same.launches,
-            pk.max_pool_same.launches_bwd) == launches
+    assert launched() == launches
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -120,13 +120,13 @@ def test_ties_neg_inf_and_nan_follow_the_first_maximum():
     assert y[0, 0, 1, 0].isnan() and slot[0, 0, 1, 0] == 1
     assert F.max_pool2d(x, 2, 2)[0, 0, 1, 0].isnan()
     xg = x.clone().requires_grad_()
-    pk.MaxPoolFunction.apply(xg, *geo).sum().backward()
+    pk.max_pool_same(xg, *geo).sum().backward()
     assert xg.grad[0, 0, 2, 1] == 1 and xg.grad[0, 0, 3, 0] == 0
 
 
 @pytest.mark.parametrize("name,h,c,k,s", POOLS)
 def test_function_backward_is_autograds(name, h, c, k, s):
-    """The Function on the CPU (the plain record, the plain gather) against
+    """The op on the CPU (the plain record, the plain gather) against
     autograd through `F.pad` + `F.max_pool2d`: the same output, dx equal
     where an input wins one window or none, within rtol 1e-6 where it wins
     several; the only tensor saved for the backward is the uint8 record."""
@@ -139,7 +139,7 @@ def test_function_backward_is_autograds(name, h, c, k, s):
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        y = pk.MaxPoolFunction.apply(xa, *geo)
+        y = pk.max_pool_same(xa, *geo)
     want = pk.max_pool_plain(xb, *geo)
     assert torch.equal(y, want)
     assert saved == [(torch.uint8, tuple(y.shape))]
@@ -156,8 +156,8 @@ def test_function_backward_is_autograds(name, h, c, k, s):
 
 
 def test_remat_writes_the_record_again():
-    """Under `layers.remat` the Function's forward runs again in the
-    backward (its record is not kept) and the gradient is the same."""
+    """Under `layers.remat` the op's forward runs again in the backward
+    (its record is not kept) and the gradient is the same."""
     x, geo = _case(28, 16, 3, 2)
     calls = []
     real = pk._forward
@@ -167,10 +167,10 @@ def test_remat_writes_the_record_again():
         return real(*a)
 
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-    pk.MaxPoolFunction.apply(xb, *geo).square().sum().backward()
+    pk.max_pool_same(xb, *geo).square().sum().backward()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pk, "_forward", counted)
-        remat(lambda t: pk.MaxPoolFunction.apply(t, *geo).square(),
+        remat(lambda t: pk.max_pool_same(t, *geo).square(),
               xa).sum().backward()
     assert calls == [True, True]
     assert torch.equal(xa.grad, xb.grad)
@@ -303,7 +303,7 @@ def test_the_kernels_take_whole_aligned_channel_vectors(dtype, c, offset,
 
 # ---------------------------------------------------------------------------
 # The 3x3/1 'SAME' average pool (csrc/avg_pool.cu): plain versions, the
-# Function, the ops and the export, on the CPU.
+# ops with their gradient, and the export, on the CPU.
 # ---------------------------------------------------------------------------
 
 # (pool, H = W, C) of every average pool of the backbones: Inception-v4's 14
@@ -340,22 +340,21 @@ def test_avg_plain_is_avg_pool2d_counting_the_pads(name, h, c):
     there), and launches nothing."""
     x, _ = _avg_case(name, h, c)
     want = F.avg_pool2d(x, 3, 1, padding=1, count_include_pad=True)
-    launches = (pk.avg_pool_same.launches, pk.avg_pool_same.launches_bwd)
+    launches = launched()
     assert torch.equal(pk.avg_pool_plain(x), want)
     assert torch.equal(avg_pool(x, (3, 3), (1, 1)), want)
     got = pk._box(x, False)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, want)
-    assert (pk.avg_pool_same.launches,
-            pk.avg_pool_same.launches_bwd) == launches
+    assert launched() == launches
 
 
 @pytest.mark.parametrize("name,h,c", AVG_POOLS)
 def test_avg_backward_plain_is_autograds(name, h, c):
     """`avg_pool_backward_plain(dy)`, the zero-padded box sum of dy over 9,
     is autograd's gradient through `F.avg_pool2d` (rtol = atol = 1e-6: the
-    sums run in another order); the Function gives the plain forward and
-    that backward, and saves no tensor."""
+    sums run in another order); the op gives the plain forward and that
+    backward, and saves no tensor."""
     x, dy = _avg_case(name, h, c, seed=1)
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
     saved = []
@@ -365,7 +364,7 @@ def test_avg_backward_plain_is_autograds(name, h, c):
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        y = pk.AvgPoolFunction.apply(xa)
+        y = pk.avg_pool_same(xa)
     want = F.avg_pool2d(xb, 3, 1, padding=1, count_include_pad=True)
     assert saved == []
     assert torch.equal(y, want)
@@ -387,11 +386,11 @@ def test_avg_backward_plain_rounds_once_in_dy_dtype():
 
 
 def test_avg_remat_saves_nothing_and_gives_the_gradient():
-    """Under `layers.remat` the Function's forward runs again in the
-    backward and the gradient is the same."""
+    """Under `layers.remat` the op's forward runs again in the backward
+    and the gradient is the same."""
     x, _ = _avg_case("v2_Mixed_4b", 14, 32)
     xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
-    pk.AvgPoolFunction.apply(xb).square().sum().backward()
+    pk.avg_pool_same(xb).square().sum().backward()
     calls = []
     real = pk._box
 
@@ -401,7 +400,7 @@ def test_avg_remat_saves_nothing_and_gives_the_gradient():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pk, "_box", counted)
-        remat(lambda t: pk.AvgPoolFunction.apply(t).square(),
+        remat(lambda t: pk.avg_pool_same(t).square(),
               xa).sum().backward()
     assert calls == [False, False, True]
     assert torch.equal(xa.grad, xb.grad)

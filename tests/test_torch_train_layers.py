@@ -12,11 +12,11 @@ the CPU.
 - The TF-'SAME' max-pool's gradient against the JAX `max_pool` VJP, with
   ties (post-ReLU zeros) and asymmetric pads: exact at fp32, NCHW and
   channels-last (each window's gradient goes to its first maximum).
-- K2's autograd Function (plain forward on the CPU): dw and dx against
-  `jax.vjp(stem_conv_reference)` (the pullback the JAX custom VJP uses) at
-  bf16, within 1% of max|dw|; against autograd of the plain version at
-  fp32, rtol 1e-5.
-- K1's autograd Function: its VJP against `jax.vjp` of
+- K2's op and its registered gradient (plain forward on the CPU): dw and
+  dx against `jax.vjp(stem_conv_reference)` (the pullback the JAX custom
+  VJP uses) at bf16, within 1% of max|dw|; against autograd of the plain
+  version at fp32, rtol 1e-5.
+- K1's op and its registered gradient: its VJP against `jax.vjp` of
   `group_and_fuse_pallas(..., interpret=True)`, rtol 1e-5 / atol 1e-6
   (atol 1e-5 for the score gradient at M = 1, which is rounding noise).
 """
@@ -39,13 +39,10 @@ from gvcnn_tf_tpu.ops.pool import max_pool as jax_max_pool  # noqa: E402
 from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import (  # noqa: E402
     BatchNorm,
 )
-from gvcnn_tf_tpu_torch.ops.grouping_kernel import (  # noqa: E402
-    GroupAndFuseFunction,
-    group_and_fuse,
-)
+from gvcnn_tf_tpu_torch.ops import grouping_kernel  # noqa: E402
+from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.pool import max_pool  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.stem_kernel import (  # noqa: E402
-    StemConvFunction,
     stem_conv,
     stem_conv_plain,
 )
@@ -177,7 +174,7 @@ def test_stem_function_matches_jax_vjp_at_bf16(h, w):
     xt = torch.from_numpy(xb).bfloat16().requires_grad_()
     wt = _oihw(k).requires_grad_()
     y = stem_conv(xt, wt.to(torch.bfloat16))
-    assert y.grad_fn.name().startswith("StemConvFunction")
+    assert "gvcnn_stem_conv7x7s2" in y.grad_fn.name()
     y.backward(torch.from_numpy(gb).bfloat16())
     dw = wt.grad.permute(2, 3, 1, 0).numpy()                    # -> HWIO
     assert wt.grad.dtype == torch.float32
@@ -195,7 +192,7 @@ def test_stem_function_matches_plain_autograd_at_fp32(h, w, need_dx):
     gt = torch.from_numpy(g)
     xa = torch.from_numpy(x).requires_grad_(need_dx)
     wa = _oihw(k).requires_grad_()
-    StemConvFunction.apply(xa, wa).backward(gt)
+    stem_conv(xa, wa).backward(gt)
     xb = torch.from_numpy(x).requires_grad_(need_dx)
     wb = _oihw(k).requires_grad_()
     stem_conv_plain(xb, wb).backward(gt)
@@ -242,7 +239,7 @@ def test_grouping_function_matches_jax_fused_op_vjp(mode, m, edges):
     s = torch.from_numpy(scores).requires_grad_()
     d = torch.from_numpy(descs).requires_grad_()
     fused, weights, scheme = group_and_fuse(s, d, m, mode)
-    assert fused.grad_fn.name().startswith("GroupAndFuseFunction")
+    assert "gvcnn_group_and_fuse" in fused.grad_fn.name()
     assert not scheme.requires_grad
     ((fused * torch.from_numpy(gf)).sum()
      + (weights * torch.from_numpy(gw)).sum()).backward()
@@ -265,9 +262,9 @@ def test_grouping_function_takes_a_scheme_cotangent():
         num_group, weight_mode = 8, "mean"
 
     gf, gw = torch.ones(2, 8), torch.ones(2, 8)
-    with_scheme = GroupAndFuseFunction.backward(Ctx(), gf, gw,
-                                                torch.ones(2, 8, 12))
-    without = GroupAndFuseFunction.backward(Ctx(), gf, gw,
-                                            torch.zeros(2, 8, 12))
+    with_scheme = grouping_kernel._backward(Ctx(), gf, gw,
+                                            torch.ones(2, 8, 12))
+    without = grouping_kernel._backward(Ctx(), gf, gw,
+                                        torch.zeros(2, 8, 12))
     for a, b in zip(with_scheme[:2], without[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
