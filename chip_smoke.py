@@ -88,7 +88,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    to the request's views, card against CPU.  The average-pool kernels'
    launches on these main paths (engine forwards, the train step, the
    v2/v3 forward) are counted from zero and held to FAMILY_AVG_POOLS a
-   forward (forward and backward kernel each a train step).
+   forward (forward and backward kernel each a train step), the train-mode
+   BatchNorm kernels' to BN_LAYERS (stats, apply, backward reduce and
+   elementwise once a BatchNorm a train step; none in a served forward).
 11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
    made from a seed (1001-class head) written by the port's importer, then
    `train()` of mn40_12view at full width with `checkpoint_path` and the
@@ -244,17 +246,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    statistics and every step's metrics bit-equal to the first eager run,
    or within COMPILED_SPREAD x the two eager runs' spread; launches a step
    equal to the eager step's through the replays, the max-pool kernels'
-   counted from zero before the steps and held to COMPILED_POOL_LAUNCHES;
+   counted from zero before the steps and held to COMPILED_POOL_LAUNCHES,
+   the BatchNorm kernels' to BN_LAYERS (with the remat recompute's
+   REMAT_BATCH_NORMS forwards again under remat_until);
    the step (CUDA events, median of 2 x COMPILED_RUNS in turns), the
    device's idle share over a
    profiled window and peak memory, eager beside compiled.  (b) The
    engine's B=1 and B=8 replays against its model run eagerly, bit for
    bit; engine (graphs and eager) and HTTP p50 / p99 over SERVE_SAMPLES
-   uint8 requests.  (c) `evaluate()` of the PROC_SHAPES-shape procedural
-   split through its graph against eager: counts and logits equal, views/s
-   end to end and of the forwards on the card.  (d) mn10_single_view
-   (fp32 K2) and ResNet-50, FAMILY_B shapes: 3 compiled steps against
-   eager, launches a step (the max pool's too).
+   uint8 requests, no BatchNorm kernel launched.  (c) `evaluate()` of the
+   PROC_SHAPES-shape procedural split through its graph against eager:
+   counts and logits equal, views/s end to end and of the forwards on the
+   card, no BatchNorm kernel launched.  (d) mn10_single_view (fp32 K2) and
+   ResNet-50, FAMILY_B shapes: 3 compiled steps against eager, launches a
+   step (the max pool's and BatchNorm's too).
 20. The max-pool kernels (`phase_pool`, csrc/max_pool.cu) at every pool of
    Inception-v1 and ResNet-50 at POOL_IMAGES images of 224x224 (B = 32 of
    12 views), bf16: the forward without and with its record, bit-equal to
@@ -278,6 +283,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    PyTorch's channels-last backward lies from the NCHW gradient is printed.
    Then `pool.avg_pool` under autograd at Mixed_5b's pool: one launch each
    way, and the launch counters.
+22. The train-mode BatchNorm kernels (`phase_batch_norm`,
+   csrc/batch_norm.cu) over every BatchNorm of one B = 32 train step of
+   each train cell's configuration (Inception-v1 and ResNet-50 at 224,
+   Inception-v4 at 299, as the cells run them), their shapes taken from a
+   B = 1 step's BatchNorm calls and run at BN_IMAGES images, bf16: the
+   forward (stats + apply, the running statistics moved) and the backward
+   (reduce + elementwise), each layer's ReLU as the model has it, each
+   side captured in one CUDA graph and
+   timed over BN_REPLAYS replays, beside the 8-pass bytes bound (x read,
+   x read and y written; dy and x read, dy and x read and dx written) and
+   PyTorch's `native_batch_norm` + `F.relu` and their backward
+   (`threshold_backward` + `native_batch_norm_backward`) as the yardstick
+   (`library_*_ms`; the port never calls them in train mode).  Before the
+   timing, each layer's four kernels run once eagerly and are held to the
+   plain versions on fp32 copies on the card (`_check_bn_layer`): mean,
+   invstd and the running statistics within BN_STATS_REL, y within one
+   ulp, dx within one bf16 ulp plus BN_GRAD_REL of max|dx|, dbeta and
+   dgamma within BN_GRAD_REL of the channel's sum of |terms|; the largest
+   gaps are printed.
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -543,6 +567,28 @@ POOL_SHAPES = (
 AVG_POOL_IMAGES = 384
 AVG_POOL_SHAPES = (("Mixed_5b-5e", 35, 384, 4), ("Mixed_6b-6h", 17, 1024, 7),
                    ("Mixed_7b-7d", 8, 1536, 3))
+
+# Phase 22: the train-mode BatchNorm kernels over every BatchNorm of one
+# B = 32 train step (BN_IMAGES images) of each train cell's configuration,
+# each at its published size; BN_REPLAYS timed graph replays a side.
+BN_IMAGES = 384
+BN_CONFIGS = {"mn40_12view": 224, "mn40_12view_resnet50": 224,
+              "mn40_12view_inception_v4": 299}
+BN_REPLAYS = 10
+# Its check of each layer against the plain versions (the card tests'
+# tolerances, `tests/test_torch_cuda_kernels.py`): statistics relative to
+# the largest channel std (the mean) or to themselves, gradients relative
+# to max|dx| or to the channel's sum of |terms|.
+BN_STATS_REL, BN_GRAD_REL = 1e-4, 1e-4
+# Train-mode BatchNorm calls a forward (counted by hooks on the CPU): each
+# launches the stats and apply kernels in a train forward and the backward
+# reduce and elementwise kernels in its backward; a served or eval forward
+# launches none.  remat_until = REMAT_UNTIL recomputes REMAT_BATCH_NORMS
+# of them (Conv2d_1a-2c) in the backward: forward kernels only.
+BN_LAYERS = {"mn40_12view": 58, "mn40_12view_mvcnn": 57,
+             "mn10_single_view": 57, "mn40_12view_resnet50": 57,
+             "mn40_12view_inception_v4": 150}
+REMAT_BATCH_NORMS = 3
 
 # Phase 17: the step-analysis tools.  bench_layers at the flagship's folded
 # B = 8 step (96 images of 224x224, bf16); a row whose time is under its
@@ -966,6 +1012,234 @@ def phase_avg_pool(dev):
     log("avg pool launch counters over phase 21: " + json.dumps(launches))
     return dict(inception_v4=total, by_shape=rows, autograd=autograd,
                 **launches)
+
+
+def _bn_layers(config, size, dev):
+    """[(C, H, W, relu, scale)] of every train-mode BatchNorm call of one
+    forward of `config`'s model at size x size, in order: an eager B = 1
+    train step on the card with a pre-hook on each BatchNorm."""
+    import dataclasses
+
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
+    from gvcnn_tf_tpu_torch.tools.measure import train_batch
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    base = get_config(config)
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, batch_size=1, height=size, width=size))
+    state = create_train_state(cfg, dev)
+    calls = []
+
+    def hook(module, args, kwargs):
+        x = args[0]
+        calls.append((x.shape[1], x.shape[2], x.shape[3],
+                      bool(kwargs.get("relu", False)),
+                      module.scale is not None, x.shape[0]))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in state.model.modules() if isinstance(m, BatchNorm)]
+    train_step(state, train_batch(cfg, np.random.RandomState(0), dev), cfg)
+    for h in handles:
+        h.remove()
+    views = cfg.data.num_views
+    if any(c[5] != views for c in calls):
+        raise AssertionError(
+            f"{config}: a BatchNorm saw another batch than {views} views: "
+            f"{sorted(set(c[5] for c in calls))}")
+    return [c[:5] for c in calls]
+
+
+def _graph_ms(fn, dev, replays=BN_REPLAYS):
+    """Median ms of one replay of fn() captured in a CUDA graph (warmed up
+    eagerly on a side stream first), CUDA events around each replay."""
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(2):
+        graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times)
+
+
+def _gap_over(got, want, bound):
+    """max |got - want| / bound (bound a number or a tensor that
+    broadcasts): 1 or less is inside it."""
+    gap = (got.float() - want.float()).abs()
+    bound = torch.as_tensor(bound, dtype=torch.float32, device=gap.device)
+    return float((gap / bound.clamp_min(1e-30)).max())
+
+
+def _check_bn_layer(k, momentum=0.9, eps=1e-3):
+    """Phase 22's check of one layer's case `k`: its four kernels run once
+    eagerly (the running statistics moved on copies), against the plain
+    versions on fp32 copies on the card -> {quantity: its largest gap over
+    its bound} (see the module docstring).  y and the gradients are taken
+    from the kernels' own statistics, so the ReLU's mask is the same."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    x, dy, weight, bias, relu = (k["x"], k["dy"], k["weight"], k["bias"],
+                                 k["relu"])
+    mask = [True, weight is not None, True]
+    rm, rv = k["rm"].clone(), k["rv"].clone()
+    mean, invstd = torch.ops.gvcnn.batch_norm_stats(x, rm, rv, momentum, eps,
+                                                    True)
+    y = torch.ops.gvcnn.batch_norm_apply(x, weight, bias, mean, invstd, relu)
+    dx, dw, db = torch.ops.gvcnn.batch_norm_backward(
+        dy, x, weight, bias, mean, invstd, relu, mask)
+    xf, gf = x.float(), dy.float()
+    mean_p, invstd_p = bk.stats_plain(xf, eps)
+    rm_p, rv_p = k["rm"].clone(), k["rv"].clone()
+    bk.update_plain(rm_p, rv_p, mean_p, bk.var_plain(invstd_p, eps), momentum)
+    tol = BN_STATS_REL * float(invstd_p.reciprocal().max())
+    out = dict(mean=_gap_over(mean, mean_p, tol),
+               invstd=_gap_over(invstd, invstd_p, BN_STATS_REL * invstd_p),
+               running_mean=_gap_over(rm, rm_p, tol),
+               running_var=_gap_over(rv, rv_p, BN_STATS_REL * rv_p))
+    want = bk.apply_plain(xf, weight, bias, mean, invstd, relu)
+    out["y"] = _gap_over(y, want, _bf16_ulp(want))
+    want = bk.backward_plain(gf, xf, weight, bias, mean, invstd, relu, mask)
+    out["dx"] = _gap_over(dx, want[0], BN_GRAD_REL * float(
+        want[0].abs().max()) + _bf16_ulp(want[0]))
+    if relu:
+        gf = torch.where(bk.apply_plain(xf, weight, bias, mean, invstd,
+                                        False) > 0, gf, 0.0)
+    out["dbeta"] = _gap_over(db, want[2],
+                             BN_GRAD_REL * gf.abs().sum((0, 2, 3)))
+    if weight is not None:
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        out["dgamma"] = _gap_over(dw, want[1], BN_GRAD_REL * (
+            gf * xhat).abs().sum((0, 2, 3)))
+    return out
+
+
+def phase_batch_norm(dev):
+    """Phase 22: the train-mode BatchNorm kernels over one B = 32 step's
+    BatchNorms of each train cell's configuration (see the module
+    docstring)."""
+    import torch.nn.functional as F
+
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    rates = bound(1, 0, "bfloat16")[0]  # ms a byte
+    out = {}
+    for config, size in BN_CONFIGS.items():
+        layers = _bn_layers(config, size, dev)
+        n = BN_IMAGES
+        sizes = [n * c * h * w for c, h, w, _, _ in layers]
+        gen = torch.Generator(device=dev).manual_seed(22)
+        xbuf = torch.randn(max(sizes), generator=gen, device=dev).mul_(
+            1.5).add_(0.3).to(torch.bfloat16)
+        dybuf = torch.randn(max(sizes), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def nchw(buf, c, h, w):
+            return buf[:n * c * h * w].view(n, h, w, c).permute(0, 3, 1, 2)
+
+        cases = []
+        for c, h, w, relu, scale in layers:
+            weight = (torch.rand(c, generator=gen, device=dev) + 0.5
+                      if scale else None)
+            bias = torch.randn(c, generator=gen, device=dev) * 0.5
+            cases.append(dict(
+                x=nchw(xbuf, c, h, w), dy=nchw(dybuf, c, h, w), relu=relu,
+                weight=weight, bias=bias, rm=torch.zeros(c, device=dev),
+                rv=torch.ones(c, device=dev),
+                unit=torch.ones(c, device=dev)))
+        for k in cases:
+            k["mean"], k["invstd"] = torch.ops.gvcnn.batch_norm_stats(
+                k["x"], k["rm"], k["rv"], 0.9, 1e-3, False)
+            y, k["lmean"], k["linvstd"] = torch.native_batch_norm(
+                k["x"], k["weight"] if k["weight"] is not None else k["unit"],
+                k["bias"], None, None, True, 0.0, 1e-3)
+            k["ly"] = F.relu(y) if k["relu"] else y
+        worst = {}
+        for k in cases:
+            for q, r in _check_bn_layer(k).items():
+                worst[q] = max(worst.get(q, 0.0), r)
+        log(f"batch norm, {config}'s {len(layers)} BatchNorms at B = 32 "
+            "against the plain versions on fp32 copies, the largest gap "
+            "over its bound (1 or less passes): " + json.dumps(worst))
+        if not all(r <= 1.0 for r in worst.values()):
+            raise AssertionError(f"{config}: the BatchNorm kernels miss the "
+                                 f"plain versions: {worst}")
+
+        def forward():
+            for k in cases:
+                mean, invstd = torch.ops.gvcnn.batch_norm_stats(
+                    k["x"], k["rm"], k["rv"], 0.9, 1e-3, True)
+                torch.ops.gvcnn.batch_norm_apply(k["x"], k["weight"],
+                                                 k["bias"], mean, invstd,
+                                                 k["relu"])
+
+        def backward():
+            for k in cases:
+                torch.ops.gvcnn.batch_norm_backward(
+                    k["dy"], k["x"], k["weight"], k["bias"], k["mean"],
+                    k["invstd"], k["relu"],
+                    [True, k["weight"] is not None, True])
+
+        def library_forward():
+            for k in cases:
+                y = torch.native_batch_norm(
+                    k["x"], k["weight"] if k["weight"] is not None
+                    else k["unit"], k["bias"], None, None, True, 0.0,
+                    1e-3)[0]
+                if k["relu"]:
+                    F.relu(y)
+
+        def library_backward():
+            for k in cases:
+                g = (torch.ops.aten.threshold_backward(k["dy"], k["ly"], 0)
+                     if k["relu"] else k["dy"])
+                torch.ops.aten.native_batch_norm_backward(
+                    g, k["x"], k["weight"] if k["weight"] is not None
+                    else k["unit"], None, None, k["lmean"], k["linvstd"],
+                    True, 1e-3, [True, k["weight"] is not None, True])
+
+        before = {w: launched(f"batch_norm_{w}") for w in
+                  ("stats", "apply", "bwd_reduce", "bwd_elemt")}
+        row = dict(
+            layers=len(layers), elements=sum(sizes),
+            relu_layers=sum(c[3] for c in layers),
+            worst_gap_over_bound=worst,
+            fwd_ms=_graph_ms(forward, dev), bwd_ms=_graph_ms(backward, dev),
+            library_fwd_ms=_graph_ms(library_forward, dev),
+            library_bwd_ms=_graph_ms(library_backward, dev))
+        moved = {w: launched(f"batch_norm_{w}") - b
+                 for w, b in before.items()}
+        # Warm-up and capture: two calls of each.
+        if set(moved.values()) != {2 * len(layers)}:
+            raise AssertionError(f"{config}: launches {moved}, expected "
+                                 f"{2 * len(layers)} of each")
+        row["bound_fwd_ms"] = 3 * 2 * sum(sizes) * rates
+        row["bound_bwd_ms"] = 5 * 2 * sum(sizes) * rates
+        row["train_ms"] = row["fwd_ms"] + row["bwd_ms"]
+        row["library_train_ms"] = row["library_fwd_ms"] + row["library_bwd_ms"]
+        row["train_bound_ms"] = row["bound_fwd_ms"] + row["bound_bwd_ms"]
+        for way, key in (("fwd", "bound_fwd_ms"), ("bwd", "bound_bwd_ms"),
+                         ("train", "train_bound_ms")):
+            row[f"{way}_share"] = row[key] / row[f"{way}_ms"]
+        log(f"batch norm, {config}'s {len(layers)} BatchNorms at B = 32: "
+            + json.dumps(row))
+        out[config] = row
+        del xbuf, dybuf, cases
+        torch.cuda.empty_cache()
+    return out
 
 
 def _clear_scores(rs, b, v, m):
@@ -1846,6 +2120,15 @@ def _pool_counts():
     return launched("max_pool_same_fwd"), launched("max_pool_same_bwd")
 
 
+def _bn_counts():
+    """(stats, apply, backward reduce, backward elementwise) launches of
+    the train-mode BatchNorm kernels."""
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    return tuple(launched(f"batch_norm_{k}_")
+                 for k in ("stats", "apply", "bwd_reduce", "bwd_elemt"))
+
+
 def _zero_counts():
     """Every kernel's launch count back to 0."""
     from gvcnn_tf_tpu_torch.ops import launches
@@ -1956,6 +2239,12 @@ def phase_families(card, dev):
                                      f"{forwards} forwards, want {want}")
             row["serve_launches"] = _counts()
             row["serve_avg_launches"] = _avg_counts()
+            row["serve_bn_launches"] = _bn_counts()
+            if any(row["serve_bn_launches"]):
+                raise AssertionError(
+                    f"{name}: train-mode BatchNorm launches "
+                    f"{row['serve_bn_launches']} over {forwards} served "
+                    "forwards, want none")
             if row["serve_avg_launches"] != (
                     FAMILY_AVG_POOLS[name] * forwards, 0):
                 raise AssertionError(
@@ -1972,7 +2261,8 @@ def phase_families(card, dev):
             f"({8 * d.num_views / row['p50_ms_b8'] * 1e3:.1f} views/s); "
             f"launches (bf16 stem, fp32 stem, grouping) over {forwards} "
             f"forwards {row['serve_launches']}, average pool (forward, "
-            f"backward) {row['serve_avg_launches']} [{card}]")
+            f"backward) {row['serve_avg_launches']}, BatchNorm "
+            f"{row['serve_bn_launches']} [{card}]")
 
         # One B = 8 train step on the card.
         state = create_train_state(cfg, dev)
@@ -1983,6 +2273,7 @@ def phase_families(card, dev):
                                  runs=5, warmup=2)
         row["step_launches"] = tuple(k / 7 for k in _counts())
         row["step_avg_launches"] = tuple(k / 7 for k in _avg_counts())
+        row["step_bn_launches"] = tuple(k / 7 for k in _bn_counts())
         row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         if row["step_launches"] != FAMILY_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches a step "
@@ -1990,12 +2281,18 @@ def phase_families(card, dev):
         if row["step_avg_launches"] != (FAMILY_AVG_POOLS[name],) * 2:
             raise AssertionError(f"{name}: average-pool launches a step "
                                  f"{row['step_avg_launches']}")
+        if row["step_bn_launches"] != (BN_LAYERS[name],) * 4:
+            raise AssertionError(f"{name}: BatchNorm launches a step (stats, "
+                                 f"apply, bwd_reduce, bwd_elemt) "
+                                 f"{row['step_bn_launches']}, want "
+                                 f"{BN_LAYERS[name]} each")
         del state, batch
         vps = d.batch_size * d.num_views / row["step_ms"] * 1e3
         log(f"{name}: train step B={d.batch_size} {row['step_ms']:.3f} ms "
             f"median of 5 ({vps:.1f} views/s), peak memory {row['peak_gb']:.3f} GB, launches a "
             f"step {row['step_launches']}, average pool "
-            f"{row['step_avg_launches']} [{card}]")
+            f"{row['step_avg_launches']}, BatchNorm "
+            f"{row['step_bn_launches']} [{card}]")
 
         # One B = 2 train step, card vs CPU.
         drift = train_step_drift(
@@ -2033,13 +2330,13 @@ def phase_families(card, dev):
                 engine, cfg, views, FAMILY_BACKBONE_TOL[backbone],
                 f"mn40_12view --backbone {backbone} (calibrated BN)",
                 variables)
-            avg = _avg_counts()
+            avg, bn = _avg_counts(), _bn_counts()
             rows[backbone] = dict(logit_rel=rel, launches=launches,
-                                  avg_launches=avg)
+                                  avg_launches=avg, bn_launches=bn)
             if launches != (0, 0, 1) or avg != (FAMILY_AVG_POOLS[backbone],
-                                                0):
+                                                0) or any(bn):
                 raise AssertionError(f"{backbone}: launches {launches}, "
-                                     f"average pool {avg}")
+                                     f"average pool {avg}, BatchNorm {bn}")
         finally:
             engine.close()
     return rows
@@ -3992,17 +4289,19 @@ def _hold_spread(what, eager, again, compiled):
 
 def _run_steps(fn, state, batches, cfg):
     """(final model state dict, each step's metrics, launches a step,
-    the max-pool kernels' (forward, backward) launches a step), the
-    counters taken from zero just before the steps."""
+    the max-pool kernels' (forward, backward) launches a step, the
+    BatchNorm kernels' (`_bn_counts`) a step), the counters taken from
+    zero just before the steps."""
     _zero_counts()
     mets = [{k: v.detach().clone() for k, v in fn(state, b, cfg).items()}
             for b in batches]
     torch.cuda.synchronize()
     launches = tuple(n / len(batches) for n in _counts())
     pool = tuple(n / len(batches) for n in _pool_counts())
+    bn = tuple(n / len(batches) for n in _bn_counts())
     return ({k: v.detach().clone()
              for k, v in state.model.state_dict().items()}, mets, launches,
-            pool)
+            pool, bn)
 
 
 def _profiled_idle(fn, steps, root, name):
@@ -4062,10 +4361,14 @@ def _compiled_steps(card, dev, root):
              "label": labels(COMPILED_SPLIT)}
     out = {}
     # (bf16 K2, fp32 K2, K1) a step: K2 once a microbatch, twice under
-    # remat_until (its recompute).
-    for variant, cfg, launches in (
-            ("uint8_dropout", plain, (1, 0, 1)),
-            ("resident_flip_acc2_remat", flip, (4, 0, 2))):
+    # remat_until (its recompute); the BatchNorm kernels (stats, apply,
+    # bwd_reduce, bwd_elemt) once a BatchNorm a microbatch, the recompute's
+    # forwards again.
+    n_bn = BN_LAYERS["mn40_12view"]
+    for variant, cfg, launches, bn_launches in (
+            ("uint8_dropout", plain, (1, 0, 1), (n_bn,) * 4),
+            ("resident_flip_acc2_remat", flip, (4, 0, 2),
+             (2 * (n_bn + REMAT_BATCH_NORMS),) * 2 + (2 * n_bn,) * 2)):
         # The variant's models (remat is built in), each run reloading
         # `warm`.
         states = {k: create_train_state(cfg, dev)
@@ -4103,6 +4406,11 @@ def _compiled_steps(card, dev, root):
                     f"{what}: max-pool launches a step (forward, backward) "
                     f"{compiled[3]}, eager {eager[3]}, want "
                     f"{COMPILED_POOL_LAUNCHES[variant]}")
+            if not compiled[4] == eager[4] == bn_launches:
+                raise AssertionError(
+                    f"{what}: BatchNorm launches a step (stats, apply, "
+                    f"bwd_reduce, bwd_elemt) {compiled[4]}, eager "
+                    f"{eager[4]}, want {bn_launches}")
             if (step.graph.captures, step.graph.replays) != (
                     1, COMPILED_STEPS - 1):
                 raise AssertionError(f"{what}: {step.graph.captures} "
@@ -4140,10 +4448,11 @@ def _compiled_steps(card, dev, root):
                 f"was resident, the graph's pool {pool_gb:.3f} GB reserved "
                 f"between steps (a replay's peak above resident "
                 f"{above['compiled']:.3f} GB); launches a step "
-                f"{compiled[2]}, max pool (forward, backward) {compiled[3]} "
-                f"[{card}]")
+                f"{compiled[2]}, max pool (forward, backward) {compiled[3]}, "
+                f"BatchNorm {compiled[4]} [{card}]")
             out[what] = dict(spread=spread, diff=diff, launches=compiled[2],
                              pool_launches=compiled[3],
+                             bn_launches=compiled[4],
                              eager_ms=ms["eager"],
                              compiled_ms=ms["compiled"],
                              eager_idle=idle["eager"],
@@ -4185,8 +4494,12 @@ def _compiled_steps(card, dev, root):
             raise AssertionError(f"{name}: max-pool launches a step "
                                  f"{compiled[3]}, eager {eager[3]}, want "
                                  f"{COMPILED_POOL_LAUNCHES[name]}")
+        if not compiled[4] == eager[4] == (BN_LAYERS[name],) * 4:
+            raise AssertionError(f"{name}: BatchNorm launches a step "
+                                 f"{compiled[4]}, eager {eager[4]}, want "
+                                 f"{BN_LAYERS[name]} each")
         out[name] = dict(spread=spread, diff=diff, launches=compiled[2],
-                         pool_launches=compiled[3],
+                         pool_launches=compiled[3], bn_launches=compiled[4],
                          replays=step.graph.replays)
         step.close()
         del eager, again, compiled, state, step, other
@@ -4215,6 +4528,7 @@ def _compiled_serving(card, dev):
     out = {}
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}/predict"
+        _zero_counts()
         for n in (1, 8):
             views = rs.randint(0, 256, (n,) + shape).astype(np.uint8)
             logits, scores = engine.logits_and_scores(views)
@@ -4257,6 +4571,10 @@ def _compiled_serving(card, dev):
             if not same:
                 raise AssertionError(f"serving B={n}: the replay is not the "
                                      "eager forward")
+        out["bn_launches"] = _bn_counts()
+        if any(out["bn_launches"]):
+            raise AssertionError(f"serving: train-mode BatchNorm launches "
+                                 f"{out['bn_launches']}, want none")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -4288,6 +4606,7 @@ def _compiled_eval(card, dev, root):
                             num_epochs=1))
     runs, walls = {}, {"compiled": [], "eager": []}
     real = graphs.capturable
+    _zero_counts()
     for k in ("compiled", "eager", "compiled", "eager"):
         graphs.capturable = (real if k == "compiled"
                              else (lambda device: False))
@@ -4300,6 +4619,10 @@ def _compiled_eval(card, dev, root):
         finally:
             graphs.capturable = real
         runs.setdefault(k, (res, torch.cat(seen)))
+    bn_launches = _bn_counts()
+    if any(bn_launches):
+        raise AssertionError(f"eval: train-mode BatchNorm launches "
+                             f"{bn_launches}, want none")
     (got, got_logits), (want, want_logits) = runs["compiled"], runs["eager"]
     same = got == want and torch.equal(got_logits, want_logits)
     [g] = eval_mod._GRAPHS[state.model].values()
@@ -4323,7 +4646,7 @@ def _compiled_eval(card, dev, root):
                                       for b in padded], runs=10, warmup=2)}
     state.model.train()
     row = dict(counts_equal=got == want, logits_equal=same, result=got,
-               replays=g.replays,
+               replays=g.replays, bn_launches=bn_launches,
                **{f"{k}_views_per_s": views / min(v) for k, v in
                   walls.items()},
                **{f"{k}_device_views_per_s": views / v * 1e3 for k, v in
@@ -4465,6 +4788,8 @@ def main():
     mark(20)
     avg = phase_avg_pool(dev)
     mark(21)
+    bn = phase_batch_norm(dev)
+    mark(22)
     replayed = compiled["steps"]
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
@@ -4575,6 +4900,21 @@ def main():
                  if "avg_launches" in v},
              autograd_b32=avg["autograd"],
              inception_v4_b32=avg["inception_v4"]),
+        dict(name="batch_norm_bf16", route="cuda",
+             source="gvcnn_tf_tpu_torch/csrc/batch_norm.cu", replaces=None,
+             serve_launches={k: v["serve_bn_launches"] for k, v in
+                             fam.items() if "serve_bn_launches" in v},
+             family_launches_per_step={
+                 k: v["step_bn_launches"] for k, v in fam.items()
+                 if "step_bn_launches" in v},
+             backbone_launches_per_forward={
+                 k: v["bn_launches"] for k, v in fam.items()
+                 if "bn_launches" in v},
+             compiled_launches_per_step={
+                 k: v["bn_launches"] for k, v in replayed.items()},
+             compiled_serve_launches=compiled["serving"]["bn_launches"],
+             compiled_eval_launches=compiled["eval"]["bn_launches"],
+             step_b32=bn),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

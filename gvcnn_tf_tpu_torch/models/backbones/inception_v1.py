@@ -35,7 +35,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: F401
     TRUNC_STDDEV,
@@ -63,7 +62,7 @@ class Stem(nn.Module):
     one in 3xTF32); on the CPU the plain version applies
     the same affine in fp32 after the conv.  Otherwise (train mode: batch statistics; or a
     gradient is needed) the kernel runs without its epilogue, and BatchNorm
-    and the ReLU follow as their own passes."""
+    with its ReLU follows (in train mode one op, `BatchNorm(y, relu=True)`)."""
 
     def __init__(self, features: int = 64):
         super().__init__()
@@ -76,7 +75,7 @@ class Stem(nn.Module):
                 x.requires_grad or w.requires_grad
                 or self.BatchNorm.bias.requires_grad)):
             y = stem_conv(x, w).permute(0, 3, 1, 2)
-            return F.relu(self.BatchNorm(y))
+            return self.BatchNorm(y, relu=True)
         scale, shift = self.BatchNorm.scale_shift()
         return stem_conv(x, w, scale, shift, relu=True).permute(0, 3, 1, 2)
 

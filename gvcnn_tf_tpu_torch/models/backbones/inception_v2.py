@@ -26,7 +26,6 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch.models.backbones.inception_v4 import (
     StagedBackbone,
@@ -56,7 +55,7 @@ class SeparableConvBNReLU(nn.Module):
         dw = self.depthwise
         x = conv2d_tf(x, dw.weight, dw.stride, groups=dw.groups)
         x = conv2d_tf(x, self.pointwise.weight, (1, 1))
-        return F.relu(self.BatchNorm(x))
+        return self.BatchNorm(x, relu=True)
 
 
 def _max_pool3(x):

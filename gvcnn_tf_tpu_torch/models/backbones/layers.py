@@ -4,7 +4,7 @@
   heavy) or 'VALID', in x's dtype, optionally grouped (depthwise).
 - `BatchNorm`: Flax's `BatchNorm` over channel dim 1, with an optional
   learned `scale` (Flax `use_scale=True`, ResNet) and the family's own eps
-  and EMA decay.
+  and EMA decay, and the ReLU that follows it where the caller asks.
 - `ConvBN`: conv + BatchNorm (+ ReLU), no conv bias: Inception-v1's
   `ConvBNReLU`, Inception-v3/v4's `_Conv` and ResNet's `_ConvBN`.
 - The JAX package's initializers: slim's truncated normal (Inception-v1 and
@@ -33,6 +33,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from gvcnn_tf_tpu_torch.ops import capturing
+from gvcnn_tf_tpu_torch.ops.batch_norm_kernel import (
+    batch_norm_train,
+    update_plain,
+)
 from gvcnn_tf_tpu_torch.ops.pool import same_pads
 
 # slim's inception_v1 trunc_normal(0.09) for conv kernels.
@@ -133,19 +137,28 @@ class BatchNorm(nn.Module):
     named `*.weight`) and the bridge's `weight` <-> `kernel` rule leave it
     alone.
 
-    Eval: y = (x - running_mean) / sqrt(running_var + eps) * scale + bias.
+    `forward(x, relu=False)`; with `relu` the result is max(y, 0), the
+    ReLU that follows nearly every BatchNorm of the backbones, which train
+    mode folds into its kernels.
+
+    Eval: y = (x - running_mean) / sqrt(running_var + eps) * scale + bias
+    (`F.batch_norm`, then `F.relu`).
     Train (Flax's `use_running_average=False`): y normalized with the
-    batch's mean and biased variance over (N, H, W), in fp32, by PyTorch's
-    fused batch-norm kernel (`native_batch_norm`, which also gives the
-    gradients of x, scale and bias); then in place
-    r <- momentum * r + (1 - momentum) * stat for the running mean and the
-    running *biased* variance, as Flax updates `batch_stats` (torch's own
-    running update would store the unbiased one).  The kernel computes the
-    variance in one Welford pass where Flax takes max(0, E[x^2] - E[x]^2):
-    the same statistic, rounded differently; the variance comes back as
-    1 / invstd^2 - eps, floored at 0.  `momentum` is the EMA decay (slim's
-    0.9997 for Inception, 0.997 for ResNet; `config.bn_momentum` overrides
-    it).  Inside a `remat` recompute the statistics are not moved again."""
+    batch's mean and biased variance over (N, H, W), in fp32, by the
+    port's train-mode BatchNorm (`ops/batch_norm_kernel.py`: on the card
+    the hand-written kernels of `csrc/batch_norm.cu`, which apply the ReLU
+    and take its gradient too, on the CPU `native_batch_norm`'s math); and
+    in place r <- momentum * r + (1 - momentum) * stat for the running
+    mean and the running *biased* variance, as Flax updates `batch_stats`
+    (torch's own running update would store the unbiased one).  The
+    variance comes from deviations from the mean (the kernels: Welford and
+    Chan's merges) where Flax takes max(0, E[x^2] - E[x]^2): the same
+    statistic, rounded differently.  `momentum`
+    is the EMA decay (slim's 0.9997 for Inception, 0.997 for ResNet;
+    `config.bn_momentum` overrides it).  Inside a `remat` recompute the
+    statistics are not moved again.  With `sync_group` set (`bn_sync=
+    "global"`) train mode sums the statistics over the ranks instead
+    (`_global_forward`), then the ReLU."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.9997, use_scale: bool = False):
@@ -158,12 +171,6 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
-        # The fused kernel's unit scale where there is no learned one:
-        # given no weight, its CUDA backward returns no bias gradient.  Not
-        # part of the state_dict.
-        if self.scale is None:
-            self.register_buffer("_unit", torch.ones(features),
-                                 persistent=False)
         self._affine = None           # (key, (scale, shift)); scale_shift
         self.sync_group = None        # process group of global statistics
 
@@ -173,25 +180,18 @@ class BatchNorm(nn.Module):
                 "BatchNorm.scale_shift is the eval-mode affine; the module "
                 "is in training mode")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.scale, self.bias, False, 0.0, self.eps)
-        if self.sync_group is not None:
-            return self._global_forward(x)
-        gamma = self._unit if self.scale is None else self.scale
-        y, mean, invstd = torch.native_batch_norm(
-            x, gamma, self.bias, None, None, True, 0.0, self.eps)
-        if not recomputing():
-            with torch.no_grad():
-                self._update_ema(mean, torch.clamp(
-                    invstd.square().reciprocal() - self.eps, min=0.0))
-        return y
-
-    def _update_ema(self, mean, var):
-        m = self.momentum
-        self.running_mean.mul_(m).add_(mean * (1.0 - m))
-        self.running_var.mul_(m).add_(var * (1.0 - m))
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.scale, self.bias, False, 0.0, self.eps)
+        elif self.sync_group is not None:
+            y = self._global_forward(x)
+        else:
+            return batch_norm_train(
+                x, self.scale, self.bias, self.running_mean,
+                self.running_var, self.momentum, self.eps, relu,
+                not recomputing())
+        return F.relu(y) if relu else y
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
         # Imported here: the parallel package imports the utilities, which
@@ -213,8 +213,8 @@ class BatchNorm(nn.Module):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         if not recomputing():
-            with torch.no_grad():
-                self._update_ema(mean, var)
+            update_plain(self.running_mean, self.running_var, mean, var,
+                         self.momentum)
         return y.to(x.dtype)
 
     def _params(self):
@@ -277,6 +277,5 @@ class ConvBN(nn.Module):
         self.BatchNorm = BatchNorm(features, eps, momentum, use_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.BatchNorm(conv2d_tf(x, self.conv.weight, self.conv.stride,
-                                     self.padding))
-        return F.relu(y) if self.relu else y
+        return self.BatchNorm(conv2d_tf(x, self.conv.weight, self.conv.stride,
+                                        self.padding), relu=self.relu)

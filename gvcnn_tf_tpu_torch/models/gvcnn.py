@@ -64,8 +64,11 @@ from gvcnn_tf_tpu_torch.ops.grouping_kernel import group_and_fuse
 
 
 def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> (N, C) mean over space."""
-    return x.mean(dim=(2, 3))
+    """NCHW -> (N, C) mean over space.  Taken over NHWC's (1, 2), the same
+    reduction as over NCHW's (2, 3), so that the gradient of a channels-last
+    x is channels-last too: the last block's BatchNorms then read their dy
+    where it lies (`x.mean(dim=(2, 3))`'s backward gave an NCHW one)."""
+    return x.permute(0, 2, 3, 1).mean(dim=(1, 2))
 
 
 def dropout(x: torch.Tensor, keep_prob: float,

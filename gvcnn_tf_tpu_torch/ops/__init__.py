@@ -1,10 +1,13 @@
 """Ops of the port: the grouping head and TF-'SAME' pooling in plain
 PyTorch, and the hand-written CUDA kernels with their wrappers
-(stem_kernel.py, grouping_kernel.py, pool_kernel.py), built by _build.py.
+(stem_kernel.py, grouping_kernel.py, pool_kernel.py, batch_norm_kernel.py),
+built by _build.py.
 
-Each kernel is reached through one `torch.library` op (`torch.ops.gvcnn.*`)
-with its fake and its autograd registered; the op's implementation runs the
-plain version on the CPU and the kernel on a card.  The ops are made with
+Each kernel is reached through a `torch.library` op (`torch.ops.gvcnn.*`)
+with its fake and its autograd registered (train-mode BatchNorm's
+statistics op, which mutates the running statistics, takes no gradient);
+the op's implementation runs the plain version on the CPU and the kernel on
+a card.  The ops are made with
 `torch.library.define` and `impl`, not `torch.library.custom_op`, whose
 wrapper imports `torch._dynamo` at an op's first call: seconds of every
 process's set-up, for a compiler the port does not use.  Importing this
@@ -27,6 +30,7 @@ def capturing() -> bool:
 
 # Registers the ops; after `capturing`, which the modules import.
 from gvcnn_tf_tpu_torch.ops import (  # noqa: E402,F401
+    batch_norm_kernel,
     grouping_kernel,
     pool_kernel,
     stem_kernel,

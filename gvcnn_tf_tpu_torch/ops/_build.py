@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points; the last argument is the cudaStream_t.
 _SIGNATURES = {
     # x, w(176,64), scale, shift, out, n, h, w, ho, wo, pad_top, pad_left,
@@ -53,6 +53,22 @@ _SIGNATURES = {
     # x, y, n, h, w, c, stream; the backward's: dy, dx, then the same
     **{f"avg_pool_same_{way}_{dtype}": (_P, _P) + (_I,) * 4 + (_P,)
        for way in ("fwd", "bwd") for dtype in ("bf16", "f32")},
+    # Train-mode BatchNorm (csrc/batch_norm.cu).  stats: x, part, ticket,
+    # mean, invstd, running_mean, running_var, rows, c, lanes, tv,
+    # chunk_rows, chunks, tiles, group, eps, momentum, 1 - momentum, update,
+    # stream; apply: x, y, mean, invstd, weight, bias, rows, c, lanes, tv,
+    # chunk_rows, chunks, tiles, relu, stream; bwd_reduce: dy, x, mean,
+    # invstd, weight, bias, part, ticket, dweight, dbias, coef, rows, c, ldg,
+    # lanes, tv, chunk_rows, chunks, tiles, group, relu, stream; bwd_elemt:
+    # dy, x, mean, invstd, weight, bias, coef, dx, rows, c, ldg, lanes, tv,
+    # chunk_rows, chunks, tiles, relu, stream
+    **{f"batch_norm_{kernel}_{dtype}": args
+       for dtype in ("bf16", "f32")
+       for kernel, args in (
+           ("stats", (_P,) * 7 + (_I,) * 8 + (_F,) * 3 + (_I, _P)),
+           ("apply", (_P,) * 6 + (_I,) * 8 + (_P,)),
+           ("bwd_reduce", (_P,) * 11 + (_I,) * 10 + (_P,)),
+           ("bwd_elemt", (_P,) * 8 + (_I,) * 9 + (_P,)))},
 }
 
 _lock = threading.Lock()

@@ -518,6 +518,7 @@ _CLASSES = (
     ("K1 grouping kernel", ("group_and_fuse",)),
     ("max-pool", ("max_pool",)),
     ("avg-pool", ("avg_pool",)),
+    ("batch-norm", ("batch_norm", "batchnorm")),
     ("optimizer (foreach)", ("foreach", "multi_tensor")),
     ("conv (cuDNN)", ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop",
                       "implicit", "sm90_", "nhwc")),

@@ -72,6 +72,17 @@ in torch 2.11.0+cu128; its NCHW backward gives the CPU's gradient); a
 captured and replayed Inception-v4 step runs 14
 forward and 14 backward average-pool kernels and none of PyTorch's; what
 the kernels do not take raises before a launch.
+
+Train-mode BatchNorm (`csrc/batch_norm.cu`), at the cells' real shapes
+(Inception-v1's Conv2d_1a, Inception-v4's Conv2d_2a, ResNet-50's block4 at
+384 images) and a C that is not a multiple of 8, bf16 and fp32, ReLU on and
+off, with and without a scale, against the plain versions on fp32 copies:
+the statistics and the running update within 1e-4, y within one ulp of the
+plain apply given the kernels' statistics, the gradients within one bf16
+ulp plus 1e-4 of their largest (bounds in the test's docstring); dy read
+in place from a channel slice; no running update in a remat recompute; the
+same bits under CUDA-graph replay; a replayed Inception-v1 step launching
+each of the four kernels once a BatchNorm and none of PyTorch's.
 """
 
 import numpy as np
@@ -1541,3 +1552,264 @@ def test_avg_pool_refuses_on_the_card_without_launching(cuda):
         want = pk.avg_pool_same(xd)
         got = pk.avg_pool_same(xd.contiguous())
         assert got.dtype == dtype and torch.equal(got, want)
+
+
+
+# ---------------------------------------------------------------------------
+# Train-mode BatchNorm (+ ReLU) (csrc/batch_norm.cu)
+# ---------------------------------------------------------------------------
+
+# (name, N, C, H, W): the B = 32 cells' real shapes (Inception-v1's
+# Conv2d_1a, Inception-v4's Conv2d_2a, ResNet-50's block4) and a C that is
+# not a multiple of 8 (one channel a thread).
+BN_SHAPES = [("v1_Conv2d_1a", 384, 64, 112, 112),
+             ("v4_Conv2d_2a", 384, 32, 147, 147),
+             ("resnet50_block4", 384, 2048, 7, 7),
+             ("odd_c", 6, 37, 9, 11)]
+BN_EPS, BN_MOMENTUM = 1e-3, 0.9
+
+
+def _ulp(t, dtype):
+    """The spacing of `dtype`'s numbers at |t| (t float32)."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - (7 if dtype == torch.bfloat16 else 23))
+
+
+def _bn_case(cuda, n, c, h, w, dtype, scale, seed=0):
+    """(x, dy, weight or None, bias): x with a mean and a spread of its own
+    a channel, channels-last, in `dtype`; fp32 parameters."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mu = torch.randn(c, 1, 1, generator=g, device=cuda)
+    sd = torch.rand(c, 1, 1, generator=g, device=cuda) * 2 + 0.1
+    x = torch.randn(n, c, h, w, generator=g, device=cuda) * sd + mu
+    dy = torch.randn(n, c, h, w, generator=g, device=cuda)
+    weight = (torch.rand(c, generator=g, device=cuda) + 0.5) if scale else None
+    bias = torch.randn(c, generator=g, device=cuda) * 0.5
+    cl = torch.channels_last
+    return (x.to(dtype).contiguous(memory_format=cl),
+            dy.to(dtype).contiguous(memory_format=cl), weight, bias)
+
+
+def _within(name, got, want, bound):
+    """|got - want| <= bound everywhere (bound a number or a tensor)."""
+    gap = (got.float() - want.float()).abs()
+    excess = (gap - bound).max().item()
+    assert excess <= 0, (f"{name}: max gap {gap.max().item():.3g}, past its "
+                         f"bound by {excess:.3g}")
+
+
+def _bn_kernels(x, dy, weight, bias, rm, rv, relu, update=True):
+    """(mean, invstd, y, dx, dweight, dbias) of the four kernels."""
+    mean, invstd = torch.ops.gvcnn.batch_norm_stats(x, rm, rv, BN_MOMENTUM,
+                                                    BN_EPS, update)
+    y = torch.ops.gvcnn.batch_norm_apply(x, weight, bias, mean, invstd, relu)
+    dx, dw, db = torch.ops.gvcnn.batch_norm_backward(
+        dy, x, weight, bias, mean, invstd, relu,
+        [True, weight is not None, True])
+    return mean, invstd, y, dx, dw, db
+
+
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,n,c,h,w", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda, name, n, c, h, w, dtype, relu,
+                                        scale):
+    """The four kernels against the plain versions on fp32 copies on the
+    card.  Statistics: the mean within 1e-4 of the largest channel std,
+    invstd and the running variance within rtol 1e-4, the running mean as
+    the mean.  y and the gradients against the plain apply and backward
+    given the kernels' own statistics (so the ReLU's mask is the same): y
+    within one ulp of its dtype (the same fp32 expression; the plain
+    version rounds the fma twice), dx within one bf16 ulp plus 1e-4 of
+    max|dx| (fp32: 1e-4 of max|dx|), dbeta and dgamma within 1e-4 of the
+    channel's sum of |terms| (fp32 sums in another order)."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    x, dy, weight, bias = _bn_case(cuda, n, c, h, w, dtype, scale)
+    rm = torch.randn(c, device=cuda)
+    rv = torch.rand(c, device=cuda) + 0.5
+    rm_k, rv_k = rm.clone(), rv.clone()
+    before = launched("batch_norm")
+    mean, invstd, y, dx, dw, db = _bn_kernels(x, dy, weight, bias, rm_k,
+                                              rv_k, relu)
+    torch.cuda.synchronize()
+    assert launched("batch_norm") - before == 4
+    assert y.dtype == dx.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+
+    xf = x.float()
+    mean_p, invstd_p = bk.stats_plain(xf, BN_EPS)
+    tol = 1e-4 * invstd_p.reciprocal().max().item()
+    _within("mean", mean, mean_p, tol)
+    _within("invstd", invstd, invstd_p, 1e-4 * invstd_p)
+    bk.update_plain(rm, rv, mean_p, bk.var_plain(invstd_p, BN_EPS),
+                    BN_MOMENTUM)
+    _within("running_mean", rm_k, rm, tol)
+    _within("running_var", rv_k, rv, 1e-4 * rv)
+
+    want_y = bk.apply_plain(xf, weight, bias, mean, invstd, relu)
+    _within("y", y, want_y, _ulp(want_y, dtype))
+    want = bk.backward_plain(dy.float(), xf, weight, bias, mean, invstd,
+                             relu, [True, scale, True])
+    top = 1e-4 * want[0].abs().max().item()
+    _within("dx", dx, want[0], top + (
+        0.0 if dtype == torch.float32 else _ulp(want[0], dtype)))
+    g = dy.float()
+    if relu:
+        g = torch.where(bk.apply_plain(xf, weight, bias, mean, invstd,
+                                       False) > 0, g, 0.0)
+    _within("dbeta", db, want[2], 1e-4 * g.abs().sum((0, 2, 3)))
+    if scale:
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        _within("dgamma", dw, want[1],
+                1e-4 * (g * xhat).abs().sum((0, 2, 3)))
+    else:
+        assert dw.numel() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batch_norm_backward_reads_a_channel_slice_in_place(cuda, dtype):
+    """dy as a concat's backward hands it over, the channels [o, o + C) of
+    a wider channels-last tensor, is read where it lies (its row pitch,
+    no copy): the gradients of a contiguous dy, bit for bit at an offset
+    that keeps 16-byte vectors; at one that does not (one channel a thread,
+    so sums in another order) dx within one bf16 ulp plus 1e-4 of max|dx|
+    and the parameters' within 1e-4 of max|d|."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    x, _, weight, bias = _bn_case(cuda, 16, 64, 14, 14, dtype, True)
+    mean, invstd = torch.ops.gvcnn.batch_norm_stats(
+        x, torch.zeros(64, device=cuda), torch.ones(64, device=cuda),
+        BN_MOMENTUM, BN_EPS, False)
+    wide = torch.randn(16, 200, 14, 14, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    for offset in (64, 3):
+        dy = wide[:, offset:offset + 64]
+        assert bk._pitch(dy) == 200
+        got = torch.ops.gvcnn.batch_norm_backward(
+            dy, x, weight, bias, mean, invstd, True, [True, True, True])
+        want = torch.ops.gvcnn.batch_norm_backward(
+            dy.contiguous(memory_format=torch.channels_last), x, weight,
+            bias, mean, invstd, True, [True, True, True])
+        for a, b in zip(got, want):
+            if offset % (16 // x.element_size()) == 0:
+                assert torch.equal(a, b)
+            else:
+                _within("slice", a, b, 1e-4 * b.abs().max().item() + (
+                    _ulp(b.float(), dtype) if a.dim() == 4 else 0.0))
+
+
+def test_batch_norm_moves_no_statistics_in_a_recompute(cuda):
+    """`BatchNorm` in train mode launches the stats and apply kernels once a
+    forward; the stats kernel moves the running statistics (and their
+    version counters) outside a remat recompute and not inside one, where
+    the batch statistics, and so y, are the same bit for bit."""
+    from gvcnn_tf_tpu_torch.models.backbones import layers
+
+    bn = layers.BatchNorm(64, momentum=BN_MOMENTUM).to(cuda).train()
+    x, _, _, _ = _bn_case(cuda, 8, 64, 28, 28, torch.bfloat16, False)
+    before = (launched("batch_norm_stats"), launched("batch_norm_apply"))
+    state = [t.clone() for t in (bn.running_mean, bn.running_var)]
+    versions = [bn.running_mean._version, bn.running_var._version]
+    with layers._recomputing():
+        y0 = bn(x, relu=True)
+    assert all(torch.equal(a, b) for a, b in
+               zip(state, (bn.running_mean, bn.running_var)))
+    assert [bn.running_mean._version, bn.running_var._version] == versions
+    y1 = bn(x, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1)
+    assert not torch.equal(state[0], bn.running_mean)
+    assert not torch.equal(state[1], bn.running_var)
+    assert bn.running_mean._version > versions[0]
+    assert (launched("batch_norm_stats") - before[0],
+            launched("batch_norm_apply") - before[1]) == (2, 2)
+
+
+def test_batch_norm_replays_in_a_graph(cuda):
+    """The four kernels captured in a CUDA graph and replayed on new data
+    give the eager results bit for bit, move the running statistics once a
+    replay, and leave the tile tickets at 0 (no memset in the graph)."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    cases = [_bn_case(cuda, 32, 192, 28, 28, torch.bfloat16, True, seed)
+             for seed in range(3)]
+    x, dy, weight, bias = (t.clone() for t in cases[0])
+    rm, rv = torch.zeros(192, device=cuda), torch.ones(192, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _bn_kernels(x, dy, weight, bias, rm.clone(), rv.clone(), True)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _bn_kernels(x, dy, weight, bias, rm, rv, True)
+    for case in cases[1:]:
+        for static, new in zip((x, dy, weight, bias), case):
+            static.copy_(new)
+        rm_e, rv_e = rm.clone(), rv.clone()
+        graph.replay()
+        want = _bn_kernels(*case, rm_e, rv_e, True)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+        assert torch.equal(rm, rm_e) and torch.equal(rv, rv_e)
+        assert int(bk._device(x.device)[0].abs().sum()) == 0
+
+
+def test_compiled_inception_v1_step_runs_the_batch_norm_kernels(
+        cuda, monkeypatch):
+    """A captured and replayed B = 2 train step of mn40_12view (64x64, 4
+    views, bf16) launches the stats, apply, backward-reduce and backward-
+    elementwise kernels once for each BatchNorm a step, as the launch
+    counters say, and none of PyTorch's batch-norm kernels; every x reaches
+    the stats, apply and backward wrappers channels-last and every dy with
+    a row pitch (no copy of either); the eager step runs no
+    `native_batch_norm` and no separate ReLU."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gvcnn_tf_tpu_torch.models.backbones.layers import BatchNorm
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+    from gvcnn_tf_tpu_torch.train import compile_train_step, create_train_state
+
+    cfg = _graph_cfg()
+    batches = _u8_batches(cfg, 3)
+    state = create_train_state(cfg, cuda)
+    n_bn = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    assert n_bn > 50
+    copies, x_copies = [], []
+    real_nhwc, real_channels_last = bk._nhwc, bk._channels_last
+    monkeypatch.setattr(bk, "_nhwc", lambda t: copies.append(
+        bk._pitch(t) is None) or real_nhwc(t))
+    monkeypatch.setattr(bk, "_channels_last", lambda t: x_copies.append(
+        not t.is_contiguous(memory_format=torch.channels_last))
+        or real_channels_last(t))
+
+    class Ops(TorchDispatchMode):
+        seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    step = compile_train_step(state, cfg, batches[0])
+    with Ops() as ops:
+        step(state, batches[0], cfg)          # the warm-up, eager
+    assert "gvcnn::batch_norm_apply" in ops.seen
+    assert not ops.seen & {"aten::native_batch_norm", "aten::relu",
+                           "aten::relu_", "aten::threshold_backward",
+                           "aten::native_batch_norm_backward"}
+    assert len(copies) == n_bn and not any(copies)
+    assert len(x_copies) == 3 * n_bn and not any(x_copies)
+    step(state, batches[1], cfg)              # the capture, replayed
+    names = ("stats", "apply", "bwd_reduce", "bwd_elemt")
+    before = [launched(f"batch_norm_{k}") for k in names]
+    kern, replays = _replay_kernels(step, state, batches[2], cfg)
+    assert [launched(f"batch_norm_{k}") - b for k, b in
+            zip(names, before)] == [n_bn * replays] * 4
+    for k in names:
+        assert sum(n for name, n in kern.items()
+                   if f"batch_norm_{k}<" in name) == n_bn, k
+    assert not any("batch_norm" in k and "channels_last" in k for k in kern)
