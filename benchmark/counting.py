@@ -6,10 +6,11 @@ Every conv and matmul counts 2 FLOP a multiply-add; nothing else counts
 (BatchNorm, pools, elementwise ops and the grouping head's compares are a
 rounding error beside them).  A conv's multiply-adds are cin cout kh kw
 h_out w_out, with the output size the backbone's own `conv_shapes` gives
-under its padding.  A train step counts 3x its forward (the forward, and
-the backward's input and weight gradients).  The stem conv (K2) reads its
-input and weight once and writes its output once, in the compute
-dtype."""
+under its padding; a conv with a bias and no BatchNorm (`ConvShape.bn`
+false) counts the same, its bias add uncounted like a BatchNorm.  A train
+step counts 3x its forward (the forward, and the backward's input and
+weight gradients).  The stem conv (K2) reads its input and weight once
+and writes its output once, in the compute dtype."""
 
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ driver that runs it (`benchmark/traffic/<kind>.py`); the limits of its
 output check are `benchmark/limits/<cell>.json`; each per-layer metric is
 read by `benchmark/metrics/<metric>.py`; the plain reference of the
 configuration's backbone is `benchmark/reference/<backbone>.py`, whose
-interface `benchmark/reference/__init__.py` states.  Adding a configuration
+interface `benchmark/reference/__init__.py` states (a conv declares with
+`ConvShape.bn` whether a BatchNorm follows it, `Net.conv_bn`, or it has a
+bias and no BatchNorm, `Net.conv_bias`).  Adding a configuration
 (with a backbone the reference lacks: its reference module too), a mix of
 an existing kind, a cell or a per-layer metric adds files and edits none.
 

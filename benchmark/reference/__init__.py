@@ -24,15 +24,19 @@ edits none.  The module holds:
   conv_shapes(final, h, w)
                a `layers.ConvShape` for every conv up to `final`, in the
                order of its parameters: name (weight `<name>.conv.weight`
-               of shape (cout, cin, kh, kw), then its BatchNorm), cin,
-               cout, (kh, kw), (sh, sw) and the output (h, w) that its own
-               padding gives; `counting.py` counts its work from these
-               alone;
+               of shape (cout, cin, kh, kw), then its BatchNorm or its
+               bias), cin, cout, (kh, kw), (sh, sw), the output (h, w)
+               that its own padding gives, and `bn` (default true): false
+               for a conv with a bias `<name>.conv.bias` of shape (cout,)
+               and no BatchNorm (TF-Slim's `normalizer_fn=None`);
+               `counting.py` counts its work from these alone;
   spatial(endpoint, h, w)
                the (h, w) of the activation at `endpoint`;
   forward(net, x, final, taps)
                NCHW x -> (the features at `final`, {tap: activation}),
-               built from `layers`: `net.conv_bn`, `conv`, `max_pool` and
-               `avg_pool`, each 'SAME' or 'VALID' with kernels and strides
-               given as an int or an (h, w) pair.
+               built from `layers`: `net.conv_bn`, `net.conv_bias` (the
+               `bn=False` convs: conv + bias, no activation, the same in
+               every mode), `conv`, `max_pool` and `avg_pool`, each 'SAME'
+               or 'VALID' with kernels and strides given as an int or an
+               (h, w) pair.
 """

@@ -69,25 +69,29 @@ def param_spec(model: dict) -> "collections.OrderedDict[str, Tuple]":
     """{parameter or statistic name: (shape, role)} of the model a
     configuration file's `model` section describes, in a fixed order.
     Roles: conv, linear, score_logit, bias, bn_scale, bn_bias, bn_mean,
-    bn_var."""
+    bn_var.  A backbone conv without a BatchNorm (`ConvShape.bn` false)
+    is its weight (conv) then its bias (bias)."""
     bb = backbone(model["backbone"])
     final, raw = model["final_endpoint"], model["raw_endpoint"]
     spec = collections.OrderedDict()
 
-    def conv_bn(name, cin, cout, kernel, scaled):
+    def conv_layer(name, cin, cout, kernel, scaled, bn=True):
         spec[f"{name}.conv.weight"] = ((cout, cin) + tuple(kernel), "conv")
-        bn = f"{name}.BatchNorm"
+        if not bn:
+            spec[f"{name}.conv.bias"] = ((cout,), "bias")
+            return
+        norm = f"{name}.BatchNorm"
         if scaled:
-            spec[f"{bn}.scale"] = ((cout,), "bn_scale")
-        spec[f"{bn}.bias"] = ((cout,), "bn_bias")
-        spec[f"{bn}.running_mean"] = ((cout,), "bn_mean")
-        spec[f"{bn}.running_var"] = ((cout,), "bn_var")
+            spec[f"{norm}.scale"] = ((cout,), "bn_scale")
+        spec[f"{norm}.bias"] = ((cout,), "bn_bias")
+        spec[f"{norm}.running_mean"] = ((cout,), "bn_mean")
+        spec[f"{norm}.running_var"] = ((cout,), "bn_var")
 
     for c in bb.conv_shapes(final, model["height"], model["width"]):
-        conv_bn(c.name, c.cin, c.cout, c.kernel, bb.BN_SCALE)
+        conv_layer(c.name, c.cin, c.cout, c.kernel, bb.BN_SCALE, c.bn)
     ch = bb.channels(final)
-    conv_bn("GroupingModule.Conv2d_score_1x1", ch[raw], SCORE_HIDDEN, (1, 1),
-            False)
+    conv_layer("GroupingModule.Conv2d_score_1x1", ch[raw], SCORE_HIDDEN,
+               (1, 1), False)
     spec["GroupingModule.Conv2d_score_logit.weight"] = (
         (1, SCORE_HIDDEN, 1, 1), "score_logit")
     spec["GroupingModule.Conv2d_score_logit.bias"] = ((1,), "bias")

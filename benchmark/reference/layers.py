@@ -91,8 +91,12 @@ class FP8:
 class ConvShape(NamedTuple):
     """One conv of a backbone, as its `conv_shapes` yields it: the layer
     `name` (weight `<name>.conv.weight`, shape (cout, cin, kh, kw)), its
-    kernel and stride as (h, w) pairs, and the output (h, w) that the
-    backbone computes under its own padding."""
+    kernel and stride as (h, w) pairs, the output (h, w) that the
+    backbone computes under its own padding, and `bn`: whether a
+    BatchNorm follows it (`<name>.BatchNorm.*`, `Net.conv_bn`) or, where
+    false, the conv has a bias `<name>.conv.bias` of shape (cout,) and no
+    BatchNorm (TF-Slim's `conv2d` with `normalizer_fn=None`,
+    `Net.conv_bias`)."""
 
     name: str
     cin: int
@@ -100,6 +104,7 @@ class ConvShape(NamedTuple):
     kernel: Tuple[int, int]
     stride: Tuple[int, int]
     out: Tuple[int, int]
+    bn: bool = True
 
 
 def pair(v) -> Tuple[int, int]:
@@ -241,3 +246,12 @@ class Net:
             y = batch_norm(conv(x, w, stride, self.num, padding=padding),
                            bn, eps, self.mode == "train")
         return F.relu(y) if relu else y
+
+    def conv_bias(self, x: torch.Tensor, name: str, stride=1,
+                  padding: str = "SAME") -> torch.Tensor:
+        """conv + bias with no BatchNorm and no activation: the layer
+        `name` holds `name.conv.weight` and `name.conv.bias`.  The same in
+        every mode, since there is nothing to fold; the numerics round the
+        conv's operands, not the float32 bias."""
+        return conv(x, self.p[f"{name}.conv.weight"], stride, self.num,
+                    bias=self.p[f"{name}.conv.bias"], padding=padding)

@@ -4,7 +4,8 @@ the 'VALID' 3x3/2 max pools of Inception-v4's stem and reductions against
 `ops/pool.py::max_pool`, and the 'SAME' average pool with the padded zeros
 counted against `ops/pool.py::avg_pool`; TF-Slim's average pool, which
 counts only the window's elements inside the image, against a hand
-divisor."""
+divisor; a conv with a bias and no BatchNorm, whose numerics round the
+conv's operands and not its bias."""
 
 import pytest
 import torch
@@ -97,3 +98,21 @@ def test_kernels_and_strides_as_pairs_or_ints():
         layers.out_hw(2, 11, 3, 1, "VALID")
     with pytest.raises(ValueError):
         layers.max_pool(x, 3, 2, "FULL")
+
+
+@pytest.mark.parametrize("num", [layers.Exact, layers.BF16, layers.FP8],
+                         ids=lambda n: n.name)
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_conv_bias_rounds_the_operands_and_adds_the_float32_bias(num,
+                                                                 padding):
+    x, w, b = _x((2, 6, 9, 9)), _x((5, 6, 3, 3), 1), _x((5,), 2) * 0.1
+    net = layers.Net({"up.conv.weight": w, "up.conv.bias": b}, "folded",
+                     num, 1e-3)
+    got = net.conv_bias(x, "up", padding=padding)
+    bare = layers.conv(x, w, 1, num, padding=padding)
+    assert got.shape[2:] == layers.out_hw(9, 9, 3, 1, padding)
+    torch.testing.assert_close(got - bare, b.view(1, -1, 1, 1).expand_as(got),
+                               rtol=0, atol=1e-6)
+    if num is not layers.Exact:
+        assert (bare - layers.conv(x, w, 1, layers.Exact,
+                                   padding=padding)).abs().max() > 1e-3

@@ -21,6 +21,10 @@ PINNED = {
         entries=288, flops=8_403_206_406_144,
         spec="6500df2eedc0914af25b9e6abe94eff8"
              "b7b50ec314c492f7b9b1f1ca25815d4b"),
+    "mn40_12view_inception_v4": dict(
+        entries=604, flops=28_368_718_258_176,
+        spec="91169dba6b9698909eb81c4a695e57f0"
+             "3fd7c33404a144f7ce2f9b4dbbd54e04"),
 }
 
 
