@@ -76,8 +76,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    backward alone and cuDNN's fp32 weight gradient timed;
    the grouping kernel at C = 1536 (Inception-v4) and 2048 (ResNet-50)
    against its plain version in phase 4's cases, timed; then for each of
-   mn40_12view_resnet50, mn40_12view_inception_v4, mn40_12view_mvcnn and
-   mn10_single_view: the inference engine (seeded weights, folded BN) at
+   mn40_12view_resnet50, mn40_12view_inception_v4, mn40_12view_mvcnn,
+   mn10_single_view and mn40_12view_inception_resnet_v2: the inference engine (seeded weights, folded BN) at
    B = 1 and B = 8 (request p50 and each kernel's launches), B = 2 card
    vs CPU (fp32, plain versions) logits, argmax and scores, one B = 8 train
    step (CUDA events, peak memory, launches) and a B = 2 card-vs-CPU train
@@ -90,7 +90,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    v2/v3 forward) are counted from zero and held to FAMILY_AVG_POOLS a
    forward (forward and backward kernel each a train step), the train-mode
    BatchNorm kernels' to BN_LAYERS (stats, apply, backward reduce and
-   elementwise once a BatchNorm a train step; none in a served forward).
+   elementwise once a BatchNorm a train step; none in a served forward),
+   the residual join's to FAMILY_JOINS (its forward kernel once a join a
+   served forward; forward, backward and bias-gradient kernels once a join
+   a train step).
 11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
    made from a seed (1001-class head) written by the port's importer, then
    `train()` of mn40_12view at full width with `checkpoint_path` and the
@@ -286,7 +289,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 22. The train-mode BatchNorm kernels (`phase_batch_norm`,
    csrc/batch_norm.cu) over every BatchNorm of one B = 32 train step of
    each train cell's configuration (Inception-v1 and ResNet-50 at 224,
-   Inception-v4 at 299, as the cells run them), their shapes taken from a
+   Inception-v4 and Inception-ResNet-v2 at 299, as the cells run them), their shapes taken from a
    B = 1 step's BatchNorm calls and run at BN_IMAGES images, bf16: the
    forward (stats + apply, the running statistics moved) and the backward
    (reduce + elementwise), each layer's ReLU as the model has it, each
@@ -302,6 +305,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    ulp, dx within one bf16 ulp plus BN_GRAD_REL of max|dx|, dbeta and
    dgamma within BN_GRAD_REL of the channel's sum of |terms|; the largest
    gaps are printed.
+23. The residual join's kernels (`phase_join`, csrc/residual_join.cu)
+   through their ops at Inception-ResNet-v2's joins at JOIN_IMAGES images
+   of 299x299 (B = 32 of 12 views), bf16: at each of block35 (35x35x320),
+   block17 (17x17x1088) and block8 (8x8x2080), with and without the ReLU,
+   one launch of each kernel, y, dx and du bit-equal to
+   `residual_join_plain` / `residual_join_backward_plain` and dbias within
+   JOIN_DBIAS_REL of the channel's sum of |du|, raising on a miss.  Then
+   each published join (block35 0.17, block17 0.10, block8 0.20, the last
+   `Block8` 1.0 without the ReLU) timed, forward and backward (backward
+   and bias-gradient kernels): CUDA events, device time, the plain
+   versions on the card, beside the bytes bound a way (x and u read, y
+   written; dy read, dx and du written, dx not where there is no ReLU;
+   the ReLU's mask read from y left out); no one PyTorch call
+   computes the join, so there is no library time.  Last, the 40 joins of
+   one B = 32 step (JOIN_SHAPES' counts), forward and backward each
+   captured in one CUDA graph and timed over BN_REPLAYS replays, against
+   the 6-pass bound (`join_roofline.train`'s, 15.87 ms).
 
 TF32: PyTorch's defaults, as the port runs (fp32 matmuls in full fp32;
 fp32 cuDNN convs, those of mn10_single_view outside its stem kernel, in
@@ -420,7 +440,8 @@ FAMILY_REQUESTS = 10
 FAMILY_LAUNCHES = {"mn40_12view_resnet50": (0, 0, 1),
                    "mn40_12view_inception_v4": (0, 0, 1),
                    "mn40_12view_mvcnn": (1, 0, 0),
-                   "mn10_single_view": (0, 1, 0)}
+                   "mn10_single_view": (0, 1, 0),
+                   "mn40_12view_inception_resnet_v2": (0, 0, 1)}
 # The 3x3/1 'SAME' average pools a forward (csrc/avg_pool.cu): a serving
 # forward launches that many forward kernels, a train step that many of
 # each kernel.  Inception-v4: Mixed_5b-5e, 6b-6h and 7b-7d; v2: 7; v3: 9.
@@ -428,8 +449,20 @@ FAMILY_AVG_POOLS = {"mn40_12view_resnet50": 0,
                     "mn40_12view_inception_v4": 14,
                     "mn40_12view_mvcnn": 0,
                     "mn10_single_view": 0,
+                    "mn40_12view_inception_resnet_v2": 1,
                     "inception_v2": 7,
                     "inception_v3": 9}
+# The residual joins a forward (csrc/residual_join.cu): a serving forward
+# launches that many forward kernels, a train step that many of each of
+# the forward, backward and bias-gradient kernels.  Inception-ResNet-v2:
+# 10 block35, 20 block17, 9 block8 and Block8.
+FAMILY_JOINS = {"mn40_12view_resnet50": 0,
+                "mn40_12view_inception_v4": 0,
+                "mn40_12view_mvcnn": 0,
+                "mn10_single_view": 0,
+                "mn40_12view_inception_resnet_v2": 40,
+                "inception_v2": 0,
+                "inception_v3": 0}
 # mn10_single_view: fp32 on the card (TF32 convs outside the stem kernel)
 # against fp32 on the CPU, read at 224x224 with only the forward's conv
 # inputs TF32-rounded (the card's dgrad and wgrad run in TF32 too): worst
@@ -449,24 +482,28 @@ FAMILY_BACKBONE_TOL = {"inception_v2": (8e-2, 3e-4),
 # `measure.py serve-drift` (the compute dtype against fp32 on the CPU, 96x96,
 # B = 2, seeds 0-2; fp32 configs against TF32-rounded conv inputs).  Worst
 # readings: ResNet-50 3.20e-3 / 1.60e-4; Inception-v4 9.58e-3 / 2.13e-6;
-# MVCNN 6.70e-3; single view 1.24e-3; GVCNN on v2 and v3 in
-# FAMILY_BACKBONE_TOL.  Bounds with 3x room or more.
+# MVCNN 6.70e-3; single view 1.24e-3; Inception-ResNet-v2 1.30e-2 /
+# 2.37e-5; GVCNN on v2 and v3 in FAMILY_BACKBONE_TOL.  Bounds with 3x room
+# or more.
 FAMILY_SERVE_TOL = {"mn40_12view_resnet50": (1e-2, 1e-3),
                     "mn40_12view_inception_v4": (3e-2, 1e-4),
                     "mn40_12view_mvcnn": (2e-2, None),
-                    "mn10_single_view": (5e-3, None)}
+                    "mn10_single_view": (5e-3, None),
+                    "mn40_12view_inception_resnet_v2": (4e-2, 1e-4)}
 # One B = 2 train step, card vs CPU: (loss rel, grad_norm rel, Logits
 # gradient cosine), from `measure.py train-drift` (bf16 vs fp32 on the CPU;
-# 64x64 seeds 0-2 and 96x96, v4 at 80x80 and 96x96; mn10_single_view fp32
+# 64x64 seeds 0-2 and 96x96, v4 and Inception-ResNet-v2 at 80x80 and
+# 96x96, the latter at 128x128 seeds 0-2 too; mn10_single_view fp32
 # against TF32-rounded conv inputs at 224x224, seeds 0-2).  Worst
 # readings: ResNet-50 5.87e-2, 5.46e-2, 0.9711; Inception-v4 9.02e-2,
-# 5.01e-2, 0.8911; MVCNN 2.50e-2, 2.45e-2, 0.9913; single view in
-# FAMILY_TRAIN_TOL's comment.  Bounds: 2.5-3x the worst gap, 1 - 3 x
-# (1 - the worst cosine).
+# 5.01e-2, 0.8911; MVCNN 2.50e-2, 2.45e-2, 0.9913; Inception-ResNet-v2
+# 3.88e-2, 4.40e-2, 0.99565; single view in FAMILY_TRAIN_TOL's comment.
+# Bounds: 2.5-3x the worst gap, 1 - 3 x (1 - the worst cosine).
 FAMILY_TRAIN_TOL = {"mn40_12view_resnet50": (0.15, 0.15, 0.91),
                     "mn40_12view_inception_v4": (0.25, 0.15, 0.67),
                     "mn40_12view_mvcnn": (0.075, 0.075, 0.97),
-                    "mn10_single_view": SINGLE_VIEW_TRAIN_TOL}
+                    "mn10_single_view": SINGLE_VIEW_TRAIN_TOL,
+                    "mn40_12view_inception_resnet_v2": (0.1, 0.12, 0.987)}
 
 
 # Phase 12: data parallelism at mn40_12view_dp8's per-card batch (64 over 8
@@ -573,7 +610,8 @@ AVG_POOL_SHAPES = (("Mixed_5b-5e", 35, 384, 4), ("Mixed_6b-6h", 17, 1024, 7),
 # each at its published size; BN_REPLAYS timed graph replays a side.
 BN_IMAGES = 384
 BN_CONFIGS = {"mn40_12view": 224, "mn40_12view_resnet50": 224,
-              "mn40_12view_inception_v4": 299}
+              "mn40_12view_inception_v4": 299,
+              "mn40_12view_inception_resnet_v2": 299}
 BN_REPLAYS = 10
 # Its check of each layer against the plain versions (the card tests'
 # tolerances, `tests/test_torch_cuda_kernels.py`): statistics relative to
@@ -587,8 +625,21 @@ BN_STATS_REL, BN_GRAD_REL = 1e-4, 1e-4
 # of them (Conv2d_1a-2c) in the backward: forward kernels only.
 BN_LAYERS = {"mn40_12view": 58, "mn40_12view_mvcnn": 57,
              "mn10_single_view": 57, "mn40_12view_resnet50": 57,
-             "mn40_12view_inception_v4": 150}
+             "mn40_12view_inception_v4": 150,
+             "mn40_12view_inception_resnet_v2": 205}
 REMAT_BATCH_NORMS = 3
+
+# Phase 23: the residual join's kernels at Inception-ResNet-v2's joins of
+# one B = 32 train step (JOIN_IMAGES images of 299x299): (join, H = W, C,
+# scale, ReLU, joins a forward).
+JOIN_IMAGES = 384
+JOIN_SHAPES = (("block35", 35, 320, 0.17, True, 10),
+               ("block17", 17, 1088, 0.10, True, 20),
+               ("block8", 8, 2080, 0.20, True, 9),
+               ("Block8", 8, 2080, 1.0, False, 1))
+# dbias against the plain version's: within this share of the channel's
+# sum of |du| (fp32 sums in another order; the card tests' bound).
+JOIN_DBIAS_REL = 1e-4
 
 # Phase 17: the step-analysis tools.  bench_layers at the flagship's folded
 # B = 8 step (96 images of 224x224, bf16); a row whose time is under its
@@ -1240,6 +1291,140 @@ def phase_batch_norm(dev):
         del xbuf, dybuf, cases
         torch.cuda.empty_cache()
     return out
+
+
+def _join_counts():
+    """(forward, backward, bias-gradient) launches of the residual join's
+    kernels."""
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    return (launched("residual_join_fwd"), launched("residual_join_bwd"),
+            launched("residual_join_bias_grad"))
+
+
+def _check_join(x, u, dy, b, scale, relu):
+    """Phase 23's check of one join: its three kernels once, through their
+    ops, against the plain versions -> {quantity: True where bit-equal,
+    or dbias's largest gap over its bound; launches}."""
+    from gvcnn_tf_tpu_torch.ops import residual_join as rj
+
+    before = _join_counts()
+    y = torch.ops.gvcnn.residual_join(x, u, b, scale, relu)
+    saved = y if relu else None
+    dx, du, db = torch.ops.gvcnn.residual_join_backward(dy, saved, scale,
+                                                        relu)
+    moved = tuple(a - c for a, c in zip(_join_counts(), before))
+    want_dx, want_du, want_db = rj.residual_join_backward_plain(
+        dy, saved, scale, relu)
+    terms = scale * (want_dx if relu else dy).float().abs()
+    return dict(
+        launches=list(moved),
+        y=torch.equal(y, rj.residual_join_plain(x, u, b, scale, relu)),
+        dx=torch.equal(dx, want_dx) if relu else dx.numel() == 0,
+        du=torch.equal(du, want_du),
+        dbias=_gap_over(db, want_db, JOIN_DBIAS_REL * terms.sum((0, 2, 3))))
+
+
+def phase_join(dev):
+    """Phase 23: the residual join's kernels against their plain versions
+    at Inception-ResNet-v2's B = 32 joins, each timed, then one step's 40
+    joins in CUDA graphs (see the module docstring)."""
+    from gvcnn_tf_tpu_torch.ops import residual_join as rj
+    from gvcnn_tf_tpu_torch.tools.measure import cuda_ms, kernel_us
+
+    rates = bound(1, 0, "bfloat16")[0]  # ms a byte
+    gen = torch.Generator(device=dev).manual_seed(23)
+    start = _join_counts()
+    checks, rows, cases = {}, [], []
+    for name, hw, c, scale, relu, count in JOIN_SHAPES:
+        x, u, dy = (torch.randn(JOIN_IMAGES, c, hw, hw, generator=gen,
+                                device=dev).to(torch.bfloat16).contiguous(
+                                    memory_format=torch.channels_last)
+                    for _ in range(3))
+        b = torch.randn(c, generator=gen, device=dev)
+        if relu:          # block35, block17 and block8 with and without it
+            for with_relu in (True, False):
+                check = _check_join(x, u, dy, b, scale, with_relu)
+                checks[f"{name}_relu_{int(with_relu)}"] = check
+                if not (check["launches"] == [1, 1, 1] and check["y"]
+                        and check["dx"] and check["du"]
+                        and check["dbias"] <= 1.0):
+                    raise AssertionError(f"join {name}, relu {with_relu}: "
+                                         f"the kernels miss the plain "
+                                         f"versions: {check}")
+        y = torch.ops.gvcnn.residual_join(x, u, b, scale, relu)
+        saved = y if relu else None
+
+        def fwd():
+            return torch.ops.gvcnn.residual_join(x, u, b, scale, relu)
+
+        def bwd():
+            return torch.ops.gvcnn.residual_join_backward(dy, saved, scale,
+                                                          relu)
+
+        us_fwd, n_fwd = kernel_us(fwd, "residual_join_fwd")
+        us_bwd, n_bwd = kernel_us(bwd, "residual_join_bwd")
+        us_sum, n_sum = kernel_us(bwd, "residual_join_bias_grad")
+        row = dict(
+            join=name, shape=[JOIN_IMAGES, c, hw, hw], scale=scale,
+            relu=relu, count=count,
+            fwd_ms=cuda_ms(fwd), bwd_ms=cuda_ms(bwd),
+            fwd_device_ms=us_fwd * n_fwd / 1e3,
+            bwd_device_ms=(us_bwd * n_bwd + us_sum * n_sum) / 1e3,
+            plain_fwd_ms=cuda_ms(
+                lambda: rj.residual_join_plain(x, u, b, scale, relu)),
+            plain_bwd_ms=cuda_ms(lambda: rj.residual_join_backward_plain(
+                dy, saved, scale, relu)),
+            library_ms=None,
+            bound_fwd_ms=3 * 2 * x.numel() * rates,
+            bound_bwd_ms=(3 if relu else 2) * 2 * x.numel() * rates)
+        for way in ("fwd", "bwd"):
+            row[f"{way}_share"] = (row[f"bound_{way}_ms"]
+                                   / row[f"{way}_device_ms"])
+        log("join " + json.dumps(row))
+        rows.append(row)
+        cases.append(dict(x=x, u=u, dy=dy, b=b, y=saved, scale=scale,
+                          relu=relu, count=count))
+    worst = max(k["dbias"] for k in checks.values())
+    log(f"join, {len(checks)} checks at B = 32 against the plain versions: "
+        f"y, dx and du bit-equal, dbias's largest gap over its bound "
+        f"{worst:.4g} (1 or less passes)")
+
+    def forward():
+        for k in cases:
+            for _ in range(k["count"]):
+                torch.ops.gvcnn.residual_join(k["x"], k["u"], k["b"],
+                                              k["scale"], k["relu"])
+
+    def backward():
+        for k in cases:
+            for _ in range(k["count"]):
+                torch.ops.gvcnn.residual_join_backward(
+                    k["dy"], k["y"], k["scale"], k["relu"])
+
+    joins = sum(k["count"] for k in cases)
+    before = _join_counts()
+    step = dict(joins=joins, fwd_ms=_graph_ms(forward, dev),
+                bwd_ms=_graph_ms(backward, dev))
+    moved = [a - c for a, c in zip(_join_counts(), before)]
+    # Warm-up and capture: two calls of each.
+    if moved != [2 * joins] * 3:
+        raise AssertionError(f"join step: launches {moved}, expected "
+                             f"{2 * joins} of each kernel")
+    step["elements"] = sum(k["x"].numel() * k["count"] for k in cases)
+    step["train_ms"] = step["fwd_ms"] + step["bwd_ms"]
+    step["train_bound_ms"] = 6 * 2 * step["elements"] * rates
+    step["train_share"] = step["train_bound_ms"] / step["train_ms"]
+    log(f"join, one B = 32 step's {joins} joins in CUDA graphs: "
+        + json.dumps(step))
+    end = _join_counts()
+    launches = [a - c for a, c in zip(end, start)]
+    log("join launch counters over phase 23 (forward, backward, bias "
+        f"gradient): {launches}")
+    del cases
+    torch.cuda.empty_cache()
+    return dict(by_shape=rows, checks=checks, worst_dbias_gap=worst,
+                step_b32=step, launches=launches)
 
 
 def _clear_scores(rs, b, v, m):
@@ -2251,6 +2436,14 @@ def phase_families(card, dev):
                     f"{name}: average-pool launches (forward, backward) "
                     f"{row['serve_avg_launches']} over {forwards} forwards, "
                     f"want {FAMILY_AVG_POOLS[name]} a forward")
+            row["serve_join_launches"] = _join_counts()
+            if row["serve_join_launches"] != (
+                    FAMILY_JOINS[name] * forwards, 0, 0):
+                raise AssertionError(
+                    f"{name}: residual-join launches (forward, backward, "
+                    f"bias gradient) {row['serve_join_launches']} over "
+                    f"{forwards} forwards, want {FAMILY_JOINS[name]} a "
+                    "forward")
             views2 = rs.uniform(-1, 1, (2,) + shape).astype(np.float32)
             row["logit_rel"] = _card_vs_cpu_serving(
                 engine, cfg, views2, FAMILY_SERVE_TOL[name], name)[0]
@@ -2262,7 +2455,8 @@ def phase_families(card, dev):
             f"launches (bf16 stem, fp32 stem, grouping) over {forwards} "
             f"forwards {row['serve_launches']}, average pool (forward, "
             f"backward) {row['serve_avg_launches']}, BatchNorm "
-            f"{row['serve_bn_launches']} [{card}]")
+            f"{row['serve_bn_launches']}, residual join "
+            f"{row['serve_join_launches']} [{card}]")
 
         # One B = 8 train step on the card.
         state = create_train_state(cfg, dev)
@@ -2274,6 +2468,7 @@ def phase_families(card, dev):
         row["step_launches"] = tuple(k / 7 for k in _counts())
         row["step_avg_launches"] = tuple(k / 7 for k in _avg_counts())
         row["step_bn_launches"] = tuple(k / 7 for k in _bn_counts())
+        row["step_join_launches"] = tuple(k / 7 for k in _join_counts())
         row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         if row["step_launches"] != FAMILY_LAUNCHES[name]:
             raise AssertionError(f"{name}: launches a step "
@@ -2286,13 +2481,19 @@ def phase_families(card, dev):
                                  f"apply, bwd_reduce, bwd_elemt) "
                                  f"{row['step_bn_launches']}, want "
                                  f"{BN_LAYERS[name]} each")
+        if row["step_join_launches"] != (FAMILY_JOINS[name],) * 3:
+            raise AssertionError(f"{name}: residual-join launches a step "
+                                 f"(forward, backward, bias gradient) "
+                                 f"{row['step_join_launches']}, want "
+                                 f"{FAMILY_JOINS[name]} each")
         del state, batch
         vps = d.batch_size * d.num_views / row["step_ms"] * 1e3
         log(f"{name}: train step B={d.batch_size} {row['step_ms']:.3f} ms "
             f"median of 5 ({vps:.1f} views/s), peak memory {row['peak_gb']:.3f} GB, launches a "
             f"step {row['step_launches']}, average pool "
             f"{row['step_avg_launches']}, BatchNorm "
-            f"{row['step_bn_launches']} [{card}]")
+            f"{row['step_bn_launches']}, residual join "
+            f"{row['step_join_launches']} [{card}]")
 
         # One B = 2 train step, card vs CPU.
         drift = train_step_drift(
@@ -2330,13 +2531,17 @@ def phase_families(card, dev):
                 engine, cfg, views, FAMILY_BACKBONE_TOL[backbone],
                 f"mn40_12view --backbone {backbone} (calibrated BN)",
                 variables)
-            avg, bn = _avg_counts(), _bn_counts()
+            avg, bn, join = _avg_counts(), _bn_counts(), _join_counts()
             rows[backbone] = dict(logit_rel=rel, launches=launches,
-                                  avg_launches=avg, bn_launches=bn)
+                                  avg_launches=avg, bn_launches=bn,
+                                  join_launches=join)
             if launches != (0, 0, 1) or avg != (FAMILY_AVG_POOLS[backbone],
-                                                0) or any(bn):
+                                                0) or any(bn) or join != (
+                                                    FAMILY_JOINS[backbone],
+                                                    0, 0):
                 raise AssertionError(f"{backbone}: launches {launches}, "
-                                     f"average pool {avg}, BatchNorm {bn}")
+                                     f"average pool {avg}, BatchNorm {bn}, "
+                                     f"residual join {join}")
         finally:
             engine.close()
     return rows
@@ -4790,6 +4995,8 @@ def main():
     mark(21)
     bn = phase_batch_norm(dev)
     mark(22)
+    join = phase_join(dev)
+    mark(23)
     replayed = compiled["steps"]
     log(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f}"
         " s in all")
@@ -4915,6 +5122,20 @@ def main():
              compiled_serve_launches=compiled["serving"]["bn_launches"],
              compiled_eval_launches=compiled["eval"]["bn_launches"],
              step_b32=bn),
+        dict(name="residual_join_bf16", route="cuda",
+             source="gvcnn_tf_tpu_torch/csrc/residual_join.cu",
+             replaces=None,
+             serve_launches={k: v["serve_join_launches"] for k, v in
+                             fam.items() if "serve_join_launches" in v},
+             family_launches_per_step={
+                 k: v["step_join_launches"] for k, v in fam.items()
+                 if "step_join_launches" in v},
+             backbone_launches_per_forward={
+                 k: v["join_launches"] for k, v in fam.items()
+                 if "join_launches" in v},
+             launches=join["launches"], checks=join["checks"],
+             worst_dbias_gap=join["worst_dbias_gap"],
+             by_shape=join["by_shape"], step_b32=join["step_b32"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ not an import because importing any module of `gvcnn_tf_tpu` runs that
 package's `__init__`, which imports JAX, Flax, optax and Orbax; the machine
 that runs the port has none of them.  `tests/test_torch_bridge.py` pins the
 copy to the original (every config and every flag), so the two cannot drift.
+The port has one named config more, `mn40_12view_inception_resnet_v2`,
+whose backbone only the port has.
 
 Every field is kept so that configs compare equal.  A setting that only
 changes how the JAX package lays out the same math (branch merging, the
@@ -174,7 +176,8 @@ def _cfg(**kw) -> GVCNNConfig:
     )
 
 
-# The named configs, identical to gvcnn_tf_tpu.configs.CONFIGS.
+# The named configs: gvcnn_tf_tpu.configs.CONFIGS, and
+# mn40_12view_inception_resnet_v2, whose backbone the JAX package lacks.
 CONFIGS = {
     # Inception-v1 single-view ModelNet10 classification.
     "mn10_single_view": _cfg(
@@ -203,6 +206,15 @@ CONFIGS = {
         backbone="inception_v4",
         raw_endpoint="Mixed_5e",
         final_endpoint="Mixed_7d",
+        data=dict(dataset="modelnet40", num_classes=40, num_views=12,
+                  batch_size=8),
+    ),
+    # The port alone: the JAX package has no Inception-ResNet-v2 backbone.
+    "mn40_12view_inception_resnet_v2": _cfg(
+        name="mn40_12view_inception_resnet_v2",
+        backbone="inception_resnet_v2",
+        raw_endpoint="Repeat",
+        final_endpoint="Conv2d_7b_1x1",
         data=dict(dataset="modelnet40", num_classes=40, num_views=12,
                   batch_size=8),
     ),

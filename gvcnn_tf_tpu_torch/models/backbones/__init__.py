@@ -1,5 +1,6 @@
 """Backbone registry (counterpart of `gvcnn_tf_tpu/models/backbones`), under
-the JAX package's names.
+the JAX package's names, and one the JAX package lacks,
+`inception_resnet_v2`.
 
 Each backbone class takes NHWC input (N, H, W, 3), returns (features,
 {endpoint: tensor}) in NCHW, and carries `NAME` (its Flax scope, and so the
@@ -8,6 +9,9 @@ first part of its state_dict keys), `ENDPOINTS`, `ENDPOINT_CHANNELS`,
 `KERNEL_INIT` (the JAX family's conv initializer).
 """
 
+from gvcnn_tf_tpu_torch.models.backbones.inception_resnet_v2 import (
+    InceptionResNetV2Base,
+)
 from gvcnn_tf_tpu_torch.models.backbones.inception_v1 import InceptionV1Base
 from gvcnn_tf_tpu_torch.models.backbones.inception_v2 import InceptionV2Base
 from gvcnn_tf_tpu_torch.models.backbones.inception_v3 import InceptionV3Base
@@ -19,6 +23,7 @@ BACKBONES = {
     "inception_v2": InceptionV2Base,
     "inception_v3": InceptionV3Base,
     "inception_v4": InceptionV4Base,
+    "inception_resnet_v2": InceptionResNetV2Base,
     "resnet50": ResNet50Base,
 }
 

@@ -7,6 +7,9 @@
   and EMA decay, and the ReLU that follows it where the caller asks.
 - `ConvBN`: conv + BatchNorm (+ ReLU), no conv bias: Inception-v1's
   `ConvBNReLU`, Inception-v3/v4's `_Conv` and ResNet's `_ConvBN`.
+- `ConvBias`: a conv with a bias and no BatchNorm (slim's `conv2d` with
+  `normalizer_fn=None`); its forward leaves the bias to the caller
+  (Inception-ResNet-v2's "up" convs add it in the residual join).
 - The JAX package's initializers: slim's truncated normal (Inception-v1 and
   v2) and Flax's default lecun normal (v3, v4, ResNet, the heads).
 - `remat`: Flax's `nn.remat` for the port, one non-reentrant
@@ -279,3 +282,30 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.BatchNorm(conv2d_tf(x, self.conv.weight, self.conv.stride,
                                         self.padding), relu=self.relu)
+
+
+class ConvBias(nn.Module):
+    """slim.conv2d with a bias and no BatchNorm or activation
+    (`normalizer_fn=None, activation_fn=None`).  forward(x) is the conv
+    without its bias; the caller adds `bias` (fp32), so that it can fold
+    it into the op that follows: Inception-ResNet-v2's 1x1 "up" convs
+    hand theirs to the residual join (`ops/residual_join.py`).  The weight
+    and bias keep the names `conv.weight` and `conv.bias`;
+    `fold_batch_norm` finds no BatchNorm beside the conv and leaves it
+    alone, and the L2 term (`*.weight`) leaves the bias out."""
+
+    def __init__(self, in_ch: int, features: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: str = "SAME"):
+        super().__init__()
+        self.padding = padding
+        self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
+                              bias=True)
+
+    @property
+    def bias(self) -> torch.Tensor:
+        """The conv's bias in fp32, whatever `cast_convs_` made of it
+        (serving casts it to the compute dtype)."""
+        return self.conv.bias.float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_tf(x, self.conv.weight, self.conv.stride, self.padding)

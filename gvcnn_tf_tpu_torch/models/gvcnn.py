@@ -342,8 +342,8 @@ def init_weights(model: ViewModel, seed: int) -> ViewModel:
     Backbone convs: the family's (`KERNEL_INIT`: slim's truncated normal,
     stddev 0.09, for Inception-v1 and v2; lecun normal for v3, v4 and
     ResNet); the scoring FCN's 1x1 conv: truncated normal 0.09; the
-    score-logit conv and `Logits`: lecun normal; biases 0; BatchNorm scale
-    1, mean 0, var 1."""
+    score-logit conv and `Logits`: lecun normal; biases 0 (slim's zeros,
+    also a backbone conv's); BatchNorm scale 1, mean 0, var 1."""
     g = torch.Generator().manual_seed(seed)
     lecun = {id(m) for m in model.backbone.modules()
              if isinstance(m, nn.Conv2d)
@@ -356,6 +356,8 @@ def init_weights(model: ViewModel, seed: int) -> ViewModel:
                 lecun_normal_(m.weight, g)
             else:
                 trunc_normal_(m.weight, TRUNC_STDDEV, g)
+            if m.bias is not None:       # Inception-ResNet-v2's up convs
+                m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.reset_()
     if logit is not None:

@@ -1,7 +1,7 @@
 """Ops of the port: the grouping head and TF-'SAME' pooling in plain
 PyTorch, and the hand-written CUDA kernels with their wrappers
-(stem_kernel.py, grouping_kernel.py, pool_kernel.py, batch_norm_kernel.py),
-built by _build.py.
+(stem_kernel.py, grouping_kernel.py, pool_kernel.py, batch_norm_kernel.py,
+residual_join.py), built by _build.py.
 
 Each kernel is reached through a `torch.library` op (`torch.ops.gvcnn.*`)
 with its fake and its autograd registered (train-mode BatchNorm's
@@ -33,5 +33,6 @@ from gvcnn_tf_tpu_torch.ops import (  # noqa: E402,F401
     batch_norm_kernel,
     grouping_kernel,
     pool_kernel,
+    residual_join,
     stem_kernel,
 )

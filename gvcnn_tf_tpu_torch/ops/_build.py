@@ -69,6 +69,15 @@ _SIGNATURES = {
            ("apply", (_P,) * 6 + (_I,) * 8 + (_P,)),
            ("bwd_reduce", (_P,) * 11 + (_I,) * 10 + (_P,)),
            ("bwd_elemt", (_P,) * 8 + (_I,) * 9 + (_P,)))},
+    # The residual join (csrc/residual_join.cu).  fwd: x, u, bias, y, rows,
+    # c, lanes, scale, relu, stream; bwd: dy, y, dx, du, part, rows, c,
+    # lanes, tv, chunk_rows, chunks, tiles, scale, relu, stream; bias_grad:
+    # part, dbias, c, chunks, stream
+    **{f"residual_join_fwd_{dtype}": (_P,) * 4 + (_I,) * 3 + (_F, _I, _P)
+       for dtype in ("bf16", "f32")},
+    **{f"residual_join_bwd_{dtype}": (_P,) * 5 + (_I,) * 7 + (_F, _I, _P)
+       for dtype in ("bf16", "f32")},
+    "residual_join_bias_grad": (_P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -108,18 +108,20 @@ class Plan(NamedTuple):
     groups: int
 
 
-def plan(rows: int, c: int, lanes: int, sms: int) -> Plan:
+def plan(rows: int, c: int, lanes: int, sms: int,
+         blocks_an_sm: int = BLOCKS_AN_SM) -> Plan:
     """The launch plan for rows x c at `lanes` channels a thread on a card
     of `sms` SMs: equal tiles of at most MAX_TILE_VECTORS lane groups, and
-    as many equal chunks of rows as give BLOCKS_AN_SM blocks an SM without
-    a thread owning fewer than MIN_ROWS_A_THREAD rows (one chunk at
-    least)."""
+    as many equal chunks of rows as give `blocks_an_sm` blocks an SM
+    without a thread owning fewer than MIN_ROWS_A_THREAD rows (one chunk at
+    least).  The residual join's backward (`ops/residual_join.py`) takes
+    the same plan, with blocks of the same size, and ignores `groups`."""
     cv = c // lanes
     tiles = -(-cv // MAX_TILE_VECTORS)
     tv = -(-cv // tiles)
     by = MAX_THREADS // tv
     most = max(1, rows // (by * MIN_ROWS_A_THREAD))
-    chunks = min(max(1, -(-BLOCKS_AN_SM * sms // tiles)), most)
+    chunks = min(max(1, -(-blocks_an_sm * sms // tiles)), most)
     chunk_rows = -(-rows // chunks)
     chunks = -(-rows // chunk_rows)
     return Plan(lanes, tv, tiles, chunk_rows, chunks, -(-chunks // GROUP))

@@ -81,10 +81,11 @@ views/s at REMAT_TIMED_SHARE of it, beside views/s at B = 8.
 `train-drift` (runs on the CPU, and is no device measurement): one train
 step of `--config` (default mn40_12view), B = 2, in bf16 and in fp32 from
 the same weights and batch, dropout off, at 64x64 for seeds 0-2 and at
-96x96 for seed 0 (80x80 and 96x96 for Inception-v3 and v4, which need 75x75
-at least): the relative gaps of loss and grad_norm, the cosine of the
-flattened gradients (all, `Logits`, and each layer group), and the worst
-ratio of one parameter tensor's gradient norms.  For an fp32 config (the
+96x96 for seed 0 (80x80 and 96x96 for Inception-v3, v4 and
+Inception-ResNet-v2, which need 75x75 at least): the relative gaps of loss
+and grad_norm, the cosine of the flattened gradients (all, `Logits`, and
+each layer group), and the worst ratio of one parameter tensor's gradient
+norms.  For an fp32 config (the
 card runs its convs outside the stem in TF32) it compares fp32 with
 TF32-rounded conv inputs (`tf32_convs`) instead.  `--size N` runs seeds
 0-2 at NxN instead.  `chip_smoke.py` derives its card-vs-CPU bounds for
@@ -1132,8 +1133,8 @@ def main(argv=None):
         from gvcnn_tf_tpu_torch import get_config
 
         base = get_config(args.config)
-        runs = (DRIFT_RUNS_75 if base.backbone in ("inception_v3",
-                                                   "inception_v4")
+        runs = (DRIFT_RUNS_75 if base.backbone in (
+            "inception_v3", "inception_v4", "inception_resnet_v2")
                 else DRIFT_RUNS)
         if args.size:
             runs = tuple((args.size, seed) for seed in range(3))

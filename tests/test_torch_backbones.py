@@ -61,6 +61,12 @@ from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: E402
 from gvcnn_tf_tpu_torch.ops.stem_kernel import stem_conv_plain  # noqa: E402
 from gvcnn_tf_tpu_torch.utils import fold_batch_norm  # noqa: E402
 
+# The JAX package's backbones (`gvcnn_tf_tpu.models.backbones.get_backbone`
+# registers them lazily), and the one the port has beside them.
+JAX_BACKBONES = ("inception_v1", "inception_v2", "inception_v3",
+                 "inception_v4", "resnet50")
+PORT_ONLY_BACKBONES = {"inception_resnet_v2"}
+
 NEW = ("inception_v2", "inception_v3", "inception_v4", "resnet50")
 SIZE = {"inception_v2": 48, "inception_v3": 80, "inception_v4": 107,
         "resnet50": 48}
@@ -258,10 +264,14 @@ def test_endpoint_shapes_on_meta(name, hw, want):
 
 
 def test_registry_names_and_truncation():
-    assert sorted(BACKBONES) == ["inception_v1", "inception_v2",
-                                 "inception_v3", "inception_v4", "resnet50"]
-    for name, cls in BACKBONES.items():
-        jcls = jax_get_backbone(name)
+    # The port's registry is the JAX package's backbones and one the port
+    # alone has; the JAX package registers lazily, so its names are listed.
+    assert set(BACKBONES) == set(JAX_BACKBONES) | PORT_ONLY_BACKBONES
+    for name in PORT_ONLY_BACKBONES:
+        with pytest.raises(KeyError):
+            jax_get_backbone(name)
+    for name in JAX_BACKBONES:
+        cls, jcls = BACKBONES[name], jax_get_backbone(name)
         assert cls.NAME == getattr(jcls, "NAME", "InceptionV1")
         assert cls.ENDPOINTS == tuple(jcls.ENDPOINTS)
         for attr in ("DEFAULT_RAW_ENDPOINT", "DEFAULT_FINAL_ENDPOINT",

@@ -83,6 +83,16 @@ ulp plus 1e-4 of their largest (bounds in the test's docstring); dy read
 in place from a channel slice; no running update in a remat recompute; the
 same bits under CUDA-graph replay; a replayed Inception-v1 step launching
 each of the four kernels once a BatchNorm and none of PyTorch's.
+
+The residual join (`csrc/residual_join.cu`), at Inception-ResNet-v2's
+block35, block17 and block8 shapes at 384 images and a C that is not a
+multiple of 8, bf16 and fp32, with the ReLU and without it (the last
+block8): y, dx and du equal to the plain versions bit for bit, dbias
+within 1e-4 of the channel's sum of |du| and the same from launch to
+launch; what the op does not take raising before a launch; the same bits
+under CUDA-graph replay; a replayed Inception-ResNet-v2 forward launching
+its 40 joins, and a replayed train step 40 forward, 40 backward and 40
+bias-gradient kernels.
 """
 
 import numpy as np
@@ -1813,3 +1823,164 @@ def test_compiled_inception_v1_step_runs_the_batch_norm_kernels(
         assert sum(n for name, n in kern.items()
                    if f"batch_norm_{k}<" in name) == n_bn, k
     assert not any("batch_norm" in k and "channels_last" in k for k in kern)
+
+
+# ---------------------------------------------------------------------------
+# The residual join (csrc/residual_join.cu)
+# ---------------------------------------------------------------------------
+
+# (name, N, C, H = W): Inception-ResNet-v2's three joins at 384 images (a
+# B = 32 step of 12 views at 299x299), and a C that is not a multiple of 8
+# (one channel a thread).
+JOIN_SHAPES = [("block35", 384, 320, 35), ("block17", 384, 1088, 17),
+               ("block8", 384, 2080, 8), ("odd_c", 6, 37, 9)]
+
+
+def _join_case(cuda, n, c, hw, dtype, seed=0):
+    """(x, u, dy channels-last in `dtype`, bias fp32): x and u of a spread
+    that puts about half of x + s (u + b) below 0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cl = torch.channels_last
+    x, u, dy = (torch.randn(n, c, hw, hw, generator=g, device=cuda).to(
+        dtype).contiguous(memory_format=cl) for _ in range(3))
+    return x, u, dy, torch.randn(c, generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,n,c,hw", JOIN_SHAPES)
+def test_residual_join_kernels_match_plain(cuda, name, n, c, hw, dtype,
+                                           relu):
+    """The forward, backward and bias-gradient kernels against the plain
+    versions on the card: y, dx and du equal bit for bit (the same fp32
+    operations, no fma contraction, one rounding into the dtype), dbias
+    within 1e-4 of the channel's sum of |du| (fp32 sums in another order),
+    as `test_batch_norm_kernels_match_plain` bounds its parameter
+    gradients.  Without the ReLU (the last block8) dx is dy itself."""
+    from gvcnn_tf_tpu_torch.ops import residual_join as rj
+
+    x, u, dy, b = _join_case(cuda, n, c, hw, dtype)
+    scale = {"block35": 0.17, "block17": 0.10}.get(name, 0.20 if relu
+                                                    else 1.0)
+    before = (launched("residual_join_fwd"), launched("residual_join_bwd"),
+              launched("residual_join_bias_grad"))
+    y = torch.ops.gvcnn.residual_join(x, u, b, scale, relu)
+    dx, du, db = torch.ops.gvcnn.residual_join_backward(
+        dy, y if relu else None, scale, relu)
+    torch.cuda.synchronize()
+    assert (launched("residual_join_fwd") - before[0],
+            launched("residual_join_bwd") - before[1],
+            launched("residual_join_bias_grad") - before[2]) == (1, 1, 1)
+    assert y.dtype == du.dtype == dtype and db.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert du.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, rj.residual_join_plain(x, u, b, scale, relu))
+    want_dx, want_du, want_db = rj.residual_join_backward_plain(
+        dy, y if relu else None, scale, relu)
+    if relu:
+        assert dx.dtype == dtype and torch.equal(dx, want_dx)
+    else:
+        assert dx.numel() == 0
+    assert torch.equal(du, want_du)
+    terms = scale * (want_dx if relu else dy).float().abs()
+    _within("dbias", db, want_db, 1e-4 * terms.sum((0, 2, 3)))
+    again = torch.ops.gvcnn.residual_join_backward(
+        dy, y if relu else None, scale, relu)
+    assert torch.equal(again[2], db)          # the same order every launch
+
+
+def test_residual_join_refuses_what_it_does_not_take(cuda):
+    """Another dtype, a u of another shape and a bias that is not fp32 (C,)
+    raise before a launch; an NCHW-contiguous x gives the channels-last
+    result, in x's layout."""
+    from gvcnn_tf_tpu_torch.ops import residual_join as rj
+
+    x, u, dy, b = _join_case(cuda, 4, 64, 6, torch.float32)
+    before = launched("residual_join")
+    with pytest.raises(TypeError):
+        rj.residual_join(x.half(), u.half(), b, 0.1, True)
+    with pytest.raises(ValueError):
+        rj.residual_join(x, u[:, :32], b, 0.1, True)
+    with pytest.raises(ValueError):
+        rj.residual_join(x, u, b.double(), 0.1, True)
+    with pytest.raises(ValueError):
+        torch.ops.gvcnn.residual_join_backward(dy, None, 0.1, True)
+    torch.cuda.synchronize()
+    assert launched("residual_join") == before
+    want = rj.residual_join(x, u, b, 0.1, True)
+    got = rj.residual_join(x.contiguous(), u.contiguous(), b, 0.1, True)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+def test_residual_join_replays_in_a_graph(cuda):
+    """The three kernels captured in a CUDA graph and replayed on new data
+    give the eager results bit for bit."""
+    cases = [_join_case(cuda, 32, 1088, 17, torch.bfloat16, seed)
+             for seed in range(3)]
+    static = [t.clone() for t in cases[0]]
+
+    def run(x, u, dy, b):
+        y = torch.ops.gvcnn.residual_join(x, u, b, 0.1, True)
+        return (y,) + tuple(torch.ops.gvcnn.residual_join_backward(
+            dy, y, 0.1, True))
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(*static)
+    for case in cases[1:]:
+        for s, new in zip(static, case):
+            s.copy_(new)
+        graph.replay()
+        want = run(*case)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_inception_resnet_v2_replays_its_joins(cuda):
+    """mn40_12view_inception_resnet_v2 at 80x80, 4 views, B = 2, bf16: a
+    forward replayed from a CUDA graph (`utils/graphs.CapturedCall`) moves
+    `ops.launches` by its 40 joins and gives the eager logits; a captured
+    and replayed train step by 40 forward, 40 backward and 40 bias-gradient
+    launches, and its profiled replay runs that many of each kernel."""
+    from gvcnn_tf_tpu_torch.train import compile_train_step, create_train_state
+    from gvcnn_tf_tpu_torch.utils.graphs import CapturedCall
+
+    cfg = _graph_cfg("mn40_12view_inception_resnet_v2", size=80)
+    batches = _u8_batches(cfg, 3)
+    state = create_train_state(cfg, cuda)
+    model = state.model.eval()
+    x = batches[0]["views"].to(torch.bfloat16) / 255.0 * 2.0 - 1.0
+
+    inputs = {"x": x.clone()}
+
+    def forward():
+        with torch.no_grad():
+            return model(inputs["x"])[0]
+
+    call = CapturedCall("irv2 forward", forward, inputs, device=cuda)
+    want = call(x=x).clone()                  # the warm-up, eager
+    call(x=x)                                 # the capture, replayed
+    before = launched("residual_join_fwd")
+    got = call(x=x)
+    torch.cuda.synchronize()
+    assert launched("residual_join_fwd") - before == 40
+    assert torch.equal(got, want)
+    model.train()
+
+    step = compile_train_step(state, cfg, batches[0])
+    step(state, batches[0], cfg)              # the warm-up
+    step(state, batches[1], cfg)              # the capture, replayed
+    names = ("residual_join_fwd", "residual_join_bwd",
+             "residual_join_bias_grad")
+    before = [launched(k) for k in names]
+    kern, replays = _replay_kernels(step, state, batches[2], cfg)
+    assert [launched(k) - b for k, b in zip(names, before)] == \
+        [40 * replays] * 3
+    for k in names:
+        assert sum(n for name, n in kern.items() if k in name) == 40, k

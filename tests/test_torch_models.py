@@ -48,7 +48,11 @@ from gvcnn_tf_tpu_torch.models.gvcnn import (  # noqa: E402
     build_model,
     init_weights,
 )
-from test_torch_backbones import assert_close_rel, calibrate_bn  # noqa: E402
+from test_torch_backbones import (  # noqa: E402
+    JAX_BACKBONES,
+    assert_close_rel,
+    calibrate_bn,
+)
 
 # config -> (size, views, batch)
 CASES = {
@@ -104,7 +108,7 @@ def test_end_points_match_jax(name):
             assert_close_rel(pep[k], jep[k], msg=f"{name} {k}")
 
 
-@pytest.mark.parametrize("backbone", sorted(BACKBONES))
+@pytest.mark.parametrize("backbone", sorted(JAX_BACKBONES))
 def test_backbone_flag_resolves_endpoints_as_jax(backbone):
     jcfg = jax_configs.get_config("mn40_12view").replace(backbone=backbone)
     pcfg = port_configs.get_config("mn40_12view").replace(backbone=backbone)
@@ -118,6 +122,7 @@ def test_backbone_flag_resolves_endpoints_as_jax(backbone):
 
 FAMILY = {"mn10_single_view": SingleViewClassifier, "mn10_8view": GVCNN,
           "mn40_12view": GVCNN, "mn40_12view_inception_v4": GVCNN,
+          "mn40_12view_inception_resnet_v2": GVCNN,
           "mn40_12view_resnet50": GVCNN, "mn40_12view_mvcnn": MVCNN,
           "mn40_12view_dp8": GVCNN}
 
