@@ -91,7 +91,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    forward (forward and backward kernel each a train step), the train-mode
    BatchNorm kernels' to BN_LAYERS (stats, apply, backward reduce and
    elementwise once a BatchNorm a train step; none in a served forward),
-   the residual join's to FAMILY_JOINS (its forward kernel once a join a
+   their residual variants' to BN_RESIDUAL_LAYERS (apply and reduce once
+   a BatchNorm with a residual a train step: ResNet-50's 16), the
+   residual join's to FAMILY_JOINS (its forward kernel once a join a
    served forward; forward, backward and bias-gradient kernels once a join
    a train step).
 11. Warm start (`phase_warm_start`): a slim-named Inception-v1 checkpoint
@@ -251,7 +253,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    equal to the eager step's through the replays, the max-pool kernels'
    counted from zero before the steps and held to COMPILED_POOL_LAUNCHES,
    the BatchNorm kernels' to BN_LAYERS (with the remat recompute's
-   REMAT_BATCH_NORMS forwards again under remat_until);
+   REMAT_BATCH_NORMS forwards again under remat_until), their residual
+   variants' to BN_RESIDUAL_LAYERS;
    the step (CUDA events, median of 2 x COMPILED_RUNS in turns), the
    device's idle share over a
    profiled window and peak memory, eager beside compiled.  (b) The
@@ -292,19 +295,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    Inception-v4 and Inception-ResNet-v2 at 299, as the cells run them), their shapes taken from a
    B = 1 step's BatchNorm calls and run at BN_IMAGES images, bf16: the
    forward (stats + apply, the running statistics moved) and the backward
-   (reduce + elementwise), each layer's ReLU as the model has it, each
-   side captured in one CUDA graph and
+   (reduce + elementwise), each layer's ReLU and residual as the model
+   has them (ResNet-50's 16 conv3 BatchNorms take the residual variants),
+   each side captured in one CUDA graph and
    timed over BN_REPLAYS replays, beside the 8-pass bytes bound (x read,
-   x read and y written; dy and x read, dy and x read and dx written) and
-   PyTorch's `native_batch_norm` + `F.relu` and their backward
-   (`threshold_backward` + `native_batch_norm_backward`) as the yardstick
-   (`library_*_ms`; the port never calls them in train mode).  Before the
+   x read and y written; dy and x read, dy and x read and dx written; a
+   residual layer 11: r read forward, out read and g written backward) and
+   PyTorch's `native_batch_norm` (+ the residual add) + `F.relu` and their
+   backward (`threshold_backward` + `native_batch_norm_backward`) as the
+   yardstick (`library_*_ms`; the port never calls them in train mode).
+   The residual layers are also timed alone (`residual`), beside the route
+   they replaced: the port's plain apply and backward around PyTorch's
+   add, ReLU and `threshold_backward` (`unfused_*_ms`).  Before the
    timing, each layer's four kernels run once eagerly and are held to the
    plain versions on fp32 copies on the card (`_check_bn_layer`): mean,
    invstd and the running statistics within BN_STATS_REL, y within one
    ulp, dx within one bf16 ulp plus BN_GRAD_REL of max|dx|, dbeta and
-   dgamma within BN_GRAD_REL of the channel's sum of |terms|; the largest
-   gaps are printed.
+   dgamma within BN_GRAD_REL of the channel's sum of |terms|, a residual
+   layer's g equal to `threshold_backward` at its out; the largest gaps
+   are printed.
 23. The residual join's kernels (`phase_join`, csrc/residual_join.cu)
    through their ops at Inception-ResNet-v2's joins at JOIN_IMAGES images
    of 299x299 (B = 32 of 12 views), bf16: at each of block35 (35x35x320),
@@ -628,6 +637,13 @@ BN_LAYERS = {"mn40_12view": 58, "mn40_12view_mvcnn": 57,
              "mn40_12view_inception_v4": 150,
              "mn40_12view_inception_resnet_v2": 205}
 REMAT_BATCH_NORMS = 3
+# Of those, the calls that take a residual (ResNet-50's 16 bottlenecks'
+# conv3): in a train step each launches the residual apply and reduce in
+# place of the plain ones (counted in BN_LAYERS too); none elsewhere.
+BN_RESIDUAL_LAYERS = {"mn40_12view": 0, "mn40_12view_mvcnn": 0,
+                      "mn10_single_view": 0, "mn40_12view_resnet50": 16,
+                      "mn40_12view_inception_v4": 0,
+                      "mn40_12view_inception_resnet_v2": 0}
 
 # Phase 23: the residual join's kernels at Inception-ResNet-v2's joins of
 # one B = 32 train step (JOIN_IMAGES images of 299x299): (join, H = W, C,
@@ -1066,9 +1082,10 @@ def phase_avg_pool(dev):
 
 
 def _bn_layers(config, size, dev):
-    """[(C, H, W, relu, scale)] of every train-mode BatchNorm call of one
-    forward of `config`'s model at size x size, in order: an eager B = 1
-    train step on the card with a pre-hook on each BatchNorm."""
+    """[(C, H, W, relu, scale, residual)] of every train-mode BatchNorm
+    call of one forward of `config`'s model at size x size, in order: an
+    eager B = 1 train step on the card with a pre-hook on each BatchNorm
+    (`residual`: the call adds one before its ReLU, ResNet's conv3)."""
     import dataclasses
 
     from gvcnn_tf_tpu_torch import get_config
@@ -1086,7 +1103,8 @@ def _bn_layers(config, size, dev):
         x = args[0]
         calls.append((x.shape[1], x.shape[2], x.shape[3],
                       bool(kwargs.get("relu", False)),
-                      module.scale is not None, x.shape[0]))
+                      module.scale is not None,
+                      kwargs.get("residual") is not None, x.shape[0]))
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
                for m in state.model.modules() if isinstance(m, BatchNorm)]
@@ -1094,11 +1112,11 @@ def _bn_layers(config, size, dev):
     for h in handles:
         h.remove()
     views = cfg.data.num_views
-    if any(c[5] != views for c in calls):
+    if any(c[6] != views for c in calls):
         raise AssertionError(
             f"{config}: a BatchNorm saw another batch than {views} views: "
-            f"{sorted(set(c[5] for c in calls))}")
-    return [c[:5] for c in calls]
+            f"{sorted(set(c[6] for c in calls))}")
+    return [c[:6] for c in calls]
 
 
 def _graph_ms(fn, dev, replays=BN_REPLAYS):
@@ -1140,19 +1158,34 @@ def _check_bn_layer(k, momentum=0.9, eps=1e-3):
     eagerly (the running statistics moved on copies), against the plain
     versions on fp32 copies on the card -> {quantity: its largest gap over
     its bound} (see the module docstring).  y and the gradients are taken
-    from the kernels' own statistics, so the ReLU's mask is the same."""
+    from the kernels' own statistics, so the ReLU's mask is the same.  A
+    case with a residual `r` runs the residual apply and reduce: out
+    against `apply_residual_plain`, its gradient g bit for bit against
+    `threshold_backward` at the kernel's out (`g` 0 or 1: the share of
+    elements that differ), and dx, dbeta and dgamma against the plain
+    backward of g without the ReLU."""
     from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
 
-    x, dy, weight, bias, relu = (k["x"], k["dy"], k["weight"], k["bias"],
-                                 k["relu"])
+    x, dy, weight, bias, relu, r = (k["x"], k["dy"], k["weight"], k["bias"],
+                                    k["relu"], k.get("r"))
     mask = [True, weight is not None, True]
     rm, rv = k["rm"].clone(), k["rv"].clone()
     mean, invstd = torch.ops.gvcnn.batch_norm_stats(x, rm, rv, momentum, eps,
                                                     True)
-    y = torch.ops.gvcnn.batch_norm_apply(x, weight, bias, mean, invstd, relu)
-    dx, dw, db = torch.ops.gvcnn.batch_norm_backward(
-        dy, x, weight, bias, mean, invstd, relu, mask)
     xf, gf = x.float(), dy.float()
+    if r is None:
+        y = torch.ops.gvcnn.batch_norm_apply(x, weight, bias, mean, invstd,
+                                             relu)
+        dx, dw, db = torch.ops.gvcnn.batch_norm_backward(
+            dy, x, weight, bias, mean, invstd, relu, mask)
+        want_y = bk.apply_plain(xf, weight, bias, mean, invstd, relu)
+    else:
+        y = torch.ops.gvcnn.batch_norm_apply_residual(x, weight, bias, mean,
+                                                      invstd, r)
+        dx, dw, db, g = torch.ops.gvcnn.batch_norm_backward_residual(
+            dy, y, x, weight, bias, mean, invstd, mask)
+        want_y = bk.apply_residual_plain(xf, weight, bias, mean, invstd,
+                                         r.float())
     mean_p, invstd_p = bk.stats_plain(xf, eps)
     rm_p, rv_p = k["rm"].clone(), k["rv"].clone()
     bk.update_plain(rm_p, rv_p, mean_p, bk.var_plain(invstd_p, eps), momentum)
@@ -1161,14 +1194,21 @@ def _check_bn_layer(k, momentum=0.9, eps=1e-3):
                invstd=_gap_over(invstd, invstd_p, BN_STATS_REL * invstd_p),
                running_mean=_gap_over(rm, rm_p, tol),
                running_var=_gap_over(rv, rv_p, BN_STATS_REL * rv_p))
-    want = bk.apply_plain(xf, weight, bias, mean, invstd, relu)
-    out["y"] = _gap_over(y, want, _bf16_ulp(want))
-    want = bk.backward_plain(gf, xf, weight, bias, mean, invstd, relu, mask)
+    out["y"] = _gap_over(y, want_y, _bf16_ulp(want_y))
+    if r is None:
+        want = bk.backward_plain(gf, xf, weight, bias, mean, invstd, relu,
+                                 mask)
+        if relu:
+            gf = torch.where(bk.apply_plain(xf, weight, bias, mean, invstd,
+                                            False) > 0, gf, 0.0)
+    else:
+        out["g"] = float((g != torch.ops.aten.threshold_backward(
+            dy, y, 0)).float().mean())
+        gf = g.float()
+        want = bk.backward_plain(gf, xf, weight, bias, mean, invstd, False,
+                                 mask)
     out["dx"] = _gap_over(dx, want[0], BN_GRAD_REL * float(
         want[0].abs().max()) + _bf16_ulp(want[0]))
-    if relu:
-        gf = torch.where(bk.apply_plain(xf, weight, bias, mean, invstd,
-                                        False) > 0, gf, 0.0)
     out["dbeta"] = _gap_over(db, want[2],
                              BN_GRAD_REL * gf.abs().sum((0, 2, 3)))
     if weight is not None:
@@ -1191,23 +1231,26 @@ def phase_batch_norm(dev):
     for config, size in BN_CONFIGS.items():
         layers = _bn_layers(config, size, dev)
         n = BN_IMAGES
-        sizes = [n * c * h * w for c, h, w, _, _ in layers]
+        sizes = [n * c * h * w for c, h, w, _, _, _ in layers]
         gen = torch.Generator(device=dev).manual_seed(22)
         xbuf = torch.randn(max(sizes), generator=gen, device=dev).mul_(
             1.5).add_(0.3).to(torch.bfloat16)
         dybuf = torch.randn(max(sizes), generator=gen, device=dev).to(
             torch.bfloat16)
+        rbuf = (torch.randn(max(sizes), generator=gen, device=dev).to(
+            torch.bfloat16) if any(c[5] for c in layers) else None)
 
         def nchw(buf, c, h, w):
             return buf[:n * c * h * w].view(n, h, w, c).permute(0, 3, 1, 2)
 
         cases = []
-        for c, h, w, relu, scale in layers:
+        for c, h, w, relu, scale, residual in layers:
             weight = (torch.rand(c, generator=gen, device=dev) + 0.5
                       if scale else None)
             bias = torch.randn(c, generator=gen, device=dev) * 0.5
             cases.append(dict(
                 x=nchw(xbuf, c, h, w), dy=nchw(dybuf, c, h, w), relu=relu,
+                r=nchw(rbuf, c, h, w) if residual else None,
                 weight=weight, bias=bias, rm=torch.zeros(c, device=dev),
                 rv=torch.ones(c, device=dev),
                 unit=torch.ones(c, device=dev)))
@@ -1217,6 +1260,11 @@ def phase_batch_norm(dev):
             y, k["lmean"], k["linvstd"] = torch.native_batch_norm(
                 k["x"], k["weight"] if k["weight"] is not None else k["unit"],
                 k["bias"], None, None, True, 0.0, 1e-3)
+            if k["r"] is not None:
+                y = y + k["r"]
+                k["out"] = torch.ops.gvcnn.batch_norm_apply_residual(
+                    k["x"], k["weight"], k["bias"], k["mean"], k["invstd"],
+                    k["r"])
             k["ly"] = F.relu(y) if k["relu"] else y
         worst = {}
         for k in cases:
@@ -1224,8 +1272,10 @@ def phase_batch_norm(dev):
                 worst[q] = max(worst.get(q, 0.0), r)
         log(f"batch norm, {config}'s {len(layers)} BatchNorms at B = 32 "
             "against the plain versions on fp32 copies, the largest gap "
-            "over its bound (1 or less passes): " + json.dumps(worst))
-        if not all(r <= 1.0 for r in worst.values()):
+            "over its bound (1 or less passes; g: the share of elements "
+            "that differ, 0 passes): " + json.dumps(worst))
+        if not all(r <= (0.0 if q == "g" else 1.0)
+                   for q, r in worst.items()):
             raise AssertionError(f"{config}: the BatchNorm kernels miss the "
                                  f"plain versions: {worst}")
 
@@ -1233,16 +1283,25 @@ def phase_batch_norm(dev):
             for k in cases:
                 mean, invstd = torch.ops.gvcnn.batch_norm_stats(
                     k["x"], k["rm"], k["rv"], 0.9, 1e-3, True)
-                torch.ops.gvcnn.batch_norm_apply(k["x"], k["weight"],
-                                                 k["bias"], mean, invstd,
-                                                 k["relu"])
+                if k["r"] is None:
+                    torch.ops.gvcnn.batch_norm_apply(
+                        k["x"], k["weight"], k["bias"], mean, invstd,
+                        k["relu"])
+                else:
+                    torch.ops.gvcnn.batch_norm_apply_residual(
+                        k["x"], k["weight"], k["bias"], mean, invstd, k["r"])
 
         def backward():
             for k in cases:
-                torch.ops.gvcnn.batch_norm_backward(
-                    k["dy"], k["x"], k["weight"], k["bias"], k["mean"],
-                    k["invstd"], k["relu"],
-                    [True, k["weight"] is not None, True])
+                mask = [True, k["weight"] is not None, True]
+                if k["r"] is None:
+                    torch.ops.gvcnn.batch_norm_backward(
+                        k["dy"], k["x"], k["weight"], k["bias"], k["mean"],
+                        k["invstd"], k["relu"], mask)
+                else:
+                    torch.ops.gvcnn.batch_norm_backward_residual(
+                        k["dy"], k["out"], k["x"], k["weight"], k["bias"],
+                        k["mean"], k["invstd"], mask)
 
         def library_forward():
             for k in cases:
@@ -1250,6 +1309,8 @@ def phase_batch_norm(dev):
                     k["x"], k["weight"] if k["weight"] is not None
                     else k["unit"], k["bias"], None, None, True, 0.0,
                     1e-3)[0]
+                if k["r"] is not None:
+                    y = y + k["r"]
                 if k["relu"]:
                     F.relu(y)
 
@@ -1263,34 +1324,98 @@ def phase_batch_norm(dev):
                     True, 1e-3, [True, k["weight"] is not None, True])
 
         before = {w: launched(f"batch_norm_{w}") for w in
-                  ("stats", "apply", "bwd_reduce", "bwd_elemt")}
+                  ("stats", "apply", "bwd_reduce", "bwd_elemt",
+                   "apply_residual", "bwd_reduce_residual")}
+        res_cases = [k for k in cases if k["r"] is not None]
+        res_sizes = sum(k["x"].numel() for k in res_cases)
         row = dict(
             layers=len(layers), elements=sum(sizes),
             relu_layers=sum(c[3] for c in layers),
+            residual_layers=len(res_cases), residual_elements=res_sizes,
             worst_gap_over_bound=worst,
             fwd_ms=_graph_ms(forward, dev), bwd_ms=_graph_ms(backward, dev),
             library_fwd_ms=_graph_ms(library_forward, dev),
             library_bwd_ms=_graph_ms(library_backward, dev))
         moved = {w: launched(f"batch_norm_{w}") - b
                  for w, b in before.items()}
-        # Warm-up and capture: two calls of each.
-        if set(moved.values()) != {2 * len(layers)}:
+        # Warm-up and capture: two calls of each; the residual variants
+        # are counted under apply and bwd_reduce too.
+        want = {w: 2 * len(layers) for w in before}
+        want.update(apply_residual=2 * len(res_cases),
+                    bwd_reduce_residual=2 * len(res_cases))
+        if moved != want:
             raise AssertionError(f"{config}: launches {moved}, expected "
-                                 f"{2 * len(layers)} of each")
-        row["bound_fwd_ms"] = 3 * 2 * sum(sizes) * rates
-        row["bound_bwd_ms"] = 5 * 2 * sum(sizes) * rates
+                                 f"{want}")
+        # Bytes: 3 passes forward (x read; x read, y written) and 5
+        # backward (dy, x read; dy, x read, dx written) a layer, and a
+        # residual layer's r read forward, its out read and g written in
+        # the backward.
+        row["bound_fwd_ms"] = 2 * (3 * sum(sizes) + res_sizes) * rates
+        row["bound_bwd_ms"] = 2 * (5 * sum(sizes) + 2 * res_sizes) * rates
         row["train_ms"] = row["fwd_ms"] + row["bwd_ms"]
         row["library_train_ms"] = row["library_fwd_ms"] + row["library_bwd_ms"]
         row["train_bound_ms"] = row["bound_fwd_ms"] + row["bound_bwd_ms"]
         for way, key in (("fwd", "bound_fwd_ms"), ("bwd", "bound_bwd_ms"),
                          ("train", "train_bound_ms")):
             row[f"{way}_share"] = row[key] / row[f"{way}_ms"]
+        if res_cases:
+            row["residual"] = _time_residual_layers(res_cases, dev, rates)
         log(f"batch norm, {config}'s {len(layers)} BatchNorms at B = 32: "
             + json.dumps(row))
         out[config] = row
-        del xbuf, dybuf, cases
+        del xbuf, dybuf, rbuf, cases, res_cases
         torch.cuda.empty_cache()
     return out
+
+
+def _time_residual_layers(cases, dev, rates):
+    """Phase 22's times of a configuration's residual layers alone, each
+    side in one CUDA graph: the residual kernels (stats + residual apply;
+    residual reduce + elementwise) against their 4 + 7-pass bytes bound,
+    beside the route they replaced, the port's plain apply and backward
+    around PyTorch's add, ReLU and `threshold_backward` (`unfused_*`)."""
+    import torch.nn.functional as F
+
+    def fused_fwd():
+        for k in cases:
+            mean, invstd = torch.ops.gvcnn.batch_norm_stats(
+                k["x"], k["rm"], k["rv"], 0.9, 1e-3, True)
+            torch.ops.gvcnn.batch_norm_apply_residual(
+                k["x"], k["weight"], k["bias"], mean, invstd, k["r"])
+
+    def fused_bwd():
+        for k in cases:
+            torch.ops.gvcnn.batch_norm_backward_residual(
+                k["dy"], k["out"], k["x"], k["weight"], k["bias"], k["mean"],
+                k["invstd"], [True, k["weight"] is not None, True])
+
+    def unfused_fwd():
+        for k in cases:
+            mean, invstd = torch.ops.gvcnn.batch_norm_stats(
+                k["x"], k["rm"], k["rv"], 0.9, 1e-3, True)
+            F.relu(k["r"] + torch.ops.gvcnn.batch_norm_apply(
+                k["x"], k["weight"], k["bias"], mean, invstd, False))
+
+    def unfused_bwd():
+        for k in cases:
+            g = torch.ops.aten.threshold_backward(k["dy"], k["out"], 0)
+            torch.ops.gvcnn.batch_norm_backward(
+                g, k["x"], k["weight"], k["bias"], k["mean"], k["invstd"],
+                False, [True, k["weight"] is not None, True])
+
+    elements = sum(k["x"].numel() for k in cases)
+    row = dict(layers=len(cases), elements=elements,
+               fwd_ms=_graph_ms(fused_fwd, dev),
+               bwd_ms=_graph_ms(fused_bwd, dev),
+               unfused_fwd_ms=_graph_ms(unfused_fwd, dev),
+               unfused_bwd_ms=_graph_ms(unfused_bwd, dev),
+               bound_fwd_ms=2 * 4 * elements * rates,
+               bound_bwd_ms=2 * 7 * elements * rates)
+    for way in ("fwd", "bwd"):
+        row[f"{way}_share"] = row[f"bound_{way}_ms"] / row[f"{way}_ms"]
+    row["train_ms"] = row["fwd_ms"] + row["bwd_ms"]
+    row["unfused_train_ms"] = row["unfused_fwd_ms"] + row["unfused_bwd_ms"]
+    return row
 
 
 def _join_counts():
@@ -2314,6 +2439,15 @@ def _bn_counts():
                  for k in ("stats", "apply", "bwd_reduce", "bwd_elemt"))
 
 
+def _residual_counts():
+    """(apply, backward reduce) launches of the BatchNorm kernels' residual
+    variants (also counted by `_bn_counts`)."""
+    from gvcnn_tf_tpu_torch.ops import launched
+
+    return tuple(launched(f"batch_norm_{k}_residual_")
+                 for k in ("apply", "bwd_reduce"))
+
+
 def _zero_counts():
     """Every kernel's launch count back to 0."""
     from gvcnn_tf_tpu_torch.ops import launches
@@ -2468,6 +2602,8 @@ def phase_families(card, dev):
         row["step_launches"] = tuple(k / 7 for k in _counts())
         row["step_avg_launches"] = tuple(k / 7 for k in _avg_counts())
         row["step_bn_launches"] = tuple(k / 7 for k in _bn_counts())
+        row["step_residual_bn_launches"] = tuple(
+            k / 7 for k in _residual_counts())
         row["step_join_launches"] = tuple(k / 7 for k in _join_counts())
         row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         if row["step_launches"] != FAMILY_LAUNCHES[name]:
@@ -2481,6 +2617,11 @@ def phase_families(card, dev):
                                  f"apply, bwd_reduce, bwd_elemt) "
                                  f"{row['step_bn_launches']}, want "
                                  f"{BN_LAYERS[name]} each")
+        if row["step_residual_bn_launches"] != (BN_RESIDUAL_LAYERS[name],) * 2:
+            raise AssertionError(f"{name}: residual BatchNorm launches a step "
+                                 f"(apply, bwd_reduce) "
+                                 f"{row['step_residual_bn_launches']}, want "
+                                 f"{BN_RESIDUAL_LAYERS[name]} each")
         if row["step_join_launches"] != (FAMILY_JOINS[name],) * 3:
             raise AssertionError(f"{name}: residual-join launches a step "
                                  f"(forward, backward, bias gradient) "
@@ -2492,7 +2633,8 @@ def phase_families(card, dev):
             f"median of 5 ({vps:.1f} views/s), peak memory {row['peak_gb']:.3f} GB, launches a "
             f"step {row['step_launches']}, average pool "
             f"{row['step_avg_launches']}, BatchNorm "
-            f"{row['step_bn_launches']}, residual join "
+            f"{row['step_bn_launches']} (residual "
+            f"{row['step_residual_bn_launches']}), residual join "
             f"{row['step_join_launches']} [{card}]")
 
         # One B = 2 train step, card vs CPU.
@@ -4495,8 +4637,9 @@ def _hold_spread(what, eager, again, compiled):
 def _run_steps(fn, state, batches, cfg):
     """(final model state dict, each step's metrics, launches a step,
     the max-pool kernels' (forward, backward) launches a step, the
-    BatchNorm kernels' (`_bn_counts`) a step), the counters taken from
-    zero just before the steps."""
+    BatchNorm kernels' (`_bn_counts`) a step, their residual variants'
+    (`_residual_counts`) a step), the counters taken from zero just before
+    the steps."""
     _zero_counts()
     mets = [{k: v.detach().clone() for k, v in fn(state, b, cfg).items()}
             for b in batches]
@@ -4504,9 +4647,10 @@ def _run_steps(fn, state, batches, cfg):
     launches = tuple(n / len(batches) for n in _counts())
     pool = tuple(n / len(batches) for n in _pool_counts())
     bn = tuple(n / len(batches) for n in _bn_counts())
+    res = tuple(n / len(batches) for n in _residual_counts())
     return ({k: v.detach().clone()
              for k, v in state.model.state_dict().items()}, mets, launches,
-            pool, bn)
+            pool, bn, res)
 
 
 def _profiled_idle(fn, steps, root, name):
@@ -4616,6 +4760,10 @@ def _compiled_steps(card, dev, root):
                     f"{what}: BatchNorm launches a step (stats, apply, "
                     f"bwd_reduce, bwd_elemt) {compiled[4]}, eager "
                     f"{eager[4]}, want {bn_launches}")
+            if any(compiled[5]) or any(eager[5]):
+                raise AssertionError(
+                    f"{what}: residual BatchNorm launches a step "
+                    f"{compiled[5]}, eager {eager[5]}, want none")
             if (step.graph.captures, step.graph.replays) != (
                     1, COMPILED_STEPS - 1):
                 raise AssertionError(f"{what}: {step.graph.captures} "
@@ -4703,8 +4851,13 @@ def _compiled_steps(card, dev, root):
             raise AssertionError(f"{name}: BatchNorm launches a step "
                                  f"{compiled[4]}, eager {eager[4]}, want "
                                  f"{BN_LAYERS[name]} each")
+        if not compiled[5] == eager[5] == (BN_RESIDUAL_LAYERS[name],) * 2:
+            raise AssertionError(f"{name}: residual BatchNorm launches a "
+                                 f"step {compiled[5]}, eager {eager[5]}, "
+                                 f"want {BN_RESIDUAL_LAYERS[name]} each")
         out[name] = dict(spread=spread, diff=diff, launches=compiled[2],
                          pool_launches=compiled[3], bn_launches=compiled[4],
+                         residual_bn_launches=compiled[5],
                          replays=step.graph.replays)
         step.close()
         del eager, again, compiled, state, step, other
@@ -5119,6 +5272,12 @@ def main():
                  if "bn_launches" in v},
              compiled_launches_per_step={
                  k: v["bn_launches"] for k, v in replayed.items()},
+             residual_launches_per_step={
+                 k: v["step_residual_bn_launches"] for k, v in fam.items()
+                 if "step_residual_bn_launches" in v},
+             compiled_residual_launches_per_step={
+                 k: v["residual_bn_launches"] for k, v in replayed.items()
+                 if "residual_bn_launches" in v},
              compiled_serve_launches=compiled["serving"]["bn_launches"],
              compiled_eval_launches=compiled["eval"]["bn_launches"],
              step_b32=bn),

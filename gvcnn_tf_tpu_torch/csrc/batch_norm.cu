@@ -20,6 +20,19 @@
 // expression (the same intrinsics, so the same bits): y is not kept for
 // the backward.
 //
+// The residual variants, for ResNet's relu(shortcut + BN(conv3)), take the
+// shortcut r as one more operand (`apply_rows` and `bwd_reduce_rows` with
+// R; the kernels above are the same functions without it):
+//   * batch_norm_apply_residual<T, L>: out = relu(fma(x, a, b) + r), the
+//     sum and the ReLU in fp32, rounded once: reads x and r, writes out;
+//   * batch_norm_bwd_reduce_residual<T, L>: the two sums of g = dy where
+//     the saved out > 0 (threshold_backward's mask; out is the next
+//     block's input, which autograd keeps anyway), and g written: it is
+//     r's gradient and the dy that batch_norm_bwd_elemt then reads without
+//     the ReLU.
+// Per element of a block output that is 10 passes forward and backward
+// where the apply, PyTorch's add, its ReLU and their backward made 15.
+//
 // Replaces no TPU kernel: the JAX package leaves BatchNorm to XLA (Flax's
 // `BatchNorm`).  It was added because PyTorch's channels-last batch-norm
 // kernels, with a separate ReLU and about ten launches a layer for the
@@ -463,13 +476,18 @@ batch_norm_stats(const T* __restrict__ x, float* __restrict__ part,
   }
 }
 
-template <typename T, int L>
-__global__ void __launch_bounds__(MAX_THREADS)
-batch_norm_apply(const T* __restrict__ x, T* __restrict__ y,
-                 const float* __restrict__ mean,
-                 const float* __restrict__ invstd,
-                 const float* __restrict__ weight,
-                 const float* __restrict__ bias, const Plan p, int relu) {
+// The apply's rows of this thread: y = fma(x, a, b) through the ReLU where
+// `relu`; with R, out = relu(fma(x, a, b) + r), the sum and the ReLU in
+// fp32 and the result rounded once (`res` holds r, NHWC like x).
+template <typename T, int L, bool R>
+__device__ __forceinline__ void apply_rows(const T* __restrict__ x,
+                                           const T* __restrict__ res,
+                                           T* __restrict__ y,
+                                           const float* __restrict__ mean,
+                                           const float* __restrict__ invstd,
+                                           const float* __restrict__ weight,
+                                           const float* __restrict__ bias,
+                                           const Plan& p, int relu) {
   using V = Lanes<T, L>;
   constexpr int U = 4;
   const int by = blockDim.y;
@@ -480,14 +498,19 @@ batch_norm_apply(const T* __restrict__ x, T* __restrict__ y,
   float m[L], a[L], b[L];
   constants<L>(mean, invstd, weight, bias, v * L, m, a, b);
   const typename V::Raw* src = reinterpret_cast<const typename V::Raw*>(x) + v;
+  const typename V::Raw* rsrc =
+      R ? reinterpret_cast<const typename V::Raw*>(res) + v : nullptr;
   typename V::Raw* dst = reinterpret_cast<typename V::Raw*>(y) + v;
   int r = r0 + threadIdx.y;
   for (; r < r1; r += U * by) {
-    typename V::Raw raw[U];
+    typename V::Raw raw[U], rraw[R ? U : 1];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (r + u * by < r1) {
         raw[u] = __ldg(src + static_cast<long long>(r + u * by) * p.cv);
+        if constexpr (R) {
+          rraw[u] = __ldg(rsrc + static_cast<long long>(r + u * by) * p.cv);
+        }
       }
     }
 #pragma unroll
@@ -495,10 +518,20 @@ batch_norm_apply(const T* __restrict__ x, T* __restrict__ y,
       if (r + u * by < r1) {
         float f[L];
         V::unpack(raw[u], f);
+        if constexpr (R) {
+          float s[L];
+          V::unpack(rraw[u], s);
 #pragma unroll
-        for (int i = 0; i < L; ++i) {
-          const float w = affine(f[i], a[i], b[i]);
-          f[i] = relu && !passes(w) ? 0.0f : w;
+          for (int i = 0; i < L; ++i) {
+            const float w = __fadd_rn(affine(f[i], a[i], b[i]), s[i]);
+            f[i] = passes(w) ? w : 0.0f;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < L; ++i) {
+            const float w = affine(f[i], a[i], b[i]);
+            f[i] = relu && !passes(w) ? 0.0f : w;
+          }
         }
         dst[static_cast<long long>(r + u * by) * p.cv] = V::pack(f);
       }
@@ -508,14 +541,38 @@ batch_norm_apply(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T, int L>
 __global__ void __launch_bounds__(MAX_THREADS)
-batch_norm_bwd_reduce(const T* __restrict__ dy, const T* __restrict__ x,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ invstd,
-                      const float* __restrict__ weight,
-                      const float* __restrict__ bias, float* __restrict__ part,
-                      int* __restrict__ ticket, float* __restrict__ dweight,
-                      float* __restrict__ dbias, float* __restrict__ coef,
-                      const Plan p, int relu) {
+batch_norm_apply(const T* __restrict__ x, T* __restrict__ y,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ invstd,
+                 const float* __restrict__ weight,
+                 const float* __restrict__ bias, const Plan p, int relu) {
+  apply_rows<T, L, false>(x, nullptr, y, mean, invstd, weight, bias, p,
+                          relu);
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(MAX_THREADS)
+batch_norm_apply_residual(const T* __restrict__ x, const T* __restrict__ res,
+                          T* __restrict__ out, const float* __restrict__ mean,
+                          const float* __restrict__ invstd,
+                          const float* __restrict__ weight,
+                          const float* __restrict__ bias, const Plan p) {
+  apply_rows<T, L, true>(x, res, out, mean, invstd, weight, bias, p, 1);
+}
+
+// The backward reduce, for the caller's block (see the source note): the
+// sums of g, where g = dy through the ReLU's mask (recomputed from x where
+// `relu`; with R read from the forward's out, as threshold_backward reads
+// it, and g written to `gout`, NHWC, rows c apart), then the chunks' merge.
+template <typename T, int L, bool R>
+__device__ __forceinline__ void bwd_reduce_rows(
+    const T* __restrict__ dy, const T* __restrict__ out,
+    const T* __restrict__ x, T* __restrict__ gout,
+    const float* __restrict__ mean, const float* __restrict__ invstd,
+    const float* __restrict__ weight, const float* __restrict__ bias,
+    float* __restrict__ part, int* __restrict__ ticket,
+    float* __restrict__ dweight, float* __restrict__ dbias,
+    float* __restrict__ coef, const Plan& p, int relu) {
   using V = Lanes<T, L>;
   constexpr int U = 2;
   __shared__ float sm[2][MAX_THREADS * L];  // a row group's two sums
@@ -536,14 +593,19 @@ batch_norm_bwd_reduce(const T* __restrict__ dy, const T* __restrict__ x,
         reinterpret_cast<const typename V::Raw*>(dy) + v;
     const typename V::Raw* xsrc =
         reinterpret_cast<const typename V::Raw*>(x) + v;
+    const typename V::Raw* osrc =
+        R ? reinterpret_cast<const typename V::Raw*>(out) + v : nullptr;
+    typename V::Raw* gdst =
+        R ? reinterpret_cast<typename V::Raw*>(gout) + v : nullptr;
     for (int r = r0 + ty; r < r1; r += U * by) {
-      typename V::Raw graw[U], xraw[U];
+      typename V::Raw graw[U], xraw[U], oraw[R ? U : 1];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (r + u * by < r1) {
           const long long row = r + u * by;
           graw[u] = __ldg(gsrc + row * p.gv);
           xraw[u] = __ldg(xsrc + row * p.cv);
+          if constexpr (R) oraw[u] = __ldg(osrc + row * p.cv);
         }
       }
 #pragma unroll
@@ -552,12 +614,25 @@ batch_norm_bwd_reduce(const T* __restrict__ dy, const T* __restrict__ x,
           float g[L], f[L];
           V::unpack(graw[u], g);
           V::unpack(xraw[u], f);
+          if constexpr (R) {
+            float o[L];
+            V::unpack(oraw[u], o);
 #pragma unroll
-          for (int i = 0; i < L; ++i) {
-            const float gi =
-                relu && !passes(affine(f[i], a[i], b[i])) ? 0.0f : g[i];
-            s1[i] += gi;
-            s2[i] = fmaf(gi, f[i] - m[i], s2[i]);
+            for (int i = 0; i < L; ++i) {
+              g[i] = passes(o[i]) ? g[i] : 0.0f;
+              s1[i] += g[i];
+              s2[i] = fmaf(g[i], f[i] - m[i], s2[i]);
+            }
+            // g is dy or 0: exact in T.
+            gdst[static_cast<long long>(r + u * by) * p.cv] = V::pack(g);
+          } else {
+#pragma unroll
+            for (int i = 0; i < L; ++i) {
+              const float gi =
+                  relu && !passes(affine(f[i], a[i], b[i])) ? 0.0f : g[i];
+              s1[i] += gi;
+              s2[i] = fmaf(gi, f[i] - m[i], s2[i]);
+            }
           }
         }
       }
@@ -619,6 +694,35 @@ batch_norm_bwd_reduce(const T* __restrict__ dy, const T* __restrict__ x,
     coef[ch] = a1 * norm;                      // mean of g
     coef[p.c + ch] = a2 * norm * is * is;      // the projection's scale
   }
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(MAX_THREADS)
+batch_norm_bwd_reduce(const T* __restrict__ dy, const T* __restrict__ x,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ invstd,
+                      const float* __restrict__ weight,
+                      const float* __restrict__ bias, float* __restrict__ part,
+                      int* __restrict__ ticket, float* __restrict__ dweight,
+                      float* __restrict__ dbias, float* __restrict__ coef,
+                      const Plan p, int relu) {
+  bwd_reduce_rows<T, L, false>(dy, nullptr, x, nullptr, mean, invstd, weight,
+                               bias, part, ticket, dweight, dbias, coef, p,
+                               relu);
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(MAX_THREADS)
+batch_norm_bwd_reduce_residual(
+    const T* __restrict__ dy, const T* __restrict__ out,
+    const T* __restrict__ x, T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ invstd,
+    const float* __restrict__ weight, const float* __restrict__ bias,
+    float* __restrict__ part, int* __restrict__ ticket,
+    float* __restrict__ dweight, float* __restrict__ dbias,
+    float* __restrict__ coef, const Plan p) {
+  bwd_reduce_rows<T, L, true>(dy, out, x, g, mean, invstd, weight, bias, part,
+                              ticket, dweight, dbias, coef, p, 1);
 }
 
 template <typename T, int L>
@@ -747,6 +851,56 @@ int apply(const void* x, void* y, const float* mean, const float* invstd,
 }
 
 template <typename T>
+int apply_residual(const void* x, const void* res, void* out,
+                   const float* mean, const float* invstd, const float* weight,
+                   const float* bias, int rows, int c, int lanes, int tv,
+                   int chunk_rows, int chunks, int tiles, void* stream) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const Launch l =
+      launch_of(rows, c, lanes, tv, chunk_rows, chunks, tiles, stream);
+  if (!l.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  if (lanes == VEC) {
+    batch_norm_apply_residual<T, VEC><<<l.grid, l.block, 0, l.stream>>>(
+        xt, rt, ot, mean, invstd, weight, bias, l.p);
+  } else {
+    batch_norm_apply_residual<T, 1><<<l.grid, l.block, 0, l.stream>>>(
+        xt, rt, ot, mean, invstd, weight, bias, l.p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_reduce_residual(const void* dy, const void* out, const void* x,
+                        void* g, const float* mean, const float* invstd,
+                        const float* weight, const float* bias, float* part,
+                        int* ticket, float* dweight, float* dbias, float* coef,
+                        int rows, int c, int ldg, int lanes, int tv,
+                        int chunk_rows, int chunks, int tiles, int group,
+                        void* stream) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const Launch l = launch_of(rows, c, lanes, tv, chunk_rows, chunks, tiles,
+                             stream, ldg, group);
+  if (!l.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* ot = static_cast<const T*>(out);
+  const T* xt = static_cast<const T*>(x);
+  T* gt = static_cast<T*>(g);
+  if (lanes == VEC) {
+    batch_norm_bwd_reduce_residual<T, VEC><<<l.grid, l.block, 0, l.stream>>>(
+        dyt, ot, xt, gt, mean, invstd, weight, bias, part, ticket, dweight,
+        dbias, coef, l.p);
+  } else {
+    batch_norm_bwd_reduce_residual<T, 1><<<l.grid, l.block, 0, l.stream>>>(
+        dyt, ot, xt, gt, mean, invstd, weight, bias, part, ticket, dweight,
+        dbias, coef, l.p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int bwd_reduce(const void* dy, const void* x, const float* mean,
                const float* invstd, const float* weight, const float* bias,
                float* part, int* ticket, float* dweight, float* dbias,
@@ -796,20 +950,20 @@ int bwd_elemt(const void* dy, const void* x, const float* mean,
 
 }  // namespace
 
-// Every entry point: x, dy, y and dx NHWC, rows = N * H * W by c
-// channels, in the entry point's type; mean, invstd, weight (or null:
-// gamma = 1), bias, the running statistics, dweight (or null), dbias and
-// coef (2 * c) fp32.  x, y and dx are contiguous; dy's rows lie ldg
-// elements apart (c where it is contiguous, more for a channel slice of a
-// wider NHWC tensor, as a concat's backward hands it over).  lanes is 16
-// bytes' worth (8 bf16, 4 fp32; c and ldg multiples of it and every tensor
-// 16-byte aligned, which the caller checks) or 1; tv lane groups a tile
-// (at most 32) and tiles of them across c / lanes (the last may be
-// narrower; cudaErrorInvalidValue where they do not cover it);
-// chunks x chunk_rows >= rows > (chunks - 1) x chunk_rows;
-// group chunks are merged first, into ceil(chunks / group) groups; part
-// holds (chunks + groups) x 2 x c floats; ticket groups + 1 ints a tile,
-// 0 on entry and 0 again on exit.
+// Every entry point: x, dy, y and dx (and res, out and g of the residual
+// variants) NHWC, rows = N * H * W by c channels, in the entry point's
+// type; mean, invstd, weight (or null: gamma = 1), bias, the running
+// statistics, dweight (or null), dbias and coef (2 * c) fp32.  x, y, dx,
+// res, out and g are contiguous; dy's rows lie ldg elements apart (c where
+// it is contiguous, more for a channel slice of a wider NHWC tensor, as a
+// concat's backward hands it over).  lanes is 16 bytes' worth (8 bf16, 4
+// fp32; c and ldg multiples of it and every tensor 16-byte aligned, which
+// the caller checks) or 1; tv lane groups a tile (at most 32) and tiles of
+// them across c / lanes (the last may be narrower; cudaErrorInvalidValue
+// where they do not cover it); chunks x chunk_rows >= rows > (chunks - 1)
+// x chunk_rows; group chunks are merged first, into ceil(chunks / group)
+// groups; part holds (chunks + groups) x 2 x c floats; ticket groups + 1
+// ints a tile, 0 on entry and 0 again on exit.
 #define GVCNN_BN_ENTRIES(SUFFIX, T)                                           \
   extern "C" int batch_norm_stats_##SUFFIX(                                   \
       const void* x, float* part, int* ticket, float* mean, float* invstd,    \
@@ -846,6 +1000,26 @@ int bwd_elemt(const void* dy, const void* x, const float* mean,
     return bwd_elemt<T>(dy, x, mean, invstd, weight, bias, coef, dx, rows, c, \
                         ldg, lanes, tv, chunk_rows, chunks, tiles, relu,      \
                         stream);                                              \
+  }                                                                           \
+  extern "C" int batch_norm_apply_residual_##SUFFIX(                          \
+      const void* x, const void* res, void* out, const float* mean,           \
+      const float* invstd, const float* weight, const float* bias, int rows,  \
+      int c, int lanes, int tv, int chunk_rows, int chunks, int tiles,        \
+      void* stream) {                                                         \
+    return apply_residual<T>(x, res, out, mean, invstd, weight, bias, rows,   \
+                             c, lanes, tv, chunk_rows, chunks, tiles,         \
+                             stream);                                         \
+  }                                                                           \
+  extern "C" int batch_norm_bwd_reduce_residual_##SUFFIX(                     \
+      const void* dy, const void* out, const void* x, void* g,                \
+      const float* mean, const float* invstd, const float* weight,            \
+      const float* bias, float* part, int* ticket, float* dweight,            \
+      float* dbias, float* coef, int rows, int c, int ldg, int lanes, int tv, \
+      int chunk_rows, int chunks, int tiles, int group, void* stream) {       \
+    return bwd_reduce_residual<T>(dy, out, x, g, mean, invstd, weight, bias,  \
+                                  part, ticket, dweight, dbias, coef, rows,   \
+                                  c, ldg, lanes, tv, chunk_rows, chunks,      \
+                                  tiles, group, stream);                      \
   }
 
 GVCNN_BN_ENTRIES(bf16, __nv_bfloat16)

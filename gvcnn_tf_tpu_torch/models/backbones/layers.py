@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -140,9 +140,12 @@ class BatchNorm(nn.Module):
     named `*.weight`) and the bridge's `weight` <-> `kernel` rule leave it
     alone.
 
-    `forward(x, relu=False)`; with `relu` the result is max(y, 0), the
-    ReLU that follows nearly every BatchNorm of the backbones, which train
-    mode folds into its kernels.
+    `forward(x, relu=False, residual=None)`; with `relu` the result is
+    max(y, 0), the ReLU that follows nearly every BatchNorm of the
+    backbones, which train mode folds into its kernels.  A `residual` (of
+    x's shape and dtype; with `relu` only) is added before the ReLU:
+    relu(y + residual), ResNet's post-activation join, which train mode
+    also folds in (`gvcnn::batch_norm_apply_residual`).
 
     Eval: y = (x - running_mean) / sqrt(running_var + eps) * scale + bias
     (`F.batch_norm`, then `F.relu`).
@@ -161,7 +164,7 @@ class BatchNorm(nn.Module):
     `config.bn_momentum` overrides it).  Inside a `remat` recompute the
     statistics are not moved again.  With `sync_group` set (`bn_sync=
     "global"`) train mode sums the statistics over the ranks instead
-    (`_global_forward`), then the ReLU."""
+    (`_global_forward`), then the residual and the ReLU."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.9997, use_scale: bool = False):
@@ -183,7 +186,11 @@ class BatchNorm(nn.Module):
                 "BatchNorm.scale_shift is the eval-mode affine; the module "
                 "is in training mode")
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if residual is not None and not relu:
+            raise ValueError("BatchNorm: a residual is added before the "
+                             "ReLU; pass relu=True")
         if not self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.scale, self.bias, False, 0.0, self.eps)
@@ -193,7 +200,9 @@ class BatchNorm(nn.Module):
             return batch_norm_train(
                 x, self.scale, self.bias, self.running_mean,
                 self.running_var, self.momentum, self.eps, relu,
-                not recomputing())
+                not recomputing(), residual)
+        if residual is not None:
+            y = residual + y
         return F.relu(y) if relu else y
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +275,8 @@ class BatchNorm(nn.Module):
 class ConvBN(nn.Module):
     """slim.conv2d + batch_norm (+ relu): TF-'SAME' or 'VALID' padding, no
     conv bias (Inception-v1's `ConvBNReLU`, v3/v4's `_Conv`, ResNet's
-    `_ConvBN`)."""
+    `_ConvBN`).  forward(x, residual=None): a residual is added before the
+    ReLU (`BatchNorm.forward`)."""
 
     def __init__(self, in_ch: int, features: int, kernel: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), padding: str = "SAME",
@@ -279,9 +289,11 @@ class ConvBN(nn.Module):
                               bias=False)
         self.BatchNorm = BatchNorm(features, eps, momentum, use_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.BatchNorm(conv2d_tf(x, self.conv.weight, self.conv.stride,
-                                        self.padding), relu=self.relu)
+                                        self.padding), relu=self.relu,
+                              residual=residual)
 
 
 class ConvBias(nn.Module):

@@ -24,7 +24,6 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from gvcnn_tf_tpu_torch.models.backbones.layers import ConvBN
 from gvcnn_tf_tpu_torch.ops.pool import max_pool
@@ -42,7 +41,9 @@ ENDPOINT_CHANNELS = {"conv1": 64, "block1": 256, "block2": 512,
 
 class Bottleneck(nn.Module):
     """v1 bottleneck: 1x1 reduce -> 3x3 (strided) -> 1x1 expand, then
-    relu(shortcut + y)."""
+    relu(shortcut + y): the shortcut goes into conv3's BatchNorm as its
+    residual, which train mode adds and passes through the ReLU in its
+    kernels (eval mode: `F.batch_norm`, the add, `F.relu`)."""
 
     def __init__(self, in_ch: int, width: int, stride: int = 1):
         super().__init__()
@@ -54,12 +55,11 @@ class Bottleneck(nn.Module):
             self.shortcut = None
         self.conv1 = ConvBN(in_ch, width, (1, 1), **_BN)
         self.conv2 = ConvBN(width, width, (3, 3), (stride, stride), **_BN)
-        self.conv3 = ConvBN(width, out_ch, (1, 1), relu=False, **_BN)
+        self.conv3 = ConvBN(width, out_ch, (1, 1), **_BN)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        y = self.conv3(self.conv2(self.conv1(x)))
-        return F.relu(shortcut + y)
+        return self.conv3(self.conv2(self.conv1(x)), residual=shortcut)
 
 
 class ResNet50Base(nn.Module):

@@ -61,14 +61,20 @@ _SIGNATURES = {
     # invstd, weight, bias, part, ticket, dweight, dbias, coef, rows, c, ldg,
     # lanes, tv, chunk_rows, chunks, tiles, group, relu, stream; bwd_elemt:
     # dy, x, mean, invstd, weight, bias, coef, dx, rows, c, ldg, lanes, tv,
-    # chunk_rows, chunks, tiles, relu, stream
+    # chunk_rows, chunks, tiles, relu, stream; apply_residual: x, res, out,
+    # mean, invstd, weight, bias, rows, c, lanes, tv, chunk_rows, chunks,
+    # tiles, stream; bwd_reduce_residual: dy, out, x, g, mean, invstd,
+    # weight, bias, part, ticket, dweight, dbias, coef, rows, c, ldg, lanes,
+    # tv, chunk_rows, chunks, tiles, group, stream
     **{f"batch_norm_{kernel}_{dtype}": args
        for dtype in ("bf16", "f32")
        for kernel, args in (
            ("stats", (_P,) * 7 + (_I,) * 8 + (_F,) * 3 + (_I, _P)),
            ("apply", (_P,) * 6 + (_I,) * 8 + (_P,)),
            ("bwd_reduce", (_P,) * 11 + (_I,) * 10 + (_P,)),
-           ("bwd_elemt", (_P,) * 8 + (_I,) * 9 + (_P,)))},
+           ("bwd_elemt", (_P,) * 8 + (_I,) * 9 + (_P,)),
+           ("apply_residual", (_P,) * 7 + (_I,) * 7 + (_P,)),
+           ("bwd_reduce_residual", (_P,) * 13 + (_I,) * 9 + (_P,)))},
     # The residual join (csrc/residual_join.cu).  fwd: x, u, bias, y, rows,
     # c, lanes, scale, relu, stream; bwd: dy, y, dx, du, part, rows, c,
     # lanes, tv, chunk_rows, chunks, tiles, scale, relu, stream; bias_grad:

@@ -7,7 +7,9 @@ says what bounds them on the H100 and what their design does about it);
 x's dtype picks them:
 
   bfloat16  `batch_norm_stats_bf16`, `batch_norm_apply_bf16`,
-            `batch_norm_bwd_reduce_bf16`, `batch_norm_bwd_elemt_bf16`;
+            `batch_norm_bwd_reduce_bf16`, `batch_norm_bwd_elemt_bf16`,
+            and the residual variants `batch_norm_apply_residual_bf16`,
+            `batch_norm_bwd_reduce_residual_bf16`;
   float32   the same names ending in `_f32`.
 
 Any other dtype raises on a card.  Tensors are NCHW in shape; on the card
@@ -40,6 +42,18 @@ two ops:
       mean and invstd get none).  Nothing is saved but x, the parameters
       and the two statistics: the ReLU's mask is x's own, recomputed.
 
+With a `residual` r (ResNet's bottleneck hands its shortcut to conv3's
+BatchNorm), the apply is instead
+
+  `gvcnn::batch_norm_apply_residual` (x, weight, bias, mean, invstd,
+      residual) -> out = relu(fma(x, a, b) + r), the sum and the ReLU in
+      fp32 and out rounded once, with its gradient registered:
+      `gvcnn::batch_norm_backward_residual` (dy, out, x, weight, bias, mean,
+      invstd, output_mask) -> (dx, dweight, dbias, dresidual): g = dy where
+      out > 0 (threshold_backward's mask, from the saved out, which is the
+      next block's input and kept by autograd anyway) is r's gradient, and
+      BatchNorm's gradient is taken from g without the ReLU.
+
 By x's device:
 
   CPU   the plain versions, which compute today's math bit for bit:
@@ -51,7 +65,9 @@ By x's device:
   CUDA  the kernels: stats (one launch: Welford a thread, Chan's merge
         across threads and blocks; the block that finishes last writes the
         statistics and moves the running ones), apply (one), backward (two:
-        reduce, then elementwise).
+        reduce, then elementwise); with a residual the apply and the reduce
+        are their residual variants (the reduce also writes g), and the
+        elementwise kernel reads g without the ReLU.
 
 It never falls back to `native_batch_norm` on a card.  The affine is
 computed as the kernel computes it, a = invstd * weight, b = fma(-mean, a,
@@ -191,6 +207,18 @@ def apply_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
     return torch.relu(y) if relu else y
 
 
+def apply_residual_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
+                         bias: torch.Tensor, mean: torch.Tensor,
+                         invstd: torch.Tensor,
+                         residual: torch.Tensor) -> torch.Tensor:
+    """out = relu(fma(x, a, b) + residual) in fp32, rounded once to x's
+    dtype: the residual apply kernel's plain version (in fp32, `apply_plain`
+    without the ReLU, + residual, `torch.relu`, bit for bit)."""
+    a, b = _affine(weight, bias, mean, invstd)
+    v = _fma(x.to(a.dtype), _c(a), _c(b))
+    return torch.relu(v + residual.to(v.dtype)).to(x.dtype)
+
+
 def backward_plain(dy: torch.Tensor, x: torch.Tensor,
                    weight: Optional[torch.Tensor], bias: torch.Tensor,
                    mean: torch.Tensor, invstd: torch.Tensor, relu: bool,
@@ -210,6 +238,19 @@ def backward_plain(dy: torch.Tensor, x: torch.Tensor,
         dy, x, gamma, None, None, mean, invstd, True, 0.0, mask)
     return (dx if mask[0] else None, dw if mask[1] else None,
             db if mask[2] else None)
+
+
+def backward_residual_plain(dy: torch.Tensor, out: torch.Tensor,
+                            x: torch.Tensor, weight: Optional[torch.Tensor],
+                            bias: torch.Tensor, mean: torch.Tensor,
+                            invstd: torch.Tensor,
+                            output_mask: Sequence[bool]):
+    """(dx, dweight, dbias, dresidual): g = `threshold_backward`(dy, out,
+    0), the residual's gradient, and `backward_plain` of g without the
+    ReLU: the gradient autograd takes through BatchNorm + add + `F.relu`."""
+    g = torch.ops.aten.threshold_backward(dy, out, 0)
+    return backward_plain(g, x, weight, bias, mean, invstd, False,
+                          output_mask) + (g,)
 
 
 # ---------------------------------------------------------------------------
@@ -368,64 +409,112 @@ def _empty(x: torch.Tensor) -> torch.Tensor:
                        memory_format=_layout(x))
 
 
-def _apply(x, weight, bias, mean, invstd, relu):
+def _check_like(name: str, x: torch.Tensor, t: torch.Tensor) -> None:
+    """Raise unless t (a residual, a saved out or a dy) has x's dtype and
+    shape."""
+    if t.dtype != x.dtype or t.shape != x.shape:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} against x "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+def _apply(x, weight, bias, mean, invstd, relu, residual=None):
     """y in x's layout (`_layout`): the plain version on the CPU, the
     apply kernel on CUDA (on a channels-last copy of x and back where x is
-    not channels-last)."""
+    not channels-last); with a residual, out = relu(BN(x) + residual) by
+    the residual apply kernel (`relu` is then True)."""
     if x.device.type == "cpu":
-        return apply_plain(x, weight, bias, mean, invstd, relu).contiguous(
-            memory_format=_layout(x))
-    name = "batch_norm_apply_" + _suffix("batch_norm_apply", x)
+        y = (apply_plain(x, weight, bias, mean, invstd, relu)
+             if residual is None else
+             apply_residual_plain(x, weight, bias, mean, invstd, residual))
+        return y.contiguous(memory_format=_layout(x))
+    kind = "apply" if residual is None else "apply_residual"
+    name = f"batch_norm_{kind}_" + _suffix("batch_norm_" + kind, x)
     _check_vectors(name, x, weight, bias, mean, invstd)
     layout = _layout(x)
     x = _channels_last(x)
     y = _empty(x)
     rows, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
-    _, p = _plan_for(x, _lanes(x, (), (x, y)))
-    _build.launch(name, x.device, x.data_ptr(), y.data_ptr(),
-                  mean.data_ptr(), invstd.data_ptr(), _ptr(weight),
-                  bias.data_ptr(), rows, c, p.lanes, p.tile_vectors,
-                  p.chunk_rows, p.chunks, p.tiles, int(relu))
+    if residual is None:
+        _, p = _plan_for(x, _lanes(x, (), (x, y)))
+        _build.launch(name, x.device, x.data_ptr(), y.data_ptr(),
+                      mean.data_ptr(), invstd.data_ptr(), _ptr(weight),
+                      bias.data_ptr(), rows, c, p.lanes, p.tile_vectors,
+                      p.chunk_rows, p.chunks, p.tiles, int(relu))
+    else:
+        _check_like(name, x, residual)
+        residual = _channels_last(residual)
+        _, p = _plan_for(x, _lanes(x, (), (x, residual, y)))
+        _build.launch(name, x.device, x.data_ptr(), residual.data_ptr(),
+                      y.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
+                      _ptr(weight), bias.data_ptr(), rows, c, p.lanes,
+                      p.tile_vectors, p.chunk_rows, p.chunks, p.tiles)
     return y.contiguous(memory_format=layout)
 
 
-def _backward(dy, x, weight, bias, mean, invstd, relu, output_mask):
+def _apply_residual(x, weight, bias, mean, invstd, residual):
+    return _apply(x, weight, bias, mean, invstd, True, residual)
+
+
+def _backward(dy, x, weight, bias, mean, invstd, relu, output_mask,
+              out=None):
     """(dx in x's layout or an empty tensor, dweight or an empty tensor,
-    dbias): the plain version on the CPU, the two backward kernels on
-    CUDA."""
+    dbias), and with the forward's `out` of a residual apply, dresidual
+    (g) in x's layout after them: the plain versions on the CPU, the two
+    backward kernels on CUDA (with `out`, the residual reduce, which
+    writes g, then the elementwise kernel on g without the ReLU)."""
     c = x.shape[1]
     if dy.device.type == "cpu":
-        dx, dw, db = backward_plain(dy, x, weight, bias, mean, invstd, relu,
-                                    output_mask)
+        grads = (backward_plain(dy, x, weight, bias, mean, invstd, relu,
+                                output_mask) if out is None else
+                 backward_residual_plain(dy, out, x, weight, bias, mean,
+                                         invstd, output_mask))
+        dx, dw, db = grads[:3]
+        layout = _layout(x)
         return (x.new_empty((0,)) if dx is None
-                else dx.contiguous(memory_format=_layout(x)),
+                else dx.contiguous(memory_format=layout),
                 mean.new_empty((0,)) if dw is None else dw,
-                db if db is not None else mean.new_empty((c,)))
+                db if db is not None else mean.new_empty((c,))) + tuple(
+                    g.contiguous(memory_format=layout) for g in grads[3:])
     sfx = _suffix("batch_norm_backward", x)
-    if dy.dtype != x.dtype or dy.shape != x.shape:
-        raise ValueError(f"batch_norm_backward: dy {dy.dtype} "
-                         f"{tuple(dy.shape)} against x {x.dtype} "
-                         f"{tuple(x.shape)}")
+    _check_like("batch_norm_backward", x, dy)
     _check_vectors("batch_norm_backward", x, weight, bias, mean, invstd)
     layout = _layout(x)
     x = _channels_last(x)
     dy, ldg = _nhwc(dy)
     rows = x.shape[0] * x.shape[2] * x.shape[3]
     dx = _empty(x) if output_mask[0] else x.new_empty((0,))
+    extra = ()
+    if out is not None:
+        _check_like("batch_norm_backward", x, out)
+        out, g = _channels_last(out), _empty(x)
+        extra = (out, g)
     tickets, p = _plan_for(x, _lanes(
-        x, (ldg,), (x, dy) + ((dx,) if output_mask[0] else ())))
+        x, (ldg,), (x, dy) + ((dx,) if output_mask[0] else ()) + extra))
     part = torch.empty((p.chunks + p.groups) * 2 * c, dtype=torch.float32,
                        device=x.device)
     coef = torch.empty(2 * c, dtype=torch.float32, device=x.device)
     db = torch.empty(c, dtype=torch.float32, device=x.device)
     dw = mean.new_empty((0,)) if weight is None else torch.empty_like(db)
-    _build.launch("batch_norm_bwd_reduce_" + sfx, x.device, dy.data_ptr(),
-                  x.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
-                  _ptr(weight), bias.data_ptr(), part.data_ptr(),
-                  tickets.data_ptr(), _ptr(None if weight is None else dw),
-                  db.data_ptr(), coef.data_ptr(), rows, c, ldg, p.lanes,
-                  p.tile_vectors, p.chunk_rows, p.chunks, p.tiles, GROUP,
-                  int(relu))
+    if out is None:
+        _build.launch("batch_norm_bwd_reduce_" + sfx, x.device,
+                      dy.data_ptr(), x.data_ptr(), mean.data_ptr(),
+                      invstd.data_ptr(), _ptr(weight), bias.data_ptr(),
+                      part.data_ptr(), tickets.data_ptr(),
+                      _ptr(None if weight is None else dw), db.data_ptr(),
+                      coef.data_ptr(), rows, c, ldg, p.lanes,
+                      p.tile_vectors, p.chunk_rows, p.chunks, p.tiles, GROUP,
+                      int(relu))
+    else:
+        _build.launch("batch_norm_bwd_reduce_residual_" + sfx, x.device,
+                      dy.data_ptr(), out.data_ptr(), x.data_ptr(),
+                      g.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
+                      _ptr(weight), bias.data_ptr(), part.data_ptr(),
+                      tickets.data_ptr(),
+                      _ptr(None if weight is None else dw), db.data_ptr(),
+                      coef.data_ptr(), rows, c, ldg, p.lanes,
+                      p.tile_vectors, p.chunk_rows, p.chunks, p.tiles, GROUP)
+        # The elementwise pass reads g (rows c apart) where it read dy.
+        dy, ldg, relu = g, c, False
     if output_mask[0]:
         _build.launch("batch_norm_bwd_elemt_" + sfx, x.device, dy.data_ptr(),
                       x.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
@@ -433,7 +522,13 @@ def _backward(dy, x, weight, bias, mean, invstd, relu, output_mask):
                       dx.data_ptr(), rows, c, ldg, p.lanes, p.tile_vectors,
                       p.chunk_rows, p.chunks, p.tiles, int(relu))
         dx = dx.contiguous(memory_format=layout)
-    return dx, dw, db
+    return (dx, dw, db) + tuple(
+        t.contiguous(memory_format=layout) for t in extra[1:])
+
+
+def _backward_residual(dy, out, x, weight, bias, mean, invstd, output_mask):
+    return _backward(dy, x, weight, bias, mean, invstd, True, output_mask,
+                     out)
 
 
 # ---------------------------------------------------------------------------
@@ -444,12 +539,20 @@ def _backward(dy, x, weight, bias, mean, invstd, relu, output_mask):
 def batch_norm_train(x: torch.Tensor, weight: Optional[torch.Tensor],
                      bias: torch.Tensor, running_mean: torch.Tensor,
                      running_var: torch.Tensor, momentum: float, eps: float,
-                     relu: bool, update: bool) -> torch.Tensor:
+                     relu: bool, update: bool,
+                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BatchNorm's train-mode forward of NCHW x, and the ReLU where `relu`;
-    the running statistics moved where `update` (see the module
-    docstring)."""
+    with a `residual` of x's shape and dtype (taken with `relu` only),
+    relu(BN(x) + residual); the running statistics moved where `update`
+    (see the module docstring)."""
+    if residual is not None and not relu:
+        raise ValueError("batch_norm_train: a residual is added before the "
+                         "ReLU; pass relu=True")
     mean, invstd = torch.ops.gvcnn.batch_norm_stats(
         x.detach(), running_mean, running_var, momentum, eps, update)
+    if residual is not None:
+        return torch.ops.gvcnn.batch_norm_apply_residual(
+            x, weight, bias, mean, invstd, residual)
     return torch.ops.gvcnn.batch_norm_apply(x, weight, bias, mean, invstd,
                                             relu)
 
@@ -471,6 +574,16 @@ def _backward_fake(dy, x, weight, bias, mean, invstd, relu, output_mask):
             mean.new_empty((c,)))
 
 
+def _apply_residual_fake(x, weight, bias, mean, invstd, residual):
+    return _empty(x)
+
+
+def _backward_residual_fake(dy, out, x, weight, bias, mean, invstd,
+                            output_mask):
+    return _backward_fake(dy, x, weight, bias, mean, invstd, True,
+                          output_mask) + (_empty(x),)
+
+
 torch.library.define(
     "gvcnn::batch_norm_stats",
     "(Tensor x, Tensor(a!) running_mean, Tensor(b!) running_var, "
@@ -490,6 +603,23 @@ torch.library.define(
     "(Tensor, Tensor, Tensor)")
 torch.library.impl("gvcnn::batch_norm_backward", "default", _backward)
 torch.library.register_fake("gvcnn::batch_norm_backward", _backward_fake)
+torch.library.define(
+    "gvcnn::batch_norm_apply_residual",
+    "(Tensor x, Tensor? weight, Tensor bias, Tensor mean, Tensor invstd, "
+    "Tensor residual) -> Tensor")
+torch.library.impl("gvcnn::batch_norm_apply_residual", "default",
+                   _apply_residual)
+torch.library.register_fake("gvcnn::batch_norm_apply_residual",
+                            _apply_residual_fake)
+torch.library.define(
+    "gvcnn::batch_norm_backward_residual",
+    "(Tensor dy, Tensor out, Tensor x, Tensor? weight, Tensor bias, "
+    "Tensor mean, Tensor invstd, bool[3] output_mask) -> "
+    "(Tensor, Tensor, Tensor, Tensor)")
+torch.library.impl("gvcnn::batch_norm_backward_residual", "default",
+                   _backward_residual)
+torch.library.register_fake("gvcnn::batch_norm_backward_residual",
+                            _backward_residual_fake)
 
 
 def _apply_setup_context(ctx, inputs, output):
@@ -514,13 +644,37 @@ torch.library.register_autograd("gvcnn::batch_norm_apply", _apply_backward,
                                 setup_context=_apply_setup_context)
 
 
+def _apply_residual_setup_context(ctx, inputs, output):
+    x, weight, bias, mean, invstd, _ = inputs
+    ctx.save_for_backward(x, weight, bias, mean, invstd, output)
+
+
+def _apply_residual_backward(ctx, dout):
+    """BatchNorm's whole gradient and the residual's (g, the ReLU's
+    gradient) from the saved x, statistics and out."""
+    x, weight, bias, mean, invstd, out = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    mask: List[bool] = [need[0], weight is not None and need[1], need[2]]
+    dx, dw, db, dr = torch.ops.gvcnn.batch_norm_backward_residual(
+        dout, out, x, weight, bias, mean, invstd, mask)
+    return (dx if mask[0] else None, dw if mask[1] else None,
+            db if mask[2] else None, None, None, dr if need[5] else None)
+
+
+torch.library.register_autograd("gvcnn::batch_norm_apply_residual",
+                                _apply_residual_backward,
+                                setup_context=_apply_residual_setup_context)
+
+
 def _no_second_derivative(ctx, *grads):
-    raise NotImplementedError("gvcnn::batch_norm_backward has no gradient: "
+    raise NotImplementedError("the BatchNorm backward ops have no gradient: "
                               "the port takes no second derivative")
 
 
-# Registered so that the backward op runs below autograd, as the forward
-# does, and refuses a gradient instead of recording its plain version's ops.
-torch.library.register_autograd(
-    "gvcnn::batch_norm_backward", _no_second_derivative,
-    setup_context=lambda ctx, inputs, output: None)
+# Registered so that the backward ops run below autograd, as the forwards
+# do, and refuse a gradient instead of recording their plain versions' ops.
+for _op in ("gvcnn::batch_norm_backward",
+            "gvcnn::batch_norm_backward_residual"):
+    torch.library.register_autograd(
+        _op, _no_second_derivative,
+        setup_context=lambda ctx, inputs, output: None)

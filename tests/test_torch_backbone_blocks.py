@@ -12,6 +12,12 @@ package's, one at a time, on the CPU at fp32 (the whole backbones:
   against `jax.vjp`, within 1e-3 of each tensor's max (the mean
   subtraction of train-mode BN over a few dozen values amplifies fp32
   rounding).
+- ResNet's bottleneck, which hands its shortcut to conv3's BatchNorm as a
+  residual, against the composition it replaced (conv3's BatchNorm
+  without the ReLU, the add, `F.relu`): in train mode bit for bit in fp32
+  (output, statistics, every gradient), with the identity and with the
+  projection shortcut; ResNet-50's eval forward bit for bit in bf16 and
+  fp32.
 """
 
 import functools
@@ -36,6 +42,7 @@ from gvcnn_tf_tpu_torch.models.backbones import (  # noqa: E402
 )
 from gvcnn_tf_tpu_torch.models.backbones.layers import (  # noqa: E402
     BatchNorm,
+    conv2d_tf,
 )
 from test_torch_backbones import (  # noqa: E402
     _nhwc,
@@ -159,3 +166,72 @@ def test_train_mode_block_matches_jax(key):
     assert set(got) == set(want)
     for path in want:
         assert_close_rel(got[path], want[path], rel=1e-3, msg=str(path))
+
+
+def _unfused_bottleneck(block, x):
+    """The bottleneck as it ran before the residual op: conv3's BatchNorm
+    without the ReLU, then relu(shortcut + y)."""
+    import torch.nn.functional as F
+
+    shortcut = x if block.shortcut is None else block.shortcut(x)
+    c3 = block.conv3
+    y = c3.BatchNorm(conv2d_tf(block.conv2(block.conv1(x)), c3.conv.weight,
+                               c3.conv.stride, c3.padding))
+    return F.relu(shortcut + y)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shortcut", ["identity", "projection"])
+def test_train_mode_bottleneck_is_the_unfused_composition(shortcut,
+                                                          channels_last):
+    """A train-mode bottleneck (fp32, scaled BN) gives the unfused
+    composition's output, running statistics and gradients of x and of
+    every parameter bit for bit, with the identity shortcut (256 -> 256)
+    and with the projection (64 -> 128, stride 2)."""
+    rs = np.random.RandomState(11)
+    in_ch, width, stride = (256, 64, 1) if shortcut == "identity" else (
+        64, 32, 2)
+    fused = resnet.Bottleneck(in_ch, width, stride)
+    randomize(fused, rs)
+    assert (fused.shortcut is None) == (shortcut == "identity")
+    unfused = resnet.Bottleneck(in_ch, width, stride)
+    unfused.load_state_dict(fused.state_dict())
+    x = torch.from_numpy(rs.uniform(-1, 1, (2, in_ch, 9, 9)).astype(
+        np.float32))
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya = fused.train()(xa)
+    yb = _unfused_bottleneck(unfused.train(), xb)
+    assert torch.equal(ya, yb)
+    g = torch.from_numpy(rs.normal(0, 1, ya.shape).astype(np.float32))
+    ya.backward(g)
+    yb.backward(g)
+    assert torch.equal(xa.grad, xb.grad)
+    for (name, p), q in zip(fused.named_parameters(),
+                            unfused.parameters()):
+        assert torch.equal(p.grad, q.grad), name
+    for (name, t), u in zip(fused.state_dict().items(),
+                            unfused.state_dict().values()):
+        assert torch.equal(t, u), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet50_eval_forward_is_unchanged(dtype, monkeypatch):
+    """ResNet-50's eval forward (every endpoint, at 64x64) equals the one
+    whose bottlenecks run the unfused composition, bit for bit."""
+    rs = np.random.RandomState(5)
+    model = resnet.ResNet50Base()
+    calibrate_bn(model, torch.from_numpy(rs.uniform(
+        -1, 1, (1, 64, 64, 3)).astype(np.float32)), rs)
+    model = model.to(dtype).eval()
+    x = torch.from_numpy(rs.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)).to(dtype)
+    with torch.no_grad():
+        got = model(x)[1]
+        monkeypatch.setattr(resnet.Bottleneck, "forward",
+                            _unfused_bottleneck)
+        want = model(x)[1]
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

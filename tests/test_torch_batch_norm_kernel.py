@@ -11,6 +11,13 @@ statistics, the running statistics and the gradients of x, scale and bias
 are compared with that bit for bit.  The gradient check runs in float64
 (finite differences of the whole train-mode forward, through the batch
 statistics).
+
+The residual op (ResNet's relu(shortcut + BN(conv3)) in one apply) is held
+to the unfused route it replaced, the train-mode op without the ReLU, the
+add and `torch.relu` under autograd: bit for bit in fp32; in bf16, where
+the fused op rounds the fp32 sum once, out equals the fp32 result rounded
+(so within one bf16 ulp of it) and the gradients are the unfused
+backward's given that out's mask.
 """
 
 import collections
@@ -37,6 +44,8 @@ from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk  # noqa: E402
 EPS, MOMENTUM = 1e-3, 0.9
 BN_OPS = {"gvcnn::batch_norm_stats", "gvcnn::batch_norm_apply",
           "gvcnn::batch_norm_backward"}
+RESIDUAL_OPS = {"gvcnn::batch_norm_apply_residual",
+                "gvcnn::batch_norm_backward_residual"}
 
 
 class _Ops(TorchDispatchMode):
@@ -302,3 +311,195 @@ def test_an_inception_v1_train_step_runs_no_native_batch_norm():
         "aten::native_batch_norm", "aten::native_batch_norm_backward",
         "aten::relu", "aten::relu_", "aten::threshold_backward"}
     assert not layers.recomputing()
+
+
+# ---------------------------------------------------------------------------
+# The residual op: relu(BN(x) + r)
+# ---------------------------------------------------------------------------
+
+
+def _residual(x, seed=1):
+    """A residual like x (dtype, layout), of a spread that puts about half
+    of BN(x) + r below 0."""
+    rs = np.random.RandomState(seed)
+    r = torch.from_numpy(rs.randn(*x.shape).astype(np.float32)).to(x.dtype)
+    return r.contiguous(memory_format=torch.channels_last
+                        if x.is_contiguous(memory_format=torch.channels_last)
+                        and not x.is_contiguous() else torch.contiguous_format)
+
+
+def _grads(bn, *tensors):
+    return [t.grad for t in tensors] + [bn.bias.grad] + (
+        [bn.scale.grad] if bn.scale is not None else [])
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_route_is_the_unfused_composition(dtype, scale,
+                                                   channels_last):
+    """`BatchNorm(x, relu=True, residual=r)` in train mode against the
+    route it replaced, BatchNorm without the ReLU, + r, `torch.relu`,
+    under autograd: out, the running statistics and the gradients of x,
+    r, scale and bias bit for bit in fp32.  In bf16 out is the fp32 sum
+    rounded once (within one bf16 ulp of the fp32 result), r's gradient
+    is `threshold_backward` at that out, and the rest is the unfused
+    backward of that gradient."""
+    x, dy, bn = _case(dtype, channels_last, scale)
+    r = _residual(x)
+    ref = BatchNorm(x.shape[1], EPS, MOMENTUM, use_scale=scale).train()
+    ref.load_state_dict(bn.state_dict())
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ra, rb = r.clone().requires_grad_(), r.clone().requires_grad_()
+    with _Ops() as ops:
+        out = bn(xa, relu=True, residual=ra)
+        out.backward(dy)
+    assert {k: ops.seen[k] for k in RESIDUAL_OPS} == dict.fromkeys(
+        RESIDUAL_OPS, 1)
+    assert not ops.seen["gvcnn::batch_norm_apply"]
+    assert out.dtype == dtype and out.stride() == x.stride()
+    assert ra.grad.stride() == x.stride()
+    want = torch.relu(ref(xb) + rb)
+    assert torch.equal(bn.running_mean, ref.running_mean)
+    assert torch.equal(bn.running_var, ref.running_var)
+    if dtype == torch.float32:
+        assert torch.equal(out, want)
+        want.backward(dy)
+        for got, exp in zip(_grads(bn, xa, ra), _grads(ref, xb, rb)):
+            assert torch.equal(got, exp)
+        return
+    mean, invstd = bk.stats_plain(x, EPS)
+    weight = None if bn.scale is None else bn.scale.detach()
+    exact = torch.relu(bk.apply_plain(x.float(), weight, bn.bias.detach(),
+                                      mean, invstd, False) + r.float())
+    assert torch.equal(out, exact.to(dtype))
+    ulp = torch.exp2(torch.floor(torch.log2(
+        exact.abs().clamp_min(2.0 ** -126))) - 7)
+    assert ((out.float() - exact).abs() <= ulp).all()
+    g = torch.ops.aten.threshold_backward(dy, out.detach(), 0)
+    assert torch.equal(ra.grad, g)
+    dx, dw, db = bk.backward_plain(g, x, weight, bn.bias.detach(), mean,
+                                   invstd, False, [True, scale, True])
+    assert torch.equal(xa.grad, dx) and torch.equal(bn.bias.grad, db)
+    if scale:
+        assert torch.equal(bn.scale.grad, dw)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op", ["apply_residual", "backward_residual"])
+def test_residual_fakes_match_the_real_outputs(op, dtype, channels_last):
+    """The residual ops' fakes give their real outputs' shapes, dtypes and
+    strides (out, dx and dresidual in x's dtype and layout), and
+    `torch.library.opcheck` passes (schema, fake, registered gradient)."""
+    x, dy, bn = _case(dtype, channels_last, True)
+    r = _residual(x)
+    mean, invstd = bk.stats_plain(x, EPS)
+    out = bk.apply_residual_plain(x, bn.scale.detach(), bn.bias.detach(),
+                                  mean, invstd, r)
+    args = {"apply_residual": (
+                x.clone().requires_grad_(),
+                bn.scale.detach().clone().requires_grad_(),
+                bn.bias.detach().clone().requires_grad_(), mean, invstd,
+                r.clone().requires_grad_()),
+            "backward_residual": (dy, out, x, None, bn.bias.detach(), mean,
+                                  invstd, [True, False, True])}[op]
+    fn = getattr(torch.ops.gvcnn, f"batch_norm_{op}").default
+    real = fn(*args)
+    fake = getattr(bk, f"_{op}_fake")(*args)
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(t.shape, t.dtype, t.stride()) for t in real] == [
+        (t.shape, t.dtype, t.stride()) for t in fake]
+    torch.library.opcheck(fn, args)
+
+
+@pytest.mark.parametrize("scale", [False, True])
+def test_gradcheck_of_the_residual_backward_in_float64(scale):
+    """The residual op's registered gradient (through the batch statistics,
+    the ReLU's mask from the saved out, and the residual) against finite
+    differences, in float64."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(3, 5, 4, 3)).requires_grad_()
+    r = torch.from_numpy(rs.randn(3, 5, 4, 3)).requires_grad_()
+    w = torch.from_numpy(rs.uniform(0.5, 1.5, 5)).requires_grad_()
+    b = torch.from_numpy(rs.randn(5) * 0.3).requires_grad_()
+
+    def forward(x, r, *params):
+        weight, bias = params if scale else (None, params[0])
+        rm, rv = torch.zeros(5, dtype=x.dtype), torch.ones(5, dtype=x.dtype)
+        return bk.batch_norm_train(x, weight, bias, rm, rv, MOMENTUM, EPS,
+                                   True, True, residual=r)
+
+    assert torch.autograd.gradcheck(
+        forward, (x, r, w, b) if scale else (x, r, b))
+
+
+@pytest.mark.parametrize("mode", ["eval", "global"])
+def test_eval_and_global_statistics_never_reach_the_residual_op(
+        mode, monkeypatch):
+    """With a residual, eval mode runs `F.batch_norm` and `bn_sync="global"`
+    its summed statistics, each then the add and `F.relu`, as the
+    bottleneck ran them before the residual op: no train-mode op is
+    reached."""
+    from gvcnn_tf_tpu_torch.parallel import collectives
+
+    x, _, bn = _case(torch.float32, True, True)
+    r = _residual(x)
+    if mode == "eval":
+        bn.eval()
+        y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.scale,
+                         bn.bias, False, 0.0, EPS)
+    else:
+        monkeypatch.setattr(collectives, "sum_across_ranks",
+                            lambda t, group: t)
+        bn.sync_group = object()
+        y = bn._global_forward(x)
+    want = F.relu(r + y)
+    with _Ops() as ops:
+        out = bn(x, relu=True, residual=r)
+    assert not set(ops.seen) & (BN_OPS | RESIDUAL_OPS)
+    assert torch.equal(out, want)
+
+
+def test_a_residual_needs_the_relu():
+    """A residual is added before the ReLU: `BatchNorm` and
+    `batch_norm_train` refuse one without `relu`, in train and eval mode."""
+    x, _, bn = _case(torch.float32, False, True)
+    r = _residual(x)
+    with pytest.raises(ValueError):
+        bn(x, residual=r)
+    with pytest.raises(ValueError):
+        bn.eval()(x, residual=r)
+    with pytest.raises(ValueError):
+        bk.batch_norm_train(x, None, bn.bias, bn.running_mean,
+                            bn.running_var, MOMENTUM, EPS, False, True, r)
+
+
+def test_a_resnet50_train_step_reaches_the_residual_op_once_a_block():
+    """A B = 2 GVCNN (ResNet-50) train step reaches the residual op and its
+    backward once for each of the 16 bottlenecks, the plain apply and
+    backward for the other 41 BatchNorms, the stats op for all 57, and no
+    `native_batch_norm`, separate ReLU or `threshold_backward`."""
+    from gvcnn_tf_tpu_torch import get_config
+    from gvcnn_tf_tpu_torch.train import create_train_state, train_step
+
+    base = get_config("mn40_12view_resnet50")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, height=64, width=64, num_views=2, batch_size=2,
+        transfer_dtype="uint8"))
+    state = create_train_state(cfg, torch.device("cpu"))
+    rs = np.random.RandomState(0)
+    batch = {"views": torch.from_numpy(rs.randint(
+        0, 256, (2, 2, 64, 64, 3)).astype(np.uint8)),
+             "label": torch.tensor([1, 2])}
+    with _Ops() as ops:
+        train_step(state, batch, cfg)
+    assert {k: ops.seen[k] for k in sorted(BN_OPS | RESIDUAL_OPS)} == {
+        "gvcnn::batch_norm_apply": 41, "gvcnn::batch_norm_apply_residual": 16,
+        "gvcnn::batch_norm_backward": 41,
+        "gvcnn::batch_norm_backward_residual": 16,
+        "gvcnn::batch_norm_stats": 57}
+    assert not set(ops.seen) & {
+        "aten::native_batch_norm", "aten::native_batch_norm_backward",
+        "aten::relu", "aten::relu_", "aten::threshold_backward"}

@@ -82,7 +82,14 @@ plain apply given the kernels' statistics, the gradients within one bf16
 ulp plus 1e-4 of their largest (bounds in the test's docstring); dy read
 in place from a channel slice; no running update in a remat recompute; the
 same bits under CUDA-graph replay; a replayed Inception-v1 step launching
-each of the four kernels once a BatchNorm and none of PyTorch's.
+each of the four kernels once a BatchNorm and none of PyTorch's.  The
+residual variants (ResNet-50's relu(shortcut + BN(conv3))) at its four
+block-output widths and a C that is not a multiple of 8, bf16 and fp32:
+out within one ulp of the plain residual apply, r's gradient equal to
+`threshold_backward` at that out, and dx, dgamma and dbeta within the
+bounds above of the plain backward of it; the same bits under CUDA-graph
+replay; a replayed ResNet-50 step launching 16 residual applies and
+reduces a step.
 
 The residual join (`csrc/residual_join.cu`), at Inception-ResNet-v2's
 block35, block17 and block8 shapes at 384 images and a C that is not a
@@ -1677,6 +1684,146 @@ def test_batch_norm_kernels_match_plain(cuda, name, n, c, h, w, dtype, relu,
                 1e-4 * (g * xhat).abs().sum((0, 2, 3)))
     else:
         assert dw.numel() == 0
+
+
+# (name, N, C, H = W): ResNet-50's four block-output widths at their
+# sizes at 224 (block1-3 before their strided last unit), 4 images, and a C
+# that is not a multiple of 8 (one channel a thread).
+BN_RESIDUAL_SHAPES = [("block1", 4, 256, 56), ("block2", 4, 512, 28),
+                      ("block3", 4, 1024, 14), ("block4", 4, 2048, 7),
+                      ("odd_c", 6, 37, 9)]
+
+
+def _bn_residual_kernels(x, dy, r, weight, bias, rm, rv, update=True):
+    """(mean, invstd, out, dx, dweight, dbias, dresidual) of the stats,
+    residual apply, residual reduce and elementwise kernels."""
+    mean, invstd = torch.ops.gvcnn.batch_norm_stats(x, rm, rv, BN_MOMENTUM,
+                                                    BN_EPS, update)
+    out = torch.ops.gvcnn.batch_norm_apply_residual(x, weight, bias, mean,
+                                                    invstd, r)
+    grads = torch.ops.gvcnn.batch_norm_backward_residual(
+        dy, out, x, weight, bias, mean, invstd,
+        [True, weight is not None, True])
+    return (mean, invstd, out) + tuple(grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,n,c,hw", BN_RESIDUAL_SHAPES)
+def test_batch_norm_residual_kernels_match_plain(cuda, name, n, c, hw,
+                                                 dtype):
+    """The residual apply and reduce (with the stats and elementwise
+    kernels) against the plain versions on fp32 copies on the card, given
+    the kernels' own statistics: out within one ulp of its dtype of
+    `apply_residual_plain` (the same fp32 expression; the plain version
+    rounds the fma twice), r's gradient g equal to `threshold_backward`
+    at the kernel's out, and dx, dgamma and dbeta against
+    `backward_plain` of g without the ReLU, within the bounds of
+    `test_batch_norm_kernels_match_plain`.  One launch of each of the four
+    kernels, and none of the plain apply or reduce."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    x, dy, weight, bias = _bn_case(cuda, n, c, hw, hw, dtype, True)
+    r = _bn_case(cuda, n, c, hw, hw, dtype, False, seed=1)[0]
+    rm, rv = torch.randn(c, device=cuda), torch.rand(c, device=cuda) + 0.5
+    names = ("stats", "apply_residual", "bwd_reduce_residual", "bwd_elemt",
+             "apply_", "bwd_reduce_")
+    before = [launched(f"batch_norm_{k}") for k in names]
+    mean, invstd, out, dx, dw, db, g = _bn_residual_kernels(
+        x, dy, r, weight, bias, rm, rv)
+    torch.cuda.synchronize()
+    assert [launched(f"batch_norm_{k}") - b
+            for k, b in zip(names, before)] == [1, 1, 1, 1, 1, 1]
+    assert out.dtype == dx.dtype == g.dtype == dtype
+    for t in (out, dx, g):
+        assert t.is_contiguous(memory_format=torch.channels_last)
+
+    xf = x.float()
+    want = bk.apply_residual_plain(xf, weight, bias, mean, invstd, r.float())
+    _within("out", out, want, _ulp(want, dtype))
+    assert torch.equal(g, torch.ops.aten.threshold_backward(dy, out, 0))
+    gf = g.float()
+    want = bk.backward_plain(gf, xf, weight, bias, mean, invstd, False,
+                             [True, True, True])
+    top = 1e-4 * want[0].abs().max().item()
+    _within("dx", dx, want[0], top + (
+        0.0 if dtype == torch.float32 else _ulp(want[0], dtype)))
+    _within("dbeta", db, want[2], 1e-4 * gf.abs().sum((0, 2, 3)))
+    xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+    _within("dgamma", dw, want[1], 1e-4 * (gf * xhat).abs().sum((0, 2, 3)))
+
+
+def test_batch_norm_residual_replays_in_a_graph(cuda):
+    """The residual kernels captured in a CUDA graph and replayed on new
+    data give the eager results bit for bit and leave the tile tickets at
+    0."""
+    from gvcnn_tf_tpu_torch.ops import batch_norm_kernel as bk
+
+    cases = [_bn_case(cuda, 8, 512, 28, 28, torch.bfloat16, True, seed)
+             + (_bn_case(cuda, 8, 512, 28, 28, torch.bfloat16, False,
+                         seed + 10)[0],) for seed in range(3)]
+    x, dy, weight, bias, r = (t.clone() for t in cases[0])
+    rm, rv = torch.zeros(512, device=cuda), torch.ones(512, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _bn_residual_kernels(x, dy, r, weight, bias, rm.clone(), rv.clone())
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _bn_residual_kernels(x, dy, r, weight, bias, rm, rv)
+    for case in cases[1:]:
+        for static, new in zip((x, dy, weight, bias, r), case):
+            static.copy_(new)
+        rm_e, rv_e = rm.clone(), rv.clone()
+        graph.replay()
+        xe, dye, we, be, re = case
+        want = _bn_residual_kernels(xe, dye, re, we, be, rm_e, rv_e)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.equal(rm, rm_e) and torch.equal(rv, rv_e)
+        assert int(bk._device(x.device)[0].abs().sum()) == 0
+
+
+def test_compiled_resnet50_step_runs_the_residual_kernels(cuda):
+    """A captured and replayed B = 2 train step of mn40_12view_resnet50
+    (64x64, 4 views, bf16) launches the residual apply and reduce once for
+    each of its 16 bottlenecks a step, the plain apply and reduce for its
+    other 41 BatchNorms, and the stats and elementwise kernels for all 57,
+    as the launch counters and the profiler say; the eager step runs no
+    separate ReLU and no `threshold_backward`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gvcnn_tf_tpu_torch.train import compile_train_step, create_train_state
+
+    cfg = _graph_cfg("mn40_12view_resnet50")
+    batches = _u8_batches(cfg, 3)
+    state = create_train_state(cfg, cuda)
+
+    class Ops(TorchDispatchMode):
+        seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    step = compile_train_step(state, cfg, batches[0])
+    with Ops() as ops:
+        step(state, batches[0], cfg)          # the warm-up, eager
+    assert "gvcnn::batch_norm_apply_residual" in ops.seen
+    assert not ops.seen & {"aten::relu", "aten::relu_",
+                           "aten::threshold_backward"}
+    step(state, batches[1], cfg)              # the capture, replayed
+    names = {"stats_": 57, "apply_": 57, "bwd_reduce_": 57, "bwd_elemt_": 57,
+             "apply_residual_": 16, "bwd_reduce_residual_": 16}
+    before = {k: launched(f"batch_norm_{k}") for k in names}
+    kern, replays = _replay_kernels(step, state, batches[2], cfg)
+    assert {k: launched(f"batch_norm_{k}") - b for k, b in before.items()} \
+        == {k: n * replays for k, n in names.items()}
+    for k, n in (("apply_residual<", 16), ("bwd_reduce_residual<", 16),
+                 ("apply<", 41), ("bwd_reduce<", 41)):
+        assert sum(c for name, c in kern.items()
+                   if f"batch_norm_{k}" in name) == n, k
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
